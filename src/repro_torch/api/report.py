@@ -1,0 +1,95 @@
+"""Typed crawl reports and the host-side metric helpers. Counterpart of
+``repro/api/report.py`` (without ``ordering_quality`` and ``comm``, which
+belong to later slices of the port)."""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.stages import STATS, FetchReport
+
+
+def stats_dict(state) -> Dict[str, int]:
+    """Sum the per-shard stat counters into one named dict, plus the
+    frontier's FIFO rebase events."""
+    s = state.stats.cpu().numpy().sum(0)
+    out = {n: int(v) for n, v in zip(STATS, s)}
+    out["fifo_rebase"] = int(state.f_rebased.sum())
+    return out
+
+
+def stats_per_shard(state) -> Dict[str, np.ndarray]:
+    """Each counter as an ``(n_shards,)`` int64 vector."""
+    s = state.stats.cpu().numpy().astype(np.int64)
+    out = {n: s[:, i].copy() for i, n in enumerate(STATS)}
+    out["fifo_rebase"] = state.f_rebased.cpu().numpy().astype(
+        np.int64).reshape(s.shape[0], -1).sum(1)
+    return out
+
+
+def overlap_metrics(urls: np.ndarray, cfg) -> Dict[str, float]:
+    """C1 (URL) and C2 (content) overlap over a fetched-URL trace."""
+    from repro_torch.core import webgraph as W
+    if len(urls) == 0:
+        return dict(url_dup=0.0, content_dup=0.0, fetched=0)
+    canon = W.canonical(torch.from_numpy(urls.astype(np.int64)), cfg).numpy()
+    return dict(
+        fetched=len(urls),
+        url_dup=1.0 - len(np.unique(urls)) / len(urls),
+        content_dup=1.0 - len(np.unique(canon)) / len(canon),
+    )
+
+
+def harvest(rep: FetchReport) -> Tuple[List[np.ndarray], List[int]]:
+    """Unpack a FetchReport to ([fetched urls per step], [count per step]).
+    Takes one step's report ((n_slots, k) leaves) or a chunk's stacked
+    report ((steps, n_slots, k) leaves). URLs come back as uint32."""
+    m = rep.fetched_mask.cpu().numpy()
+    u = rep.fetched_urls.cpu().numpy().astype(np.uint32)
+    if m.ndim == 2:
+        m, u = m[None], u[None]
+    return [u[t][m[t]] for t in range(m.shape[0])], \
+           [int(mt.sum()) for mt in m]
+
+
+@dataclasses.dataclass(frozen=True)
+class CrawlReport:
+    """What one ``CrawlSession.run`` produced (host-side, numpy)."""
+    urls: np.ndarray                     # fetched URL ids in crawl order
+    per_step: np.ndarray                 # (steps,) pages fetched per step
+    stats: Dict[str, int]                # cumulative counters at run end
+    seconds: float                       # wall time of the run
+    cfg: Any = dataclasses.field(default=None, repr=False, compare=False)
+    stats_per_shard: Dict[str, np.ndarray] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @functools.cached_property
+    def overlap(self) -> Dict[str, float]:
+        """C1/C2 metrics over this run's URLs, computed on first access."""
+        if self.cfg is None:
+            return dict(url_dup=0.0, content_dup=0.0, fetched=0)
+        return overlap_metrics(self.urls, self.cfg)
+
+    @property
+    def steps(self) -> int:
+        return len(self.per_step)
+
+    @property
+    def fetched(self) -> int:
+        return int(self.per_step.sum())
+
+    @property
+    def pages_per_sec(self) -> float:
+        return self.fetched / max(self.seconds, 1e-9)
+
+    def summary(self) -> str:
+        line = (f"{self.fetched} pages / {self.steps} steps in "
+                f"{self.seconds:.2f}s ({self.pages_per_sec:.0f} pages/s)")
+        if self.overlap and self.overlap["fetched"]:
+            line += (f", url_dup {100 * self.overlap['url_dup']:.2f}%"
+                     f", content_dup {100 * self.overlap['content_dup']:.2f}%")
+        return line

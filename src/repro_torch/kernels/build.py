@@ -1,0 +1,118 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+into its own shared library, loaded with ``ctypes``: seconds per kernel,
+where a source that includes PyTorch's headers takes minutes. The build goes
+into ``build/repro_torch/`` at the root of the checkout, keyed by a hash of
+the source and the flags, so a changed source is never served a stale
+library. Nothing is compiled when a module is imported: the first launch
+builds its kernel, and :func:`build_all` builds every kernel at once, one
+``nvcc`` per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on the PATH, then the
+    toolkit's usual place. Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built from csrc/ at first use and need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+class Kernel:
+    """One hand-written kernel: its source, its library, and the count of
+    its launches (``launches``, a plain integer the caller may reset)."""
+
+    def __init__(self, name: str, n_ptr: int, n_int: int):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self._argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                          + [ctypes.c_void_p])            # + the stream
+        self._fn = None
+        self._err = None
+        self.launches = 0
+        self.build_log = ""
+
+    @property
+    def library(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start ``nvcc`` for this kernel unless its library exists."""
+        if self.library.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        return subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
+        if proc is None:
+            return
+        out, _ = proc.communicate()
+        self.build_log = out
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+        os.replace(tmp, self.library)
+
+    def _load(self):
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            lib = ctypes.CDLL(str(self.library))
+            fn = getattr(lib, f"{self.name}_launch")
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.name}_error")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C entry on the current stream, raise on a CUDA error,
+        and count the launch."""
+        import torch
+        fn = self._load()
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {rc} ({self._err(rc).decode()})")
+        self.launches += 1
+
+
+def build_all(kernels: Iterable[Kernel]) -> Dict[str, float]:
+    """Build every kernel in parallel; returns {name: seconds} (0 for a
+    library that already existed)."""
+    t0 = time.time()
+    procs = [(k, k.start_build()) for k in kernels]
+    secs = {}
+    for k, p in procs:
+        k.finish_build(p)
+        secs[k.name] = 0.0 if p is None else time.time() - t0
+    return secs

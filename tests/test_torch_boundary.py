@@ -1,0 +1,101 @@
+"""The port's boundaries: it imports nothing of JAX or of the JAX package,
+its config mirrors the reference's, and what it does not cover yet raises."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import base as jbase  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs import webparf as tweb  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant) and _forbidden(str(arg.value)):
+                bad.append(arg.value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_crawl_config_mirrors_reference():
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert fields(tbase.CrawlConfig) == fields(jbase.CrawlConfig)
+    assert tbase.CrawlConfig().n_slots == jbase.CrawlConfig().n_slots
+
+
+def test_webparf_configs_mirror_reference():
+    from repro.configs import webparf as jweb
+    assert dataclasses.asdict(tweb.CONFIG) == dataclasses.asdict(jweb.CONFIG)
+    assert dataclasses.asdict(tweb.reduced()) == \
+        dataclasses.asdict(jweb.reduced())
+
+
+@pytest.mark.parametrize("override", [
+    dict(ordering="opic"), dict(ordering="opic_url"),
+    dict(coordination="firewall"), dict(coordination="crossover"),
+    dict(coordination="batched"), dict(telemetry=True),
+    dict(rebalance_threshold=1.5)])
+def test_unported_features_raise(override):
+    from repro_torch.core.stages import init_state
+    cfg = tbase.scaled(tweb.reduced(), **override)
+    with pytest.raises(NotImplementedError):
+        init_state(cfg, 1, "cpu")
+
+
+def test_unported_shapes_raise():
+    from repro_torch.api import CrawlSession
+    from repro_torch.core.stages import init_state
+    with pytest.raises(NotImplementedError):
+        init_state(tweb.reduced(), 2, "cpu")
+    with pytest.raises(NotImplementedError):
+        CrawlSession(tweb.reduced(), device="cpu",
+                     extra_stages=[lambda ctx, st, c: (st, c, {})])
+    with pytest.raises(ValueError, match="auto"):
+        init_state(tbase.scaled(tweb.reduced(), kernel_impl="ref"), 1, "cpu")
+
+
+def test_init_state_needs_a_card_by_default():
+    from repro_torch.core.stages import init_state
+    if torch.cuda.is_available():
+        assert init_state(tweb.reduced(), 1, None).f_url.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            init_state(tweb.reduced(), 1, None)
+
+
+def test_kernels_build_nothing_at_import():
+    """Importing every module of the port neither builds nor needs nvcc."""
+    import importlib
+    for p in PORT_FILES[:-1]:
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        importlib.import_module(".".join(
+            rel.parts[:-1] if rel.name == "__init__" else rel.parts))
+    from repro_torch.kernels import all_kernels, launch_counts
+    assert {k.name for k in all_kernels()} == {"frontier_select", "bloom"}
+    assert all(k.source.exists() for k in all_kernels())
+    assert set(launch_counts()) == {"frontier_select", "bloom"}
