@@ -15,7 +15,9 @@ non-zero):
                domains, 512 frontier rows of 4096, 512 Bloom rows of 2^24
                bytes. Both kernels must have launched during the run.
      profile — the device's busy time over two more intervals
-               (torch.profiler), and its idle share.
+               (torch.profiler), its idle share, and the host syncs per
+               step (torch's sync debug mode, and the profiler's
+               cudaStreamSynchronize calls).
   4. trajectory — the CLI-sized config runs 32 steps on the card and on the
                CPU (plain versions); every output and state leaf must match.
   5. kernels — each kernel's time (CUDA events) beside its plain version's,
@@ -33,6 +35,8 @@ import json
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -240,13 +244,35 @@ def phase_main(steps):
           "content_dup": rep.overlap["content_dup"],
           "queued_urls": int(sess.state.f_valid.sum()), "launches": counts,
           "stats": stats})
-    return sess, counts, stats
+    return sess, counts
+
+
+def count_syncs(sess, steps):
+    """Host syncs in ``steps`` steps: torch's sync debug mode warns on
+    every synchronizing CUDA call (a device-to-host copy, a boolean-mask
+    index, a tensor's truth value). Returns the count and the source lines
+    that synced most."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                sess.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    return len(syncs), dict(where.most_common(16))
 
 
 def phase_profile(sess, steps):
     """Where a step's time goes: torch.profiler's CUDA events over whole
     dispatch intervals give the device's busy time, and so its idle share
-    of the wall time (the profiler's own overhead included)."""
+    of the wall time (the profiler's own overhead included); the host syncs
+    are counted twice, by the profiler's runtime calls and by torch's sync
+    debug mode over as many steps again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -258,18 +284,26 @@ def phase_profile(sess, steps):
             sess.step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    per_name, n = {}, 0
+    per_name, n, runtime = {}, 0, Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             per_name[e.name] = (per_name.get(e.name, 0.0)
                                 + e.time_range.elapsed_us())
             n += 1
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaMemcpyAsync", "cudaLaunchKernel"):
+            runtime[e.name] += 1
     busy_us = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    n_sync, sync_lines = count_syncs(sess, steps)
     emit({"phase": "profile", "steps": steps, "wall_ms": wall_us / 1e3,
           "device_events": n, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1 - busy_us / wall_us if n else None,
-          "top_device_ms": {k[:80]: v / 1e3 for k, v in top}})
+          "top_device_ms": {k[:80]: v / 1e3 for k, v in top},
+          "runtime_calls_per_step": {k: v / steps
+                                     for k, v in runtime.items()},
+          "sync_debug_syncs_per_step": n_sync / steps,
+          "sync_debug_lines": sync_lines})
 
 
 def phase_trajectory(steps=32):
@@ -303,11 +337,29 @@ def phase_trajectory(steps=32):
           "dedup_bloom": a.stats["dedup_bloom"]})
 
 
-def phase_kernels(sess, counts, errs, stats, steps):
+def capture_dispatch_masks(sess, n):
+    """The live-lane masks of the next n dispatches, as dispatch_exchange
+    hands its (rows, M) batches to the Bloom dedup: each row's live URLs
+    packed at its front by router.pack_buckets."""
+    from repro_torch.core import dedup as DD
+    orig, got = DD.probe_insert, []
+
+    def spy(b, urls, mask, **kw):
+        got.append(mask.clone())
+        return orig(b, urls, mask, **kw)
+    DD.probe_insert = spy
+    try:
+        while len(got) < n:
+            sess.step()
+    finally:
+        DD.probe_insert = orig
+    return got
+
+
+def phase_kernels(sess, counts, errs, steps):
     import torch
-    from repro_torch.core.dedup import _bit_indices
     from repro_torch.kernels.bloom.ops import probe_insert
-    from repro_torch.kernels.bloom.ref import bloom_ref
+    from repro_torch.kernels.bloom.ref import _bit_indices, bloom_ref
     from repro_torch.kernels.frontier_select.ops import select
     from repro_torch.kernels.frontier_select.ref import NEG, select_ref
     cfg = sess.cfg
@@ -321,11 +373,13 @@ def phase_kernels(sess, counts, errs, stats, steps):
     p_k, v_k = st.f_pri.clone(), st.f_valid.clone()
     p_r, v_r = st.f_pri.clone(), st.f_valid.clone()
     p_l, v_l = st.f_pri.clone(), st.f_valid.clone()
+    # bytes: every cell's priority and valid flag read; per row k popped
+    # url/pri/mask written; per popped cell its url read, pri/valid written
+    popped = int(torch.clamp(v_k.sum(dim=1), max=k).sum())
+    nbytes = R * C * (4 + 1) + R * k * (8 + 4 + 1) + popped * (8 + 4 + 1)
     ms = cuda_ms(lambda: select(url, p_k, v_k, k=k), n)
     plain = cuda_ms(lambda: select_ref(url, p_r, v_r, k=k), n)
     lib = cuda_ms(lambda: torch.topk(torch.where(v_l, p_l, NEG), k, dim=1), n)
-    popped = R * k
-    nbytes = R * C * (4 + 1) + R * k * (8 + 8 + 4 + 1 + 8) + popped * (4 + 1)
     out.append({"name": "frontier_select", "route": "cuda",
                 "source": "src/repro_torch/csrc/frontier_select.cu",
                 "replaces": "src/repro/kernels/frontier_select/"
@@ -337,30 +391,43 @@ def phase_kernels(sess, counts, errs, stats, steps):
                 "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
                 "bound_by": "bytes", "library_ms": lib})
     del p_k, v_k, p_r, v_r, p_l, v_l
-    # bloom on the session's 8 GiB filter, with dispatch-shaped batches:
-    # (512, 4096) URLs of which as many are live as a dispatch received
-    R, b, kh = st.bloom_bits.shape[0], cfg.bloom_bits_log2, cfg.bloom_hashes
-    M = min(2 * cfg.dispatch_capacity, cfg.frontier_capacity)
-    live = max(1, stats["dispatch_recv"] // max(1, stats["dispatch_rounds"]))
+    # bloom on the session's 8 GiB filter, with batches laid out as the
+    # next dispatches lay them out (their masks), holding fresh URLs
+    kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
+    masks = capture_dispatch_masks(sess, 4)
+    R, M = masks[0].shape
     rng = np.random.default_rng(SEED + 1)
-    batches = []
-    for _ in range(n + 1):
-        u = rng.integers(0, 1 << cfg.url_space_log2, (R, M)).astype(np.int64)
-        m = np.zeros(R * M, bool)
-        m[rng.choice(R * M, live, replace=False)] = True
-        batches.append((torch.tensor(u, device="cuda"),
-                        torch.tensor(m.reshape(R, M), device="cuda")))
-    bits = st.bloom_bits
-    u0, m0 = batches[0]
-    idx = _bit_indices(u0, kh, b)[m0]                      # (live, k)
-    rows = torch.nonzero(m0)[:, :1].expand(idx.shape)
-    flat = torch.unique(rows * (1 << b) + idx)
-    n_new = int((bits.view(-1)[flat] == 0).sum())
-    nbytes = R * M * (8 + 1 + 1) + live * kh + n_new
-    it = iter(batches)
-    ms = cuda_ms(lambda: probe_insert(bits, *next(it), k=kh), n)
-    it = iter(batches)
-    plain = cuda_ms(lambda: bloom_ref(bits, *next(it), k=kh), n)
+
+    def batches():
+        out = []
+        for i in range(n + 1):
+            m = masks[i % len(masks)]
+            u = torch.zeros(m.shape, dtype=torch.int64, device="cuda")
+            u[m] = torch.tensor(rng.integers(0, 1 << cfg.url_space_log2,
+                                             int(m.sum())), device="cuda")
+            out.append((u, m))
+        return out
+    kern_b, plain_b = batches(), batches()
+    # bytes: every lane's mask read and seen written; the live URLs in
+    # 32-byte sectors (4 lanes each); k probe bytes per live URL; and the
+    # bytes newly set, counted on the filter around the timed calls
+    nbytes, n_live, pos = 0, 0, []
+    for u, m in kern_b:
+        live = torch.nonzero(m.view(-1))[:, 0]
+        n_live += live.numel()
+        nbytes += 2 * R * M + 32 * torch.unique(live // 4).numel() \
+            + kh * live.numel()
+        rows = torch.nonzero(m)[:, :1]
+        pos.append((rows * (1 << b) + _bit_indices(u, kh, b)[m]).view(-1))
+    flat = st.bloom_bits.view(-1)
+    pos = torch.unique(torch.cat(pos))
+    before = flat[pos]
+    it = iter(kern_b)
+    ms = cuda_ms(lambda: probe_insert(st.bloom_bits, *next(it), k=kh), n)
+    n_new = int(((before == 0) & (flat[pos] == 1)).sum())
+    nbytes = (nbytes + n_new) / len(kern_b)
+    it = iter(plain_b)
+    plain = cuda_ms(lambda: bloom_ref(st.bloom_bits, *next(it), k=kh), n)
     out.append({"name": "bloom", "route": "cuda",
                 "source": "src/repro_torch/csrc/bloom.cu",
                 "replaces": "src/repro/kernels/bloom/bloom.py:61",
@@ -370,7 +437,8 @@ def phase_kernels(sess, counts, errs, stats, steps):
                 "ms": ms, "plain_ms": plain,
                 "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
                 "bound_by": "bytes", "library_ms": None,
-                "live_urls": live})
+                "shape": [R, M], "live_urls": n_live / len(kern_b),
+                "new_bytes": n_new / len(kern_b)})
     emit({"kernels": out})
 
 
@@ -385,10 +453,10 @@ def main() -> int:
     phase_build()
     errs = phase_parity()
     steps = 64
-    sess, counts, stats = phase_main(steps)
+    sess, counts = phase_main(steps)
     phase_profile(sess, 2 * sess.cfg.dispatch_interval)
     phase_trajectory()
-    phase_kernels(sess, counts, errs, stats, steps)
+    phase_kernels(sess, counts, errs, steps)
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.webgraph import hash2
+from repro_torch.kernels.bloom.ops import probe_insert as _kernel_probe
+from repro_torch.kernels.bloom.ref import (_bit_indices,  # noqa: F401
+                                           probe_insert_arrays)
 
 _BIG = 0xFFFFFFFF
 
@@ -28,38 +30,12 @@ def init_bloom(n_rows: int, bits_log2: int, device) -> Bloom:
                              device=device), bits_log2)
 
 
-def _bit_indices(urls: torch.Tensor, k: int, bits_log2: int) -> torch.Tensor:
-    """urls (..., M) -> (..., M, k) bit positions via double hashing. The
-    sum stays below 2^37, so the mask gives the uint32-wrapped result."""
-    h1 = hash2(urls, 101)
-    h2 = hash2(urls, 202) | 1
-    i = torch.arange(k, dtype=torch.int64, device=urls.device)
-    return (h1[..., None] + i * h2[..., None]) & ((1 << bits_log2) - 1)
-
-
-def probe_insert_arrays(bits: torch.Tensor, urls: torch.Tensor,
-                        mask: torch.Tensor, *, k: int,
-                        bits_log2: int) -> torch.Tensor:
-    """Whole-batch probe-then-insert on the raw bits, in place. Returns
-    seen (R, M): membership BEFORE this batch, ANDed with ``mask``."""
-    idx = _bit_indices(urls, k, bits_log2)                 # (R, M, k)
-    rows = torch.arange(urls.shape[0], device=urls.device)[:, None, None]
-    rows = rows.expand(idx.shape)
-    seen = (bits[rows, idx] == 1).all(dim=-1) & mask
-    ins = mask[..., None].expand(idx.shape)
-    r, c = rows[ins], idx[ins]
-    # scatter-max of 1: every duplicate position writes the same value
-    bits[r, c] = bits[r, c].clamp_min(1)
-    return seen
-
-
 def probe_insert(b: Bloom, urls: torch.Tensor, mask: torch.Tensor, *,
                  k: int, url_tile: int = 256) -> Tuple[torch.Tensor, Bloom]:
     """urls/mask (R, M). Returns (seen (R, M), the filter), the filter
     updated in place by the ``bloom`` kernel (or its plain version on the
     CPU). URLs go in tiles of ``url_tile``; a tile probes after the earlier
     tiles inserted, and within a tile ``seen`` is membership before it."""
-    from repro_torch.kernels.bloom.ops import probe_insert as _kernel_probe
     seen = _kernel_probe(b.bits, urls, mask, k=k, url_tile=url_tile)
     return seen, b
 

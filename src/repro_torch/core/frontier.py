@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.frontier_select.ops import select as _kernel_select
 from repro_torch.kernels.frontier_select.ref import NEG
 
 _FIFO_RANGE = 1 << 20          # max arrivals distinguishable within a bucket
@@ -94,8 +95,7 @@ def select_arrays(url: torch.Tensor, priority: torch.Tensor,
     (its plain version on the CPU). Returns (urls (R,k), priorities (R,k),
     mask (R,k), priority', valid'[, idx (R,k)]); priority' and valid' ARE
     ``priority`` and ``valid``, popped in place. Masked lanes carry url 0."""
-    from repro_torch.kernels.frontier_select.ops import select as _kernel
-    out = _kernel(url, priority, valid, k=k, return_idx=return_idx)
+    out = _kernel_select(url, priority, valid, k=k, return_idx=return_idx)
     return (*out[:3], priority, valid, *out[3:])
 
 

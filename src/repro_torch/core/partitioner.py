@@ -18,6 +18,7 @@ from repro_torch.configs.base import CrawlConfig
 from repro_torch.core import frontier as F
 from repro_torch.core import ranker
 from repro_torch.core import webgraph as W
+from repro_torch.core.dedup import exact_dedup
 
 
 class DomainMap(NamedTuple):
@@ -52,7 +53,6 @@ def seed_frontier(cfg: CrawlConfig, n_shards: int, device) -> F.Frontier:
     dm = identity_map(cfg, n_shards, device)
     f = F.init_frontier(cfg.n_slots, cfg.frontier_capacity, device)
     seeds = W.hub_seeds(cfg, device)                      # (n_domains, N)
-    from repro_torch.core.dedup import exact_dedup
     seed_mask = exact_dedup(seeds, torch.ones(seeds.shape, dtype=torch.bool,
                                               device=device))
     slots = dm.slot_of_domain.to(torch.int64)

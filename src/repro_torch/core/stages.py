@@ -12,7 +12,10 @@ the JAX stages returned new arrays, so a stage's input state is consumed.
 This slice of the port covers the default configuration: a stateless
 ordering (``backlink``, ``fifo``, ``learned``), ``exchange`` coordination,
 any partitioning policy, and one shard. ``check_supported`` refuses the
-rest with the ROADMAP item that will port it.
+rest with the ROADMAP item that will port it. None of these orderings
+carries values, so the OPIC value channel (link cash, ``staging_val``, the
+payload's value lane, the slot-cash refunds) is not run: ``order_state`` and
+``staging_val`` stay at their zero init, as they do in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CrawlConfig
+from repro_torch.coordination import get_coordination
 from repro_torch.core import classifier as CLS
 from repro_torch.core import dedup as DD
 from repro_torch.core import frontier as F
@@ -29,6 +33,7 @@ from repro_torch.core import partitioner as PT
 from repro_torch.core import router as RT
 from repro_torch.core import webgraph as W
 from repro_torch.device import resolve_device
+from repro_torch.ordering.policies import get_ordering
 
 # stats counters (per shard)
 STATS = ("fetched", "fetch_own", "fetch_foreign", "discovered", "dedup_exact",
@@ -53,11 +58,11 @@ class CrawlState(NamedTuple):
     f_rebased: torch.Tensor
     bloom_bits: torch.Tensor     # (n_slots, 2^b) uint8, updated in place
     slot_domain: torch.Tensor
-    order_state: torch.Tensor    # (n_slots, ORD_WIDTH) f32
+    order_state: torch.Tensor    # (n_slots, ORD_WIDTH) f32; zero here
     # shard-indexed (n_shards, ...)
     staging_url: torch.Tensor    # (n_shards, S) int64 holding uint32
     staging_src: torch.Tensor    # (n_shards, S) int32 source-page domain
-    staging_val: torch.Tensor    # (n_shards, S) f32 piggybacked URL values
+    staging_val: torch.Tensor    # (n_shards, S) f32 URL values; zero here
     staging_n: torch.Tensor      # (n_shards,) int32
     outbox_url: torch.Tensor     # (n_shards, B) — the batched mode's carry
     outbox_src: torch.Tensor     # buffer; zeros under exchange
@@ -123,8 +128,6 @@ class StepCarry(NamedTuple):
     urls: torch.Tensor           # (r, k) URLs popped this step (0 if masked)
     sel: torch.Tensor            # (r, k) actually-fetched mask
     true_dom: torch.Tensor       # (r, k) analyzer's domain
-    link_cash: torch.Tensor      # (r, k, O) per-outlink value (zeros for the
-                                 # stateless orderings)
 
 
 class FetchReport(NamedTuple):
@@ -140,8 +143,6 @@ Stage = Callable[[StageContext, CrawlState, Optional[StepCarry]],
 def check_supported(cfg: CrawlConfig, n_shards: int) -> None:
     """Refuse what this slice of the port does not cover, naming the
     ROADMAP item that will."""
-    from repro_torch.coordination import get_coordination
-    from repro_torch.ordering.policies import get_ordering
     get_ordering(cfg.ordering)            # opic / opic_url raise
     get_coordination(cfg.coordination)    # firewall/crossover/batched raise
     if cfg.telemetry:
@@ -197,7 +198,6 @@ def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
     dm = PT.identity_map(cfg, n_shards, dev)
     bloom = DD.init_bloom(cfg.n_slots, cfg.bloom_bits_log2, dev)
     DD.probe_insert(bloom, f.url, f.valid, k=cfg.bloom_hashes)
-    from repro_torch.ordering.policies import get_ordering
     S = B = cfg.dispatch_capacity
 
     def zeros(shape, dtype):
@@ -226,8 +226,6 @@ def make_context(cfg: CrawlConfig, *, n_shards: int, device,
     """The static inputs of shard ``shard``'s stages; ``cfg.ordering``
     names the scorer."""
     check_supported(cfg, n_shards)
-    from repro_torch.coordination import get_coordination
-    from repro_torch.ordering.policies import get_ordering
     r_local = cfg.n_slots // n_shards
     S = cfg.dispatch_capacity
     ordering = get_ordering(cfg.ordering)
@@ -240,14 +238,6 @@ def make_context(cfg: CrawlConfig, *, n_shards: int, device,
         cap_ex=max(8, -(-S // n_shards) * 2),
         policy=PT.get_policy(cfg.partitioning), ordering=ordering,
         coord=get_coordination(cfg.coordination))
-
-
-def _add_to_slot_cash(order_state: torch.Tensor, rows: torch.Tensor,
-                      vals: torch.Tensor, where: torch.Tensor) -> None:
-    """order_state[rows, 0] += vals where ``where`` — the value channel's
-    refunds and deliveries. Every ported ordering carries zero values, so
-    the order of the float adds cannot show."""
-    order_state[:, 0].index_add_(0, rows[where].to(torch.int64), vals[where])
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +272,7 @@ def allocate(ctx: StageContext, state: CrawlState,
     carry = StepCarry(
         alive=alive, urls=urls, sel=sel,
         true_dom=torch.zeros(urls.shape, dtype=torch.int64,
-                             device=urls.device),
-        link_cash=torch.zeros(urls.shape + (cfg.outlinks_per_page,),
-                              dtype=torch.float32, device=urls.device))
+                             device=urls.device))
     return with_frontier(state, fr), carry, {"revived": dead_gb.sum()}
 
 
@@ -307,12 +295,9 @@ def extract_stage(ctx: StageContext, state: CrawlState, carry: StepCarry
     exact-dedup the batch, and append to the staging buffer."""
     cfg, S = ctx.cfg, ctx.S
     links = W.outlinks(carry.urls, cfg, ctx.cumw)         # (r, k, O)
-    rows = torch.arange(links.shape[0], device=links.device)
     flat_u = links.reshape(-1)
     lmask = carry.sel[..., None].expand(links.shape).reshape(-1)
     flat_s = carry.true_dom[..., None].expand(links.shape).reshape(-1)
-    flat_v = carry.link_cash.reshape(-1)
-    flat_r = rows[:, None, None].expand(links.shape).reshape(-1)
     discovered = lmask.sum()
 
     if ctx.policy.canonicalize:
@@ -327,11 +312,7 @@ def extract_stage(ctx: StageContext, state: CrawlState, carry: StepCarry
     p = pos[fits]
     state.staging_url[0, p] = flat_u[fits]
     state.staging_src[0, p] = flat_s[fits].to(torch.int32)
-    state.staging_val[0, p] = flat_v[fits]
     state.staging_n[0] = n0 + fits.sum().to(torch.int32)
-
-    # links dropped here refund their value to the source row
-    _add_to_slot_cash(state.order_state, flat_r, flat_v, lmask & ~fits)
     delta = {"discovered": discovered, "dedup_exact": dedup_exact,
              "staging_drop": (flat_m & ~fits).sum()}
     return state, carry, delta
@@ -343,8 +324,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     the exchange, dedup what arrived (exact, then the Bloom kernel), and
     insert the survivors into the local frontier rows."""
     cfg, S, n_shards, shard = ctx.cfg, ctx.S, ctx.n_shards, ctx.shard
-    u, src, val = state.staging_url[0], state.staging_src[0], \
-        state.staging_val[0]
+    u, src = state.staging_url[0], state.staging_src[0]
     r_slots = state.slot_domain.shape[0]
 
     staged = torch.arange(S, device=u.device) < state.staging_n[0]
@@ -353,30 +333,22 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     pred = CLS.predict_domain(u, src, cfg, step=state.step,
                               accuracy=ctx.classify_accuracy)
     dest = ctx.policy.route(cfg, state, n_shards, u, pred, state.step)
-    plan = ctx.coord.plan(ctx, state, shard, u, src, val, dest, staged, valid)
+    plan = ctx.coord.plan(ctx, state, shard, u, src, state.staging_val[0],
+                          dest, staged, valid)
     delta = {"dispatch_sent": plan.ship.sum(),
              "dispatch_rounds": 1,
              "coord_dropped": plan.drop.sum()}
 
-    # the payload lanes: url, predicted domain, shipped flag, value bits
-    payload = torch.stack([u, pred, plan.ship.to(torch.int64),
-                           val.view(torch.int32).to(torch.int64)], dim=-1)
-    buckets, _, dropped, sent = RT.pack_buckets(
-        payload, dest, n_shards, ctx.cap_ex, valid=plan.ship,
-        return_keep=True)
+    # the payload lanes: url, predicted domain, shipped flag (no value
+    # lane: no ported ordering carries values)
+    payload = torch.stack([u, pred, plan.ship.to(torch.int64)], dim=-1)
+    buckets, _, dropped = RT.pack_buckets(payload, dest, n_shards,
+                                          ctx.cap_ex, valid=plan.ship)
     delta["staging_drop"] = dropped
-    recv = RT.exchange(buckets[None])[0]           # (n_shards, cap_ex, 4)
+    recv = RT.exchange(buckets[None])[0]           # (n_shards, cap_ex, 3)
     r_u = recv[..., 0].reshape(-1)
     r_pred = recv[..., 1].reshape(-1)
     r_has = recv[..., 2].reshape(-1) > 0
-    r_val = recv[..., 3].to(torch.int32).view(torch.float32).reshape(-1)
-
-    # sender half of the value channel: what was staged but not sent
-    # refunds to the source page's own row
-    own_slot = state.slot_of_domain.to(torch.int64)[
-        torch.clamp(src, 0, cfg.n_domains - 1).to(torch.int64)]
-    own_row = torch.clamp(own_slot - shard * r_slots, 0, r_slots - 1)
-    _add_to_slot_cash(state.order_state, own_row, val, staged & ~sent)
 
     delta["dispatch_recv"] = r_has.sum()
     r_m = DD.exact_dedup(r_u[None], r_has[None])[0]
@@ -385,8 +357,6 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     row, ok = ctx.policy.local_row(cfg, state, shard, r_slots, r_u, r_pred)
     r_m = r_m & ok
     M = min(r_u.shape[0], cfg.frontier_capacity)
-    # receiver half: every received URL's value accrues to its row
-    _add_to_slot_cash(state.order_state, row, r_val, r_has)
 
     # bucket per local row, Bloom-dedup, insert into the frontier
     rbp, rbmask, rdrop = RT.pack_buckets(r_u[:, None], row, r_slots, M,
@@ -400,8 +370,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     fr = F.insert(frontier_view(state), rb, ctx.score_fn(rb, cfg, state),
                   fresh, n_buckets=cfg.n_priority_buckets)
 
-    for t in (state.staging_url, state.staging_src, state.staging_val,
-              state.staging_n):
+    for t in (state.staging_url, state.staging_src, state.staging_n):
         t.zero_()
     return with_frontier(state, fr), carry, delta
 

@@ -12,14 +12,17 @@
 // 16 MiB filter row does not fit in shared memory (the TPU streamed the row
 // into VMEM), so every probe is a read of one byte at a hashed address of
 // device memory and every insert a write. The bytes the function must move
-// are the URLs, masks and `seen` flags plus k bytes per masked URL: at the
-// full config (512 rows, 4096 URLs a row, k = 4) about 30 MB, some 9 us at
-// 3.35 TB/s; each scattered access costs a 32-byte sector in practice.
+// are the mask and the `seen` flag of every lane (1 B each), the live URLs
+// (8 B each, read in 32-byte sectors) and k bytes per live URL, plus the
+// bytes it newly sets. On the main path a dispatch batch is (512, 4096)
+// lanes with about 2,000 live, packed at the front of each row: about
+// 4.3 MB, some 1.3 us at 3.35 TB/s. Each scattered byte costs a 32-byte
+// sector in practice.
 //
 // What the design does about it: one block per row, one thread per URL of
 // the tile, so a tile's probes are in flight together, and a masked-out URL
-// (most of the (512, 4096) dispatch batch on the main path) reads no filter
-// byte at all, nor does a URL after its first unset byte; the
+// (most of the dispatch batch) reads neither its URL nor any filter byte,
+// nor does a live URL read past its first unset byte; the
 // tiles of a row run in order inside the block, with __syncthreads() between
 // the probes and the inserts of a tile and between tiles, which reproduces
 // the TPU kernel's order exactly. The ragged last tile is masked here rather
@@ -57,13 +60,16 @@ __global__ void bloom_kernel(uint8_t* bits, const int64_t* __restrict__ urls,
     uint32_t h1 = 0, h2 = 0;
     if (active) {
       const size_t o = row * M + m;
-      const uint32_t u = static_cast<uint32_t>(urls[o]);
-      h1 = mix32(u + c1, 0u);
-      h2 = mix32(u + c2, 0u) | 1u;
       ins = mask[o];
-      bool all = ins;  // a masked-out URL is never seen: skip its probes
-      for (int i = 0; all && i < k; ++i) {
-        all = frow[(h1 + static_cast<uint32_t>(i) * h2) & bmask] == 1;
+      bool all = false;  // a masked-out URL is never seen: no URL, no probes
+      if (ins) {
+        const uint32_t u = static_cast<uint32_t>(urls[o]);
+        h1 = mix32(u + c1, 0u);
+        h2 = mix32(u + c2, 0u) | 1u;
+        all = true;
+        for (int i = 0; all && i < k; ++i) {
+          all = frow[(h1 + static_cast<uint32_t>(i) * h2) & bmask] == 1;
+        }
       }
       seen[o] = all;
     }

@@ -151,9 +151,18 @@ def test_ordering_scores_match(name):
     a = np.asarray(fj(jnp.asarray(u), jcfg, None))
     b = ft(torch.tensor(u.astype(np.int64)), tcfg, None).numpy()
     if name == "learned":
-        # an 8-term dot product: the two frameworks may sum it in another
-        # order, so one f32 ulp of the logit is allowed (sigmoid < 1)
-        np.testing.assert_allclose(a, b, rtol=0, atol=2 ** -23)
+        # the logits agree bit for bit, but XLA's logistic and torch's
+        # sigmoid differ by up to 2 f32 ulp (XLA's is itself up to 2 ulp
+        # from the correctly rounded value); every score must still land in
+        # the same priority bucket (encode_priority's clamp)
+        assert a.dtype == b.dtype == np.float32
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+        assert (np.abs(a - b) <= 2 * ulp).all()
+        nb = jcfg.n_priority_buckets
+
+        def bucket(s):
+            return np.clip((s * np.float32(nb)).astype(np.int32), 0, nb - 1)
+        np.testing.assert_array_equal(bucket(a), bucket(b))
     else:
         assert_same(a, b)
     assert TORD.ORD_WIDTH == JORD.ORD_WIDTH and TORD.ORD_URL0 == JORD.ORD_URL0
