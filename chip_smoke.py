@@ -6,20 +6,32 @@
 Phases, one JSON line each (a phase that fails raises, and the script exits
 non-zero):
 
-  1. build   — nvcc builds every kernel of the main path from csrc/, one
-               process per source, all started together.
+  1. build   — nvcc builds every kernel's library from csrc/, one process
+               per source, all started together (five kernels, four
+               sources: select_harvest shares frontier_select.cu).
   2. parity  — each kernel against its plain PyTorch version on the card,
-               exact equality, at the main path's shapes and at small shapes
-               with ties and duplicates.
-  3. main    — CrawlSession(webparf.CONFIG).run(64) on the card: 256
-               domains, 512 frontier rows of 4096, 512 Bloom rows of 2^24
-               bytes. Both kernels must have launched during the run.
-     profile — the device's busy time over two more intervals
-               (torch.profiler), its idle share, and the host syncs per
-               step (torch's sync debug mode, and the profiler's
-               cudaStreamSynchronize calls).
-  4. trajectory — the CLI-sized config runs 32 steps on the card and on the
-               CPU (plain versions); every output and state leaf must match.
+               exact equality, at the main paths' shapes and at small
+               shapes with ties, duplicates, ragged tiles and masked rows.
+  3. main    — three crawls at the full webparf.CONFIG (256 domains, 512
+               frontier rows of 4096, 512 Bloom rows of 2^24 bytes), one
+               at a time, each session freed before the next is built:
+               ordering="opic_url" (fused dispatch) for 64 steps, which must
+               launch select_harvest, dedup_deposit and opic_update and
+               conserve cash; "opic" for 16 steps (frontier_select, bloom,
+               opic_update, cash conserved); "backlink" for 32 steps
+               (frontier_select, bloom). Launch counts are zeroed just
+               before each run and read just after it.
+     profile — per crawl path (opic_url, backlink): the device's busy time
+               over two more intervals (torch.profiler), its idle share,
+               and the host syncs per step.
+     each path's session also yields its kernels' timing inputs: the
+               frontier and Bloom batches (backlink), the spend scatter
+               (opic), the harvest, the dispatch batch and the cell scatter
+               (opic_url), captured from the path itself.
+  4. trajectory — the CLI-sized config runs on the card and on the CPU
+               (plain versions) for backlink, opic, opic_url fused and
+               opic_url unfused (link_pop_bias=1.0, so twins are hit);
+               every output and state leaf must match.
   5. kernels — each kernel's time (CUDA events) beside its plain version's,
                a library call's where one computes the same function, and
                its bound: the bytes it must move over 3.35 TB/s.
@@ -31,6 +43,7 @@ rest of the repository beside it, the script fails before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -44,6 +57,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 SEED = 0
+DEV = "cuda"
+CASH_RTOL = 1e-4                    # OPIC cash drift allowed over a run:
+                                    # the f32 rounding of the spend split
 
 
 def emit(obj) -> None:
@@ -126,7 +142,7 @@ def _select_pair(url, pri, valid, k):
     import torch
     from repro_torch.kernels.frontier_select.ops import select
     from repro_torch.kernels.frontier_select.ref import select_ref
-    dev = "cuda"
+    dev = DEV
     u = torch.tensor(url, device=dev)
     p1, v1 = torch.tensor(pri, device=dev), torch.tensor(valid, device=dev)
     p2, v2 = p1.clone(), v1.clone()
@@ -147,7 +163,7 @@ def _bloom_pair(bits, urls, mask, k):
     import torch
     from repro_torch.kernels.bloom.ops import probe_insert
     from repro_torch.kernels.bloom.ref import bloom_ref
-    dev = "cuda"
+    dev = DEV
     b1 = torch.tensor(bits, device=dev)
     b2 = b1.clone()
     u = torch.tensor(urls, device=dev)
@@ -163,18 +179,148 @@ def _bloom_pair(bits, urls, mask, k):
                float((b1.int() - b2.int()).abs().max())), int(s1.sum())
 
 
+def _harvest_pair(url, pri, valid, k):
+    """select_harvest and its plain version on the url lane as the stages
+    hold it (a strided view of a wider array, 0 cash on invalid cells)."""
+    import torch
+    from repro_torch.kernels.frontier_select.ops import select_harvest
+    from repro_torch.kernels.frontier_select.ref import select_harvest_ref
+    dev = DEV
+    R, C = url.shape
+    lane = np.random.default_rng(R + C).random((R, C)) * valid
+    w1 = torch.zeros((R, 2 + C), device=dev)
+    w1[:, 2:] = torch.tensor(lane, dtype=torch.float32, device=dev)
+    u = torch.tensor(url, device=dev)
+    p1, v1 = torch.tensor(pri, device=dev), torch.tensor(valid, device=dev)
+    p2, v2, w2 = p1.clone(), v1.clone(), w1.clone()
+    got = select_harvest(u, p1, v1, w1[:, 2:], k=k)
+    want = select_harvest_ref(u, p2, v2, w2[:, 2:], k=k)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("sel_url", "sel_pri", "sel_mask", "idx", "cash",
+                           "pri'", "valid'", "order_state'"),
+                          (*got, p1, v1, w1), (*want, p2, v2, w2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"select_harvest {(R, C)} k={k}: {name} "
+                                 f"differs from the plain version")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def _scatter_pair(B, R, N, tile, rng, *, aligned=False):
+    """opic_update and its plain version: duplicate targets, rows that wrap
+    or fall out of range, a fully masked batch row. ``aligned``: the url
+    lane's row-aligned cells form (B rows of R cells, strided view)."""
+    import torch
+    from repro_torch.kernels.opic_update.ops import (scatter_cash,
+                                                     scatter_cash_cells)
+    from repro_torch.kernels.opic_update.ref import opic_ref
+    dev = DEV
+    rows = torch.tensor(rng.integers(-R - 2, R + 2, (B, N)), device=dev)
+    contrib = torch.tensor(rng.random((B, N)) * 10.0 ** rng.integers(
+        -6, 3, (B, N)), dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.random((B, N)) < 0.8, device=dev)
+    if B > 1:
+        mask[-1] = False
+    if aligned:
+        w1 = torch.zeros((B, 2 + R), device=dev)
+        w1[:, 2:] = torch.tensor(rng.random((B, R)), dtype=torch.float32,
+                                 device=dev)
+        w2 = w1.clone()
+        scatter_cash_cells(w1[:, 2:], None, rows, contrib, mask, tile=tile)
+        ok = mask & (rows >= 0) & (rows < R)
+        opic_ref(w2[:, 2:], rows, contrib, ok, tile=tile)
+        a, b = w1, w2
+    else:
+        a = torch.tensor(rng.random((B, R)), dtype=torch.float32, device=dev)
+        b = a.clone()
+        scatter_cash(a, rows, contrib, mask, tile=tile)
+        opic_ref(b, rows, contrib, mask, tile=tile)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"opic_update {(B, R, N)} tile={tile} "
+                             f"aligned={aligned}: differs from the plain "
+                             f"version")
+    return float((a.double() - b.double()).abs().max())
+
+
+def dedup_batch(rng, R, M, C, b, *, dup=0.5, k=4):
+    """A dispatch-like batch with planted queued twins (one URL queued
+    twice per row), URLs inserted before and gone, fresh URLs, repeats
+    within and across tiles, and a fully masked row. Returns numpy
+    (bits, urls, mask, val, f_url, f_valid, lane)."""
+    import torch
+    from repro_torch.kernels.bloom.ref import bloom_ref
+    f_url = rng.integers(1, 1 << 20, (R, C))
+    f_url[:, 1] = f_url[:, 2]
+    f_valid = rng.random((R, C)) < 0.7
+    gone = rng.integers(1 << 20, 1 << 21, (R, M))
+    pick = rng.random((R, M))
+    queued = np.take_along_axis(f_url, rng.integers(0, C, (R, M)), axis=1)
+    urls = np.where(pick < dup / 2, queued,
+                    np.where(pick < dup, gone,
+                             rng.integers(1 << 21, 1 << 22, (R, M))))
+    h = M // 2
+    urls[:, h:] = np.where(rng.random((R, M - h)) < dup, urls[:, :M - h],
+                           urls[:, h:])
+    mask = rng.random((R, M)) < 0.8
+    if R > 1:
+        mask[-1] = False
+    bits = torch.zeros((R, 1 << b), dtype=torch.uint8)
+    bloom_ref(bits, torch.tensor(np.concatenate([f_url, gone], 1)),
+              torch.tensor(np.concatenate([f_valid, np.ones_like(mask)], 1)),
+              k=k)
+    val = rng.random((R, M)).astype(np.float32)
+    lane = (rng.random((R, C)) * f_valid).astype(np.float32)
+    return bits.numpy(), urls, mask, val, f_url, f_valid, lane
+
+
+def _dedup_pair(bits, urls, mask, val, f_url, f_valid, lane, k, tile=256):
+    import torch
+    from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
+    from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref
+    dev = DEV
+    R, C = f_url.shape
+    t = [torch.tensor(a, device=dev) for a in (urls, mask, val, f_url,
+                                                f_valid)]
+    b1 = torch.tensor(bits, device=dev)
+    w1 = torch.zeros((R, 2 + C), device=dev)
+    w1[:, 2:] = torch.tensor(lane, device=dev)
+    b2, w2 = b1.clone(), w1.clone()
+    s1, r1 = dedup_deposit(b1, *t, w1[:, 2:], k=k, url_tile=tile)
+    s2, r2 = dedup_deposit_ref(b2, *t, w2[:, 2:], k=k,
+                               url_tile=min(tile, urls.shape[1]))
+    torch.cuda.synchronize()
+    for name, a, b in (("seen", s1, s2), ("bits", b1, b2),
+                       ("order_state", w1, w2), ("refund", r1, r2)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dedup_deposit {tuple(urls.shape)} C={C}:"
+                                 f" {name} differs from the plain version")
+    n_hit = int((w1[:, 2:] != torch.tensor(lane, device=dev)).sum())
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in ((s1, s2), (b1, b2), (w1, w2), (r1, r2)))
+    return err, int(s1.sum()), n_hit
+
+
 def phase_parity():
     rng = np.random.default_rng(SEED)
     out = {"phase": "parity", "tolerance": "exact (max_abs_err 0)"}
     # frontier_select: the main path's (512, 4096, k=1), then small shapes
+    small = [(4, 64, 1, True), (4, 64, 4, True), (2, 128, 8, True),
+             (3, 37, 4, False), (2, 128, 8, False), (1, 32, 1, True)]
     err = _select_pair(*frontier_rows(rng, 512, 4096), 1)
     cases = [(512, 4096, 1, False)]
-    for R, C, k, ties in [(4, 64, 1, True), (4, 64, 4, True),
-                          (2, 128, 8, True), (3, 37, 4, False),
-                          (2, 128, 8, False), (1, 32, 1, True)]:
+    for R, C, k, ties in small:
         err = max(err, _select_pair(*frontier_rows(rng, R, C, ties=ties), k))
         cases.append((R, C, k, ties))
     out["frontier_select"] = {"max_abs_err": err, "cases": cases}
+    # select_harvest: the same shapes
+    err = _harvest_pair(*frontier_rows(rng, 512, 4096), 1)
+    cases = [(512, 4096, 1, False)]
+    for R, C, k, ties in small:
+        err = max(err, _harvest_pair(*frontier_rows(rng, R, C, ties=ties), k))
+        cases.append((R, C, k, ties))
+    out["select_harvest"] = {"max_abs_err": err, "cases": cases}
     # bloom: the main path's (R, 4096) at b=24, k=4 on a 16-row slice of
     # the filter (pre-filled so seen is often true), then small shapes
     R, M, b, k = 16, 4096, 24, 4
@@ -197,33 +343,93 @@ def phase_parity():
         err = max(err, e)
         cases.append((R, M, b, k, n_seen))
     out["bloom"] = {"max_abs_err": err, "cases": cases}
+    # dedup_deposit: the dispatch's (16 rows of the 512) x M 4096 against
+    # queues of C 4096 at b=24, k=4, then small shapes and tiles
+    err, cases = 0.0, []
+    for R, M, C, b, k, tile, dup in [
+            (16, 4096, 4096, 24, 4, 256, 0.3), (1, 64, 32, 10, 3, 32, 0.5),
+            (4, 96, 64, 12, 3, 32, 0.5), (3, 300, 50, 10, 4, 128, 0.6),
+            (2, 100, 40, 9, 4, 256, 0.9), (4, 256, 8, 12, 4, 64, 0.9)]:
+        e, n_seen, n_hit = _dedup_pair(*dedup_batch(rng, R, M, C, b, dup=dup,
+                                                    k=k), k, tile)
+        if n_seen == 0 or n_hit == 0:
+            raise AssertionError(f"dedup_deposit parity {(R, M, C)} hit no "
+                                 f"seen URL or no queued twin")
+        err = max(err, e)
+        cases.append((R, M, C, b, k, tile, n_seen, n_hit))
+    out["dedup_deposit"] = {"max_abs_err": err, "cases": cases}
+    # opic_update: the opic spend (1 x 8192 items onto 512 slots), the url
+    # lane's cells (512 rows of 4096 cells, 4096 items a row), then small
+    err, cases = 0.0, []
+    for B, R, N, tile, aligned in [(1, 512, 8192, 256, False),
+                                   (512, 4096, 4096, 256, True),
+                                   (3, 5, 300, 64, False),
+                                   (2, 64, 77, 256, False),
+                                   (4, 3, 40, 16, False),
+                                   (5, 16, 40, 16, True)]:
+        err = max(err, _scatter_pair(B, R, N, tile, rng, aligned=aligned))
+        cases.append((B, R, N, tile, aligned))
+    out["opic_update"] = {"max_abs_err": err, "cases": cases}
     emit(out)
-    return {"frontier_select": out["frontier_select"]["max_abs_err"],
-            "bloom": out["bloom"]["max_abs_err"]}
+    return {name: out[name]["max_abs_err"] for name in
+            ("frontier_select", "select_harvest", "bloom", "dedup_deposit",
+             "opic_update")}
 
 
-def phase_main(steps):
+# each crawl path of the main phase, and the kernels it must launch
+PATHS = {
+    "opic_url": (64, ("select_harvest", "dedup_deposit", "opic_update")),
+    "opic": (16, ("frontier_select", "bloom", "opic_update")),
+    "backlink": (32, ("frontier_select", "bloom")),
+}
+
+
+def free_card():
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_main(ordering):
+    """One crawl path at the full config: counts zeroed just before the run
+    and read just after it; the path's kernels must all have launched."""
     import torch
     from repro_torch.api import CrawlSession
     from repro_torch.configs import webparf
+    from repro_torch.configs.base import scaled
     from repro_torch.kernels import launch_counts, reset_launches
-    cfg = webparf.CONFIG
+    from repro_torch.ordering.opic import total_cash
+    steps, need = PATHS[ordering]
+    cfg = scaled(webparf.CONFIG, ordering=ordering)
     t0 = time.time()
-    sess = CrawlSession(cfg)
+    sess = CrawlSession(cfg, device=DEV)
     torch.cuda.synchronize()
     init_s = time.time() - t0
+    cash0 = total_cash(sess.state) if ordering != "backlink" else None
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     rep = sess.run(steps)
     torch.cuda.synchronize()
     counts = launch_counts()
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{counts}")
+    missing = [n for n in need if counts[n] < 1]
+    if missing:
+        raise AssertionError(f"{ordering}: {missing} never launched on the "
+                             f"path: {counts}")
     stats = rep.stats
     if rep.steps != steps or rep.fetched != stats["fetched"] or \
             (rep.per_step <= 0).any() or rep.fetched != len(rep.urls):
-        raise AssertionError(f"main path output malformed: {stats}")
+        raise AssertionError(f"{ordering}: output malformed: {stats}")
+    out = {"phase": "main", "config": f"webparf.CONFIG ordering={ordering}",
+           "steps": steps}
+    if cash0 is not None:
+        cash = total_cash(sess.state)
+        if not np.isfinite(cash) or abs(cash - cash0) > CASH_RTOL * cash0:
+            raise AssertionError(f"{ordering}: total cash {cash} drifted "
+                                 f"from {cash0} beyond rtol {CASH_RTOL}")
+        out.update(total_cash_start=cash0, total_cash_end=cash,
+                   cash_rel_drift=(cash - cash0) / cash0,
+                   cash_rtol=CASH_RTOL)
     # per-step times, eager, after the run (not part of the launch counts)
     fetch_ms, disp_ms = [], []
     iv = cfg.dispatch_interval
@@ -234,16 +440,17 @@ def phase_main(steps):
         sess.step()
         torch.cuda.synchronize()
         (disp_ms if d else fetch_ms).append(1e3 * (time.perf_counter() - t))
-    emit({"phase": "main", "config": "webparf.CONFIG", "steps": steps,
-          "init_s": init_s, "seconds": rep.seconds,
-          "pages_per_s": rep.pages_per_sec, "fetched": rep.fetched,
-          "fetch_step_ms": float(np.mean(fetch_ms)),
-          "dispatch_step_ms": float(np.mean(disp_ms)),
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "url_dup": rep.overlap["url_dup"],
-          "content_dup": rep.overlap["content_dup"],
-          "queued_urls": int(sess.state.f_valid.sum()), "launches": counts,
-          "stats": stats})
+    out.update(init_s=init_s, seconds=rep.seconds,
+               pages_per_s=rep.pages_per_sec, fetched=rep.fetched,
+               fetch_step_ms=float(np.mean(fetch_ms)),
+               dispatch_step_ms=float(np.mean(disp_ms)),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               url_dup=rep.overlap["url_dup"],
+               content_dup=rep.overlap["content_dup"],
+               queued_urls=int(sess.state.f_valid.sum()), launches=counts,
+               launches_per_step={n: c / steps for n, c in counts.items()},
+               stats=stats)
+    emit(out)
     return sess, counts
 
 
@@ -296,7 +503,8 @@ def phase_profile(sess, steps):
     busy_us = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     n_sync, sync_lines = count_syncs(sess, steps)
-    emit({"phase": "profile", "steps": steps, "wall_ms": wall_us / 1e3,
+    emit({"phase": "profile", "ordering": sess.cfg.ordering, "steps": steps,
+          "wall_ms": wall_us / 1e3,
           "device_events": n, "device_busy_ms": busy_us / 1e3,
           "device_idle_share": 1 - busy_us / wall_us if n else None,
           "top_device_ms": {k[:80]: v / 1e3 for k, v in top},
@@ -306,6 +514,10 @@ def phase_profile(sess, steps):
           "sync_debug_lines": sync_lines})
 
 
+TRAJECTORIES = (("backlink", True), ("opic", True), ("opic_url", True),
+                ("opic_url", False))
+
+
 def phase_trajectory(steps=32):
     import torch
     from repro_torch.api import CrawlSession
@@ -313,28 +525,63 @@ def phase_trajectory(steps=32):
     from repro_torch.configs.base import scaled
     from repro_torch.core.stages import state_to_numpy
     # launch/crawl.py's CLI size: 32 domains x 512, Bloom rows of 2^16
-    cfg = scaled(webparf.CONFIG, n_domains=32, frontier_capacity=512,
-                 fetch_batch=32, bloom_bits_log2=16, dispatch_capacity=1024,
-                 url_space_log2=24)
-    reps, states = {}, {}
-    for dev in ("cuda", "cpu"):
-        sess = CrawlSession(cfg, device=dev)
-        reps[dev] = sess.run(steps)
-        states[dev] = state_to_numpy(sess.state)
-    torch.cuda.synchronize()
-    a, b = reps["cuda"], reps["cpu"]
-    diffs = [n for n in ("urls", "per_step")
-             if not np.array_equal(getattr(a, n), getattr(b, n))]
-    diffs += ["stats"] if a.stats != b.stats else []
-    diffs += [n for n in states["cuda"]
-              if not np.array_equal(states["cuda"][n], states["cpu"][n])]
-    if diffs:
-        raise AssertionError(f"cuda and cpu trajectories differ in {diffs}")
-    if a.stats["dedup_bloom"] < 1:
-        raise AssertionError("the trajectory never exercised the Bloom dedup")
-    emit({"phase": "trajectory", "config": dataclasses.asdict(cfg),
-          "steps": steps, "identical": True, "fetched": a.fetched,
-          "dedup_bloom": a.stats["dedup_bloom"]})
+    base = scaled(webparf.CONFIG, n_domains=32, frontier_capacity=512,
+                  fetch_batch=32, bloom_bits_log2=16, dispatch_capacity=1024,
+                  url_space_log2=24)
+    out = {"phase": "trajectory", "config": dataclasses.asdict(base),
+           "steps": steps, "runs": []}
+    for ordering, fused in TRAJECTORIES:
+        cfg = scaled(base, ordering=ordering, fused_dispatch=fused,
+                     link_pop_bias=0.0 if ordering == "backlink" else 1.0)
+        reps, states = {}, {}
+        for key, dev in (("cuda", DEV), ("cpu", "cpu")):
+            sess = CrawlSession(cfg, device=dev)
+            reps[key] = sess.run(steps)
+            states[key] = state_to_numpy(sess.state)
+        torch.cuda.synchronize()
+        a, b = reps["cuda"], reps["cpu"]
+        diffs = [n for n in ("urls", "per_step")
+                 if not np.array_equal(getattr(a, n), getattr(b, n))]
+        diffs += ["stats"] if a.stats != b.stats else []
+        diffs += [n for n in states["cuda"]
+                  if not np.array_equal(states["cuda"][n], states["cpu"][n])]
+        label = f"{ordering} fused_dispatch={fused}"
+        if diffs:
+            raise AssertionError(f"{label}: cuda and cpu trajectories "
+                                 f"differ in {diffs}")
+        if a.stats["dedup_bloom"] < 1:
+            raise AssertionError(f"{label}: the trajectory never exercised "
+                                 f"the Bloom dedup")
+        out["runs"].append({"ordering": ordering, "fused_dispatch": fused,
+                            "link_pop_bias": cfg.link_pop_bias,
+                            "identical": True, "fetched": a.fetched,
+                            "dedup_bloom": a.stats["dedup_bloom"]})
+    emit(out)
+
+
+def capture_calls(modules, attr, sess, n, pick=lambda args: True):
+    """The arguments of the next ``n`` calls to ``attr`` (patched on every
+    module in ``modules``, where the path looks it up) for which
+    ``pick(args)`` holds, cloned as they were passed, while the session
+    steps."""
+    import torch
+    got = []
+    origs = [getattr(m, attr) for m in modules]
+
+    def spy(*args, **kw):
+        if len(got) < n and pick(args):
+            got.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args], dict(kw)))
+        return origs[0](*args, **kw)
+    for m in modules:
+        setattr(m, attr, spy)
+    try:
+        while len(got) < n:
+            sess.step()
+    finally:
+        for m, o in zip(modules, origs):
+            setattr(m, attr, o)
+    return got
 
 
 def capture_dispatch_masks(sess, n):
@@ -342,24 +589,57 @@ def capture_dispatch_masks(sess, n):
     hands its (rows, M) batches to the Bloom dedup: each row's live URLs
     packed at its front by router.pack_buckets."""
     from repro_torch.core import dedup as DD
-    orig, got = DD.probe_insert, []
-
-    def spy(b, urls, mask, **kw):
-        got.append(mask.clone())
-        return orig(b, urls, mask, **kw)
-    DD.probe_insert = spy
-    try:
-        while len(got) < n:
-            sess.step()
-    finally:
-        DD.probe_insert = orig
-    return got
+    return [args[2] for args, _ in
+            capture_calls([DD], "probe_insert", sess, n)]
 
 
-def phase_kernels(sess, counts, errs, steps):
+def fresh_urls(rng, masks, n, cfg):
+    """n + 1 batches laid out as the captured masks, holding fresh URLs."""
+    import torch
+    out = []
+    for i in range(n + 1):
+        m = masks[i % len(masks)]
+        u = torch.zeros(m.shape, dtype=torch.int64, device=DEV)
+        u[m] = torch.tensor(rng.integers(0, 1 << cfg.url_space_log2,
+                                         int(m.sum())), device=DEV)
+        out.append((u, m))
+    return out
+
+
+def bloom_bytes(bits, batches, kh, b):
+    """What a Bloom probe-and-insert must move for each batch: every lane's
+    mask and seen flag, the live URLs in 32-byte sectors, k probe bytes per
+    live URL; and the filter positions it may newly set (to count them
+    around the timed calls). Returns (bytes, live URLs, positions)."""
+    import torch
+    from repro_torch.kernels.bloom.ref import _bit_indices
+    nbytes, n_live, pos = 0, 0, []
+    for u, m in batches:
+        R, M = m.shape
+        live = torch.nonzero(m.view(-1))[:, 0]
+        n_live += live.numel()
+        nbytes += 2 * R * M + 32 * torch.unique(live // 4).numel() \
+            + kh * live.numel()
+        rows = torch.nonzero(m)[:, :1]
+        pos.append((rows * (1 << b) + _bit_indices(u, kh, b)[m]).view(-1))
+    return nbytes, n_live, torch.unique(torch.cat(pos))
+
+
+def row(name, source, replaces, counts, steps, errs, ms, plain, nbytes, lib,
+        **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "launches_per_step": counts[name] / steps,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "library_ms": lib, **extra}
+
+
+def kernels_backlink(sess, counts, errs, steps):
+    """frontier_select and bloom on the backlink path's own inputs."""
     import torch
     from repro_torch.kernels.bloom.ops import probe_insert
-    from repro_torch.kernels.bloom.ref import _bit_indices, bloom_ref
+    from repro_torch.kernels.bloom.ref import bloom_ref
     from repro_torch.kernels.frontier_select.ops import select
     from repro_torch.kernels.frontier_select.ref import NEG, select_ref
     cfg = sess.cfg
@@ -380,16 +660,10 @@ def phase_kernels(sess, counts, errs, steps):
     ms = cuda_ms(lambda: select(url, p_k, v_k, k=k), n)
     plain = cuda_ms(lambda: select_ref(url, p_r, v_r, k=k), n)
     lib = cuda_ms(lambda: torch.topk(torch.where(v_l, p_l, NEG), k, dim=1), n)
-    out.append({"name": "frontier_select", "route": "cuda",
-                "source": "src/repro_torch/csrc/frontier_select.cu",
-                "replaces": "src/repro/kernels/frontier_select/"
-                            "frontier_select.py:85",
-                "launches": counts["frontier_select"],
-                "launches_per_step": counts["frontier_select"] / steps,
-                "max_abs_err": errs["frontier_select"], "ms": ms,
-                "plain_ms": plain,
-                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                "bound_by": "bytes", "library_ms": lib})
+    out.append(row("frontier_select", "src/repro_torch/csrc/frontier_select.cu",
+                   "src/repro/kernels/frontier_select/frontier_select.py:85",
+                   counts, steps, errs, ms, plain, nbytes, lib,
+                   path="backlink"))
     del p_k, v_k, p_r, v_r, p_l, v_l
     # bloom on the session's 8 GiB filter, with batches laid out as the
     # next dispatches lay them out (their masks), holding fresh URLs
@@ -397,30 +671,10 @@ def phase_kernels(sess, counts, errs, steps):
     masks = capture_dispatch_masks(sess, 4)
     R, M = masks[0].shape
     rng = np.random.default_rng(SEED + 1)
-
-    def batches():
-        out = []
-        for i in range(n + 1):
-            m = masks[i % len(masks)]
-            u = torch.zeros(m.shape, dtype=torch.int64, device="cuda")
-            u[m] = torch.tensor(rng.integers(0, 1 << cfg.url_space_log2,
-                                             int(m.sum())), device="cuda")
-            out.append((u, m))
-        return out
-    kern_b, plain_b = batches(), batches()
-    # bytes: every lane's mask read and seen written; the live URLs in
-    # 32-byte sectors (4 lanes each); k probe bytes per live URL; and the
-    # bytes newly set, counted on the filter around the timed calls
-    nbytes, n_live, pos = 0, 0, []
-    for u, m in kern_b:
-        live = torch.nonzero(m.view(-1))[:, 0]
-        n_live += live.numel()
-        nbytes += 2 * R * M + 32 * torch.unique(live // 4).numel() \
-            + kh * live.numel()
-        rows = torch.nonzero(m)[:, :1]
-        pos.append((rows * (1 << b) + _bit_indices(u, kh, b)[m]).view(-1))
+    kern_b, plain_b = fresh_urls(rng, masks, n, cfg), \
+        fresh_urls(rng, masks, n, cfg)
+    nbytes, n_live, pos = bloom_bytes(st.bloom_bits, kern_b, kh, b)
     flat = st.bloom_bits.view(-1)
-    pos = torch.unique(torch.cat(pos))
     before = flat[pos]
     it = iter(kern_b)
     ms = cuda_ms(lambda: probe_insert(st.bloom_bits, *next(it), k=kh), n)
@@ -428,18 +682,155 @@ def phase_kernels(sess, counts, errs, steps):
     nbytes = (nbytes + n_new) / len(kern_b)
     it = iter(plain_b)
     plain = cuda_ms(lambda: bloom_ref(st.bloom_bits, *next(it), k=kh), n)
-    out.append({"name": "bloom", "route": "cuda",
-                "source": "src/repro_torch/csrc/bloom.cu",
-                "replaces": "src/repro/kernels/bloom/bloom.py:61",
-                "launches": counts["bloom"],
-                "launches_per_step": counts["bloom"] / steps,
-                "max_abs_err": errs["bloom"],
-                "ms": ms, "plain_ms": plain,
-                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-                "bound_by": "bytes", "library_ms": None,
-                "shape": [R, M], "live_urls": n_live / len(kern_b),
-                "new_bytes": n_new / len(kern_b)})
-    emit({"kernels": out})
+    out.append(row("bloom", "src/repro_torch/csrc/bloom.cu",
+                   "src/repro/kernels/bloom/bloom.py:61", counts, steps, errs,
+                   ms, plain, nbytes, None, path="backlink", shape=[R, M],
+                   live_urls=n_live / len(kern_b),
+                   new_bytes=n_new / len(kern_b)))
+    return out
+
+
+def scatter_bytes(cash, rows, mask):
+    """What a cash scatter-add must move: every item's mask, each live
+    item's row (8 B) and contribution (4 B), and each touched target read
+    and written once."""
+    import torch
+    B, R = cash.shape
+    live = mask & (rows >= -R) & (rows < R)
+    tgt = torch.where(rows < 0, rows + R, rows)
+    b = torch.arange(B, device=rows.device)[:, None].expand_as(rows)
+    touched = torch.unique((b * R + tgt)[live]).numel()
+    return mask.numel() + 12 * int(live.sum()) + 8 * touched
+
+
+def time_scatter(args, n):
+    """opic_update, its plain version and index_add_ (the library call
+    that sums the same items into the same targets, in its own order) on
+    captured (cash, rows, contrib, mask)."""
+    import torch
+    from repro_torch.kernels.opic_update.ops import scatter_cash
+    from repro_torch.kernels.opic_update.ref import opic_ref
+    cash, rows, contrib, mask = args
+    c1, c2, c3 = cash.clone(), cash.clone(), cash.clone()
+    ms = cuda_ms(lambda: scatter_cash(c1, rows, contrib, mask), n)
+    plain = cuda_ms(lambda: opic_ref(c2, rows, contrib, mask), n)
+    B, R = cash.shape
+    live = mask & (rows >= -R) & (rows < R)
+    tgt = torch.where(rows < 0, rows + R, rows)
+    flat = (torch.arange(B, device=rows.device)[:, None] * R + tgt)[live]
+    vals = contrib[live]
+    lib = cuda_ms(lambda: c3.view(-1).index_add_(0, flat, vals), n)
+    return ms, plain, lib, scatter_bytes(cash, rows, mask)
+
+
+def kernels_opic(sess):
+    """opic_update at the opic path's spend: the stage's own (1, 8192)
+    items onto the 512 slot cash entries."""
+    from repro_torch.ordering import opic as OP
+    (args, kw), = capture_calls([OP], "scatter_cash", sess, 1)
+    ms, plain, lib, nbytes = time_scatter(args, 50)
+    return {"spend_shape": list(args[1].shape), "spend_ms": ms,
+            "spend_plain_ms": plain, "spend_library_ms": lib,
+            "spend_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def kernels_opic_url(sess, counts, errs, steps):
+    """select_harvest, dedup_deposit and opic_update on the opic_url path's
+    own inputs: its frontier and url lane, a dispatch batch laid out as the
+    path lays it out, and its largest cell scatter (the dispatch's
+    place_valued: 512 rows x 4096 items)."""
+    import torch
+    from repro_torch.core import frontier as F
+    from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
+    from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref
+    from repro_torch.kernels.frontier_select.ops import select_harvest
+    from repro_torch.kernels.frontier_select.ref import (NEG,
+                                                         select_harvest_ref)
+    from repro_torch.core import stages as ST
+    from repro_torch.ordering.opic_url import url_cash_table
+    cfg = sess.cfg
+    n = 50
+    out = []
+    st = sess.state
+    R, C = st.f_url.shape
+    k = 1
+    url = st.f_url
+    lane = url_cash_table(st)
+    tabs = [lane.clone() for _ in range(3)]
+    pv = [(st.f_pri.clone(), st.f_valid.clone()) for _ in range(3)]
+    # bytes: frontier_select's, plus each popped cell's cash read and
+    # zeroed (4 + 4 B) and the (R, k) cash written
+    popped = int(torch.clamp(st.f_valid.sum(dim=1), max=k).sum())
+    nbytes = R * C * (4 + 1) + R * k * (8 + 4 + 1 + 4) \
+        + popped * (8 + 4 + 1 + 4 + 4)
+    ms = cuda_ms(lambda: select_harvest(url, *pv[0], tabs[0], k=k), n)
+    plain = cuda_ms(lambda: select_harvest_ref(url, *pv[1], tabs[1], k=k), n)
+    p_l, v_l = pv[2]
+
+    def topk_gather():
+        idx = torch.topk(torch.where(v_l, p_l, NEG), k, dim=1).indices
+        return torch.gather(tabs[2], 1, idx)
+    lib = cuda_ms(topk_gather, n)
+    out.append(row("select_harvest", "src/repro_torch/csrc/frontier_select.cu",
+                   "src/repro/kernels/frontier_select/frontier_select.py:116",
+                   counts, steps, errs, ms, plain, nbytes, lib,
+                   path="opic_url"))
+    del tabs, pv
+    # opic_update: the dispatch's place_valued cell scatter, captured (the
+    # allocate give-backs scatter one item a row)
+    (args, kw), = capture_calls([F], "scatter_cash_cells", sess, 1,
+                                pick=lambda a: a[2].shape[1] > 1)
+    table, _, cols, vals, fits = args
+    # the calls reach scatter_cash as the row-aligned batch
+    ok = fits & (cols >= 0) & (cols < C)
+    ms_c, plain_c, lib_c, nb_c = time_scatter((table, cols, vals, ok), n)
+    # dedup_deposit: batches laid out as the next dispatches (their
+    # masks), fresh URLs and values, against the live frontier and lane
+    masks = [args[2] for args, _ in capture_calls(
+        [ST], "dedup_deposit", sess, 4)]
+    Rb, M = masks[0].shape
+    rng = np.random.default_rng(SEED + 2)
+    kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
+
+    def batches():
+        return [(u, m, torch.tensor(rng.random(m.shape), dtype=torch.float32,
+                                    device=DEV))
+                for u, m in fresh_urls(rng, masks, n, cfg)]
+    kern_b, plain_b = batches(), batches()
+    nbytes, n_live, pos = bloom_bytes(st.bloom_bits,
+                                      [(u, m) for u, m, _ in kern_b], kh, b)
+    # plus each live URL's value (4 B) and the (R,) refund; with fresh URLs
+    # no URL is seen, so no queue is read and no cell written
+    nbytes += 4 * n_live + 4 * Rb * len(kern_b)
+    flat = st.bloom_bits.view(-1)
+    before = flat[pos]
+    lane = url_cash_table(st)
+    it = iter(kern_b)
+    seen_tot = []
+
+    def kern():
+        s, _ = dedup_deposit(st.bloom_bits, *next(it), st.f_url, st.f_valid,
+                             lane, k=kh)
+        seen_tot.append(s)
+    ms_d = cuda_ms(kern, n)
+    n_new = int(((before == 0) & (flat[pos] == 1)).sum())
+    n_seen = int(sum(int(s.sum()) for s in seen_tot))
+    nbytes = (nbytes + n_new) / len(kern_b)
+    it = iter(plain_b)
+    plain_d = cuda_ms(lambda: dedup_deposit_ref(
+        st.bloom_bits, *next(it), st.f_url, st.f_valid, lane, k=kh), n)
+    out.append(row("dedup_deposit", "src/repro_torch/csrc/dedup_deposit.cu",
+                   "src/repro/kernels/dedup_deposit/dedup_deposit.py:105",
+                   counts, steps, errs, ms_d, plain_d, nbytes, None,
+                   path="opic_url", shape=[Rb, M, C],
+                   live_urls=n_live / len(kern_b),
+                   new_bytes=n_new / len(kern_b), seen=n_seen))
+    out.append(row("opic_update", "src/repro_torch/csrc/opic_update.cu",
+                   "src/repro/kernels/opic_update/opic_update.py:41",
+                   counts, steps, errs, ms_c, plain_c, nb_c, lib_c,
+                   path="opic_url", shape=list(cols.shape),
+                   live_items=int(ok.sum())))
+    return out
 
 
 def main() -> int:
@@ -452,11 +843,31 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     errs = phase_parity()
-    steps = 64
-    sess, counts = phase_main(steps)
+    rows_ = {}
+    sess, counts = phase_main("opic_url")
+    steps = PATHS["opic_url"][0]
     phase_profile(sess, 2 * sess.cfg.dispatch_interval)
+    rows_["opic_url"] = kernels_opic_url(sess, counts, errs, steps)
+    del sess
+    free_card()
+    sess, counts_opic = phase_main("opic")
+    spend = kernels_opic(sess)
+    del sess
+    free_card()
+    sess, counts_bl = phase_main("backlink")
+    phase_profile(sess, 2 * sess.cfg.dispatch_interval)
+    rows_["backlink"] = kernels_backlink(sess, counts_bl, errs,
+                                         PATHS["backlink"][0])
+    del sess
+    free_card()
     phase_trajectory()
-    phase_kernels(sess, counts, errs, steps)
+    kernels = rows_["backlink"] + rows_["opic_url"]
+    for r in kernels:
+        if r["name"] == "opic_update":
+            r.update(spend, launches_opic_path=counts_opic["opic_update"],
+                     launches_per_step_opic_path=(
+                         counts_opic["opic_update"] / PATHS["opic"][0]))
+    emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@ Counterpart of ``repro/core/frontier.py``.
 
 One row per domain slot; each row is a fixed-capacity priority queue whose
 ``priority`` encodes (bucket, FIFO arrival) as in the paper's Fig. 5. The
-pop (``select``) and the inserts write the row tensors IN PLACE, where the
-JAX module returned new arrays; a Frontier's tensors are the crawl state's.
+pop (``select``, ``select_harvest``) and the inserts write the row tensors
+IN PLACE, where the JAX module returned new arrays; a Frontier's tensors
+are the crawl state's. The valued forms (``select_harvest``,
+``insert_valued``, ``place_valued``) also keep a cell-aligned cash table —
+the ``opic_url`` ordering's lane — in place.
 """
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.frontier_select.ops import select as _kernel_select
+from repro_torch.kernels.frontier_select.ops import \
+    select_harvest as _kernel_harvest
 from repro_torch.kernels.frontier_select.ref import NEG
+from repro_torch.kernels.opic_update.ops import scatter_cash_cells
+from repro_torch.kernels.rowsum import row_sum
 
 _FIFO_RANGE = 1 << 20          # max arrivals distinguishable within a bucket
 
@@ -107,6 +114,18 @@ def select(f: Frontier, k: int, *, return_idx: bool = False):
     return (*out[:3], f, *out[5:])
 
 
+def select_harvest(f: Frontier, table: torch.Tensor, k: int):
+    """Pop plus url-lane harvest in one ``select_harvest`` launch: pops the
+    top-k of every row, reads each popped cell's cash from ``table`` (R, C)
+    and zeroes that cell, all in place. Returns (urls, priorities, mask,
+    frontier, idx, cash), each of the arrays (R, k). Invalid cells already
+    hold 0, so zeroing the popped cells leaves the table as the unfused
+    ``where(valid', table, 0)`` would."""
+    urls, pri, mask, idx, cash = _kernel_harvest(f.url, f.priority, f.valid,
+                                                 table, k=k)
+    return urls, pri, mask, f, idx, cash
+
+
 def _plan_insert(f: Frontier, urls: torch.Tensor, scores: torch.Tensor,
                  mask: torch.Tensor, *, n_buckets: int):
     """FIFO rebase, priority encoding, and free-slot targeting. Returns
@@ -158,6 +177,40 @@ def insert(f: Frontier, urls: torch.Tensor, scores: torch.Tensor,
     f, pri, fits, tgt_safe, incoming = _plan_insert(
         f, urls, scores, mask, n_buckets=n_buckets)
     return _apply_insert(f, urls, pri, mask, fits, tgt_safe, incoming)
+
+
+def insert_valued(f: Frontier, table: torch.Tensor, urls: torch.Tensor,
+                  scores: torch.Tensor, mask: torch.Tensor,
+                  values: torch.Tensor, *, n_buckets: int):
+    """``insert`` that carries a value per URL: each inserted URL's value
+    is added (``opic_update`` kernel, cells form) into ``table`` (R, C) at
+    the cell the URL takes. Items that do not fit refund their value per
+    row. Returns (frontier, table, refund (R,)); table in place."""
+    f2, pri, fits, tgt_safe, incoming = _plan_insert(
+        f, urls, scores, mask, n_buckets=n_buckets)
+    out = _apply_insert(f2, urls, pri, mask, fits, tgt_safe, incoming)
+    scatter_cash_cells(table, None, tgt_safe, values, fits)
+    refund = row_sum(torch.where(mask & ~fits, values,
+                                 torch.zeros_like(values)))
+    return out, table, refund
+
+
+def place_valued(f: Frontier, table: torch.Tensor, urls: torch.Tensor,
+                 mask: torch.Tensor, values: torch.Tensor):
+    """``insert_valued`` at PLACEHOLDER priorities (bucket 0, pri =
+    -arrival): the same cells, drops and refunds without a score pass. The
+    caller must ``rescore`` the queue before its priorities are read."""
+    zero = torch.zeros(urls.shape, dtype=torch.float32, device=urls.device)
+    return insert_valued(f, table, urls, zero, mask, values, n_buckets=1)
+
+
+def rescore(f: Frontier, scores: torch.Tensor, *, n_buckets: int
+            ) -> Frontier:
+    """Re-bucket every queued URL from ``scores`` (R, C), keeping its FIFO
+    arrival stamp; invalid cells keep NEG. In place."""
+    pri = encode_priority(scores, _decode_arrival(f.priority), n_buckets)
+    f.priority.copy_(torch.where(f.valid, pri, f.priority))
+    return f
 
 
 def occupancy(f: Frontier) -> torch.Tensor:

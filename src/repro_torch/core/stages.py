@@ -1,7 +1,8 @@
 """The staged crawl pipeline — WebParF's Phase II step as composable stages.
 Counterpart of ``repro/core/stages.py``.
 
-    allocate -> fetch_analyze -> extract_stage  [-> dispatch_exchange]
+    allocate -> fetch_analyze -> [ordering update] -> extract_stage
+             [-> dispatch_exchange]
 
 Every stage has the signature ``stage(ctx, state, carry) -> (state, carry,
 StatsDelta)``. The frontier pop runs through the ``frontier_select`` kernel
@@ -9,13 +10,26 @@ and the Bloom dedup through the ``bloom`` kernel (their plain versions when
 the state lies on the CPU). The state's tensors are updated in place where
 the JAX stages returned new arrays, so a stage's input state is consumed.
 
-This slice of the port covers the default configuration: a stateless
-ordering (``backlink``, ``fifo``, ``learned``), ``exchange`` coordination,
-any partitioning policy, and one shard. ``check_supported`` refuses the
-rest with the ROADMAP item that will port it. None of these orderings
-carries values, so the OPIC value channel (link cash, ``staging_val``, the
-payload's value lane, the slot-cash refunds) is not run: ``order_state`` and
-``staging_val`` stay at their zero init, as they do in the JAX package.
+Stateful orderings (``opic``, ``opic_url``) run the OPIC value channel: a
+per-outlink value (``StepCarry.link_cash``) is staged in ``staging_val``,
+rides the dispatch payload's fourth lane as the f32's bits, and is
+delivered to its row's slot cash (``opic``) or into the frontier cell its
+URL wins (``opic_url``, the url lane ``order_state[:, 2:]``); whatever is
+dropped on the way refunds to a slot's cash. Every f32 scatter-add with
+possible duplicate targets goes through the ``opic_update`` kernel (item
+order on every device), every f32 row sum through ``kernels.rowsum``. The
+url lane's pop uses ``select_harvest`` and its fused dispatch
+``dedup_deposit`` (``cfg.fused_dispatch``, the default). Stateless
+orderings carry zeros through the channel in the JAX package; here they
+skip it, which leaves ``order_state`` and ``staging_val`` at the same zeros.
+
+Scores are computed from the slot columns of ``order_state`` as they were
+when the stage began, as in the JAX stages; a stage that changes slot cash
+works on a copy of column 0 and writes it back at its end.
+
+This slice of the port covers ``exchange`` coordination, any partitioning
+policy, any ordering, and one shard. ``check_supported`` refuses the rest
+with the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -33,7 +47,12 @@ from repro_torch.core import partitioner as PT
 from repro_torch.core import router as RT
 from repro_torch.core import webgraph as W
 from repro_torch.device import resolve_device
-from repro_torch.ordering.policies import get_ordering
+from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
+from repro_torch.kernels.dedup_deposit.ref import first_twin, sorted_queue
+from repro_torch.kernels.opic_update.ops import (scatter_cash,
+                                                 scatter_cash_cells)
+from repro_torch.kernels.rowsum import row_sum
+from repro_torch.ordering.policies import ORD_URL0, get_ordering
 
 # stats counters (per shard)
 STATS = ("fetched", "fetch_own", "fetch_foreign", "discovered", "dedup_exact",
@@ -58,11 +77,14 @@ class CrawlState(NamedTuple):
     f_rebased: torch.Tensor
     bloom_bits: torch.Tensor     # (n_slots, 2^b) uint8, updated in place
     slot_domain: torch.Tensor
-    order_state: torch.Tensor    # (n_slots, ORD_WIDTH) f32; zero here
+    order_state: torch.Tensor    # (n_slots, ORD_WIDTH[+C]) f32 ordering
+                                 # state (OPIC: [:, 0] slot cash, [:, 1]
+                                 # history, [:, 2:] the url lane; zeros for
+                                 # stateless orderings)
     # shard-indexed (n_shards, ...)
     staging_url: torch.Tensor    # (n_shards, S) int64 holding uint32
     staging_src: torch.Tensor    # (n_shards, S) int32 source-page domain
-    staging_val: torch.Tensor    # (n_shards, S) f32 URL values; zero here
+    staging_val: torch.Tensor    # (n_shards, S) f32 piggybacked URL values
     staging_n: torch.Tensor      # (n_shards,) int32
     outbox_url: torch.Tensor     # (n_shards, B) — the batched mode's carry
     outbox_src: torch.Tensor     # buffer; zeros under exchange
@@ -111,7 +133,7 @@ class StageContext(NamedTuple):
     cfg: CrawlConfig
     n_shards: int
     shard: int                   # this shard's index
-    score_fn: Callable           # (urls, cfg, state) -> scores in [0, 1)
+    score_fn: Callable           # (urls, cfg, state, val=None) -> [0, 1)
     classify_accuracy: float
     cumw: torch.Tensor           # static Zipf cumulative weights
     k_row: int                   # URLs popped per domain row per step
@@ -120,14 +142,27 @@ class StageContext(NamedTuple):
     policy: PT.PartitionPolicy   # resolved from cfg.partitioning
     ordering: object             # resolved from cfg.ordering
     coord: object                # resolved from cfg.coordination
+    url_lane: bool = False       # the ordering keeps a cell-aligned
+                                 # per-URL value lane in order_state[:, 2:]
 
 
 class StepCarry(NamedTuple):
     """Intra-step dataflow between stages (one shard's view)."""
+    shard: int                   # this shard's index
     alive: torch.Tensor          # () bool
     urls: torch.Tensor           # (r, k) URLs popped this step (0 if masked)
     sel: torch.Tensor            # (r, k) actually-fetched mask
     true_dom: torch.Tensor       # (r, k) analyzer's domain
+    link_cash: Optional[torch.Tensor] = None
+                                 # (r, k, O) per-outlink value to piggyback
+                                 # on dispatch (an ordering's update stage
+                                 # fills it; None stages zeros)
+    links: Optional[torch.Tensor] = None
+                                 # (r, k, O) outlink parse cached by an
+                                 # ordering's update stage
+    url_cash: Optional[torch.Tensor] = None
+                                 # (r, k) cash harvested from the popped
+                                 # cells (url-lane orderings only)
 
 
 class FetchReport(NamedTuple):
@@ -143,7 +178,7 @@ Stage = Callable[[StageContext, CrawlState, Optional[StepCarry]],
 def check_supported(cfg: CrawlConfig, n_shards: int) -> None:
     """Refuse what this slice of the port does not cover, naming the
     ROADMAP item that will."""
-    get_ordering(cfg.ordering)            # opic / opic_url raise
+    get_ordering(cfg.ordering)            # unknown names raise
     get_coordination(cfg.coordination)    # firewall/crossover/batched raise
     if cfg.telemetry:
         raise NotImplementedError(
@@ -176,6 +211,17 @@ def with_frontier(s: CrawlState, f: F.Frontier) -> CrawlState:
     return s._replace(f_url=f.url, f_pri=f.priority, f_valid=f.valid,
                       f_arrival=f.arrival, f_dropped=f.n_dropped,
                       f_inserted=f.n_inserted, f_rebased=f.n_rebased)
+
+
+def add_to_rows(slot_cash: torch.Tensor, rows: torch.Tensor,
+                vals: torch.Tensor, mask: torch.Tensor) -> None:
+    """slot_cash (r,) += the masked values at their rows, in item order
+    (the ``opic_update`` kernel); the JAX stages' ``.at[...].add`` with
+    masked items dropped."""
+    scatter_cash(slot_cash[None],
+                 rows.reshape(1, -1).to(torch.int64).contiguous(),
+                 vals.reshape(1, -1).contiguous(),
+                 mask.reshape(1, -1).contiguous())
 
 
 def apply_delta(state: CrawlState, delta: StatsDelta) -> CrawlState:
@@ -231,13 +277,13 @@ def make_context(cfg: CrawlConfig, *, n_shards: int, device,
     ordering = get_ordering(cfg.ordering)
     return StageContext(
         cfg=cfg, n_shards=n_shards, shard=shard,
-        score_fn=ordering.make_score_fn(cfg, n_shards=n_shards),
+        score_fn=ordering.make_score_fn(cfg, n_shards=n_shards, shard=shard),
         classify_accuracy=classify_accuracy,
         cumw=W.zipf_cumweights(cfg, resolve_device(device)),
         k_row=max(1, cfg.fetch_batch // r_local), S=S,
         cap_ex=max(8, -(-S // n_shards) * 2),
         policy=PT.get_policy(cfg.partitioning), ordering=ordering,
-        coord=get_coordination(cfg.coordination))
+        coord=get_coordination(cfg.coordination), url_lane=ordering.url_lane)
 
 
 # ---------------------------------------------------------------------------
@@ -249,14 +295,43 @@ def allocate(ctx: StageContext, state: CrawlState,
              ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
     """URL allocator: pop the top-k of each local domain queue, then enforce
     the per-process fetch budget; candidates beyond it go back to their
-    queues, and a dead shard gives back all its pops."""
+    queues, and a dead shard gives back all its pops. On the url lane each
+    pop harvests its cell's cash, and a give-back re-deposits it."""
     cfg = ctx.cfg
     alive = state.shard_alive[ctx.shard]
-    urls, pri, pre_sel, fr = F.select(frontier_view(state), ctx.k_row)
+    fr = frontier_view(state)
+    url_cash = slot_cash = None
+    if ctx.url_lane:
+        table = state.order_state[:, ORD_URL0:]          # a strided view
+        slot_cash = state.order_state[:, 0].clone()
+    if ctx.url_lane and cfg.fused_dispatch:
+        # one select_harvest launch pops, reads the popped cells' cash and
+        # zeroes them (invalid cells already hold exactly 0)
+        urls, pri, pre_sel, fr, _, url_cash = F.select_harvest(
+            fr, table, ctx.k_row)
+    elif ctx.url_lane:
+        urls, pri, pre_sel, fr, idx = F.select(fr, ctx.k_row,
+                                               return_idx=True)
+        url_cash = torch.where(pre_sel, torch.gather(table, 1, idx),
+                               torch.zeros_like(pri))
+        table.masked_fill_(~fr.valid, 0.0)
+    else:
+        urls, pri, pre_sel, fr = F.select(fr, ctx.k_row)
 
-    def give_back(fr, mask):
-        return F.insert(fr, urls, ctx.score_fn(urls, cfg, state), mask,
-                        n_buckets=cfg.n_priority_buckets)
+    def give_back(fr, url_cash, mask):
+        """Return popped URLs (and, on the url lane, their cash) to the
+        frontier; insert overflow refunds to the row's slot cash."""
+        if not ctx.url_lane:
+            fr = F.insert(fr, urls, ctx.score_fn(urls, cfg, state), mask,
+                          n_buckets=cfg.n_priority_buckets)
+            return fr, url_cash
+        scores = ctx.score_fn(urls, cfg, state, val=url_cash)
+        zero = torch.zeros_like(url_cash)
+        fr, _, refund = F.insert_valued(
+            fr, table, urls, scores, mask, torch.where(mask, url_cash, zero),
+            n_buckets=cfg.n_priority_buckets)
+        slot_cash.add_(refund)
+        return fr, torch.where(mask, zero, url_cash)
 
     if urls.shape[0] * ctx.k_row > cfg.fetch_batch:
         flat_pri = torch.where(pre_sel, pri,
@@ -264,15 +339,17 @@ def allocate(ctx: StageContext, state: CrawlState,
         kth = torch.sort(flat_pri, descending=True).values[cfg.fetch_batch - 1]
         budget = (flat_pri >= kth).reshape(pre_sel.shape)
         # ties at the threshold may pass a few URLs over the budget
-        fr = give_back(fr, pre_sel & ~budget)
+        fr, url_cash = give_back(fr, url_cash, pre_sel & ~budget)
         pre_sel = pre_sel & budget
     sel = pre_sel & alive
     dead_gb = pre_sel & ~alive
-    fr = give_back(fr, dead_gb)
+    fr, url_cash = give_back(fr, url_cash, dead_gb)
+    if ctx.url_lane:
+        state.order_state[:, 0] = slot_cash
     carry = StepCarry(
-        alive=alive, urls=urls, sel=sel,
+        shard=ctx.shard, alive=alive, urls=urls, sel=sel,
         true_dom=torch.zeros(urls.shape, dtype=torch.int64,
-                             device=urls.device))
+                             device=urls.device), url_cash=url_cash)
     return with_frontier(state, fr), carry, {"revived": dead_gb.sum()}
 
 
@@ -292,9 +369,13 @@ def fetch_analyze(ctx: StageContext, state: CrawlState, carry: StepCarry
 def extract_stage(ctx: StageContext, state: CrawlState, carry: StepCarry
                   ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
     """Parser + URL database: extract outlinks, canonicalize (C2),
-    exact-dedup the batch, and append to the staging buffer."""
+    exact-dedup the batch, and append to the staging buffer. On the value
+    channel each link's value is staged beside it, and the value of a link
+    dropped here (batch dedup, staging overflow) refunds to its source
+    row's slot cash."""
     cfg, S = ctx.cfg, ctx.S
-    links = W.outlinks(carry.urls, cfg, ctx.cumw)         # (r, k, O)
+    links = (W.outlinks(carry.urls, cfg, ctx.cumw) if carry.links is None
+             else carry.links)                                # (r, k, O)
     flat_u = links.reshape(-1)
     lmask = carry.sel[..., None].expand(links.shape).reshape(-1)
     flat_s = carry.true_dom[..., None].expand(links.shape).reshape(-1)
@@ -312,19 +393,44 @@ def extract_stage(ctx: StageContext, state: CrawlState, carry: StepCarry
     p = pos[fits]
     state.staging_url[0, p] = flat_u[fits]
     state.staging_src[0, p] = flat_s[fits].to(torch.int32)
+    if carry.link_cash is not None:
+        flat_v = carry.link_cash.reshape(-1)
+        state.staging_val[0, p] = flat_v[fits]
+        # refund what was lost here to the source row's slot cash
+        r = links.shape[0]
+        flat_r = torch.arange(r, device=links.device)[:, None, None].expand(
+            links.shape).reshape(-1)
+        slot_cash = state.order_state[:, 0].clone()
+        add_to_rows(slot_cash, flat_r, flat_v, lmask & ~fits)
+        state.order_state[:, 0] = slot_cash
     state.staging_n[0] = n0 + fits.sum().to(torch.int32)
     delta = {"discovered": discovered, "dedup_exact": dedup_exact,
              "staging_drop": (flat_m & ~fits).sum()}
     return state, carry, delta
 
 
+def _f32_bits(val: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor's bits as an int64 payload lane (bit-exact round
+    trip through ``_from_bits``)."""
+    return val.contiguous().view(torch.int32).to(torch.int64)
+
+
+def _from_bits(lane: torch.Tensor) -> torch.Tensor:
+    return lane.to(torch.int32).view(torch.float32)
+
+
 def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
                       ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
     """URL dispatcher (C5): predict each staged URL's owner, ship it through
-    the exchange, dedup what arrived (exact, then the Bloom kernel), and
-    insert the survivors into the local frontier rows."""
+    the exchange, dedup what arrived (exact, then the Bloom filter), and
+    insert the survivors into the local frontier rows. On the value
+    channel every staged value is delivered or refunded: to the receiving
+    row's slot cash (``opic``), or into the cell its URL wins or its queued
+    twin holds (``opic_url``)."""
     cfg, S, n_shards, shard = ctx.cfg, ctx.S, ctx.n_shards, ctx.shard
-    u, src = state.staging_url[0], state.staging_src[0]
+    valued = ctx.ordering.stateful
+    u, src, val = state.staging_url[0], state.staging_src[0], \
+        state.staging_val[0]
     r_slots = state.slot_domain.shape[0]
 
     staged = torch.arange(S, device=u.device) < state.staging_n[0]
@@ -333,22 +439,35 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     pred = CLS.predict_domain(u, src, cfg, step=state.step,
                               accuracy=ctx.classify_accuracy)
     dest = ctx.policy.route(cfg, state, n_shards, u, pred, state.step)
-    plan = ctx.coord.plan(ctx, state, shard, u, src, state.staging_val[0],
-                          dest, staged, valid)
+    plan = ctx.coord.plan(ctx, state, shard, u, src, val, dest, staged,
+                          valid)
     delta = {"dispatch_sent": plan.ship.sum(),
              "dispatch_rounds": 1,
              "coord_dropped": plan.drop.sum()}
 
-    # the payload lanes: url, predicted domain, shipped flag (no value
-    # lane: no ported ordering carries values)
-    payload = torch.stack([u, pred, plan.ship.to(torch.int64)], dim=-1)
-    buckets, _, dropped = RT.pack_buckets(payload, dest, n_shards,
-                                          ctx.cap_ex, valid=plan.ship)
+    # the payload lanes: url, predicted domain, shipped flag [, the value's
+    # f32 bits]
+    lanes = [u, pred, plan.ship.to(torch.int64)]
+    if valued:
+        lanes.append(_f32_bits(val))
+    buckets, _, dropped, sent = RT.pack_buckets(
+        torch.stack(lanes, dim=-1), dest, n_shards, ctx.cap_ex,
+        valid=plan.ship, return_keep=True)
     delta["staging_drop"] = dropped
-    recv = RT.exchange(buckets[None])[0]           # (n_shards, cap_ex, 3)
+    recv = RT.exchange(buckets[None])[0]           # (n_shards, cap_ex, L)
     r_u = recv[..., 0].reshape(-1)
     r_pred = recv[..., 1].reshape(-1)
     r_has = recv[..., 2].reshape(-1) > 0
+
+    if valued:
+        r_val = _from_bits(recv[..., 3].reshape(-1))
+        # the sender half: a staged value that was not sent (dead shard,
+        # bucket overflow) refunds to the source page's own row
+        slot_cash = state.order_state[:, 0].clone()
+        own_slot = state.slot_of_domain.to(torch.int64)[
+            torch.clamp(src.to(torch.int64), 0, cfg.n_domains - 1)]
+        own_row = torch.clamp(own_slot - shard * r_slots, 0, r_slots - 1)
+        add_to_rows(slot_cash, own_row, val, staged & ~sent & ~plan.keep)
 
     delta["dispatch_recv"] = r_has.sum()
     r_m = DD.exact_dedup(r_u[None], r_has[None])[0]
@@ -359,18 +478,72 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     M = min(r_u.shape[0], cfg.frontier_capacity)
 
     # bucket per local row, Bloom-dedup, insert into the frontier
-    rbp, rbmask, rdrop = RT.pack_buckets(r_u[:, None], row, r_slots, M,
-                                         valid=r_m)
+    if ctx.url_lane:
+        # the value travels through the per-row bucketing to the cell its
+        # URL wins; items that never reach a bucket (exact dup, unowned,
+        # overflow) refund to the receiving row here
+        rbp, rbmask, rdrop, rkeep = RT.pack_buckets(
+            torch.stack([r_u, _f32_bits(r_val)], dim=-1), row, r_slots, M,
+            valid=r_m, return_keep=True)
+        rv = _from_bits(rbp[..., 1])
+        add_to_rows(slot_cash, row, r_val, r_has & ~rkeep)
+    else:
+        if valued:
+            # the receiver half: every received value goes to its row
+            # before dedup
+            add_to_rows(slot_cash, row, r_val, r_has)
+        rbp, rbmask, rdrop = RT.pack_buckets(r_u[:, None], row, r_slots, M,
+                                             valid=r_m)
     rb = rbp[..., 0].contiguous()                  # (r_slots, M)
     delta["frontier_drop"] = rdrop
-    bloom = DD.Bloom(state.bloom_bits, cfg.bloom_bits_log2)
-    seen, _ = DD.probe_insert(bloom, rb, rbmask, k=cfg.bloom_hashes)
-    fresh = rbmask & ~seen
-    delta["dedup_bloom"] = (rbmask & seen).sum()
-    fr = F.insert(frontier_view(state), rb, ctx.score_fn(rb, cfg, state),
-                  fresh, n_buckets=cfg.n_priority_buckets)
 
-    for t in (state.staging_url, state.staging_src, state.staging_n):
+    fr = frontier_view(state)
+    if ctx.url_lane:
+        table = state.order_state[:, ORD_URL0:]
+        if cfg.fused_dispatch:
+            # one dedup_deposit pass: Bloom probe and insert, queued-twin
+            # match, twin deposit and no-twin refund; fresh URLs enter at
+            # placeholder priorities, and the rescore below is the only
+            # scoring pass
+            seen, dup_refund = dedup_deposit(
+                state.bloom_bits, rb, rbmask, rv, fr.url, fr.valid, table,
+                k=cfg.bloom_hashes)
+            fresh = rbmask & ~seen
+            fr, _, ins_refund = F.place_valued(
+                fr, table, rb, fresh, torch.where(fresh, rv,
+                                                  torch.zeros_like(rv)))
+        else:
+            bloom = DD.Bloom(state.bloom_bits, cfg.bloom_bits_log2)
+            seen, _ = DD.probe_insert(bloom, rb, rbmask, k=cfg.bloom_hashes)
+            fresh = rbmask & ~seen
+            # a Bloom-dup'd arrival whose URL is still queued in the row
+            # adds its cash to that cell; one with no queued twin refunds
+            dupm = rbmask & seen
+            hit, cell = first_twin(rb, dupm, sorted_queue(fr.url, fr.valid))
+            scatter_cash_cells(table, None, cell, rv, hit)
+            dup_refund = row_sum(torch.where(dupm & ~hit, rv,
+                                             torch.zeros_like(rv)))
+            fr, _, ins_refund = F.insert_valued(
+                fr, table, rb, ctx.score_fn(rb, cfg, state, val=rv), fresh,
+                torch.where(fresh, rv, torch.zeros_like(rv)),
+                n_buckets=cfg.n_priority_buckets)
+        delta["dedup_bloom"] = (rbmask & seen).sum()
+        slot_cash.add_(dup_refund + ins_refund)
+        # re-bucket the whole queue from the cells' current cash
+        fr = F.rescore(fr, ctx.score_fn(fr.url, cfg, state, val=table),
+                       n_buckets=cfg.n_priority_buckets)
+    else:
+        bloom = DD.Bloom(state.bloom_bits, cfg.bloom_bits_log2)
+        seen, _ = DD.probe_insert(bloom, rb, rbmask, k=cfg.bloom_hashes)
+        fresh = rbmask & ~seen
+        delta["dedup_bloom"] = (rbmask & seen).sum()
+        fr = F.insert(fr, rb, ctx.score_fn(rb, cfg, state), fresh,
+                      n_buckets=cfg.n_priority_buckets)
+
+    if valued:
+        state.order_state[:, 0] = slot_cash
+    for t in (state.staging_url, state.staging_src, state.staging_val,
+              state.staging_n):
         t.zero_()
     return with_frontier(state, fr), carry, delta
 

@@ -1,10 +1,14 @@
 // frontier_select — the URL allocator's pop, written by hand for Hopper
-// (sm_90a).
+// (sm_90a), and select_harvest, the same pop fused with the url-lane cash
+// harvest.
 //
 // Replaces the TPU kernel repro/kernels/frontier_select/frontier_select.py:85
 // (frontier_select, body _kernel at :29): per frontier row, k rounds of a
 // masked max with the first index achieving it; the popped cells leave the
-// queue (priority NEG, valid false).
+// queue (priority NEG, valid false). select_harvest replaces
+// frontier_select.py:116 (select_harvest_kernel, body _harvest_kernel at
+// :56): the same pop, plus each popped cell's cash read from the lane
+// `table` (0 where the lane is masked) and that cell of the table zeroed.
 //
 // What bounds it on this card: bytes. A launch must read every cell's
 // priority (4 B) and valid flag (1 B) once. At the full config (512 rows of
@@ -19,7 +23,11 @@
 // kept and the picks equal a stable descending sort of the keys. Where the
 // TPU kernel wrote whole rows of pri' and valid' back, this one writes only
 // the k popped cells, in place in the caller's tensors. For k > 1 each round
-// reads the row again (from L2); the main path pops k = 1.
+// reads the row again (from L2); the main path pops k = 1. The harvest adds
+// one 4-byte read and one 4-byte write per popped cell, in the same pass as
+// the pops; the table is a view with its own row stride (the lane is
+// order_state[:, 2:], whose rows are 2 + C floats apart), so no copy is
+// made.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -47,10 +55,12 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
+template <bool kHarvest>
 __global__ void __launch_bounds__(kThreads)
 frontier_select_kernel(const int64_t* __restrict__ url, float* pri,
                        bool* valid, int C, int k, int64_t* sel_url,
-                       float* sel_pri, bool* sel_mask, int64_t* sel_idx) {
+                       float* sel_pri, bool* sel_mask, int64_t* sel_idx,
+                       float* table, int64_t ld_table, float* cash) {
   __shared__ float s_v[kWarps];
   __shared__ int s_i[kWarps];
   __shared__ float best_v;
@@ -102,9 +112,15 @@ frontier_select_kernel(const int64_t* __restrict__ url, float* pri,
   if (threadIdx.x == 0) {
     for (int j = 0; j < k; ++j) {
       const size_t o = row * k + j;
-      if (sel_mask[o]) {
+      const bool ok = sel_mask[o];
+      if (ok) {
         pri[row * C + sel_idx[o]] = kNeg;
         valid[row * C + sel_idx[o]] = false;
+      }
+      if constexpr (kHarvest) {
+        float* cell = table + row * ld_table + sel_idx[o];
+        cash[o] = ok ? *cell : 0.0f;
+        if (ok) *cell = 0.0f;
       }
     }
   }
@@ -117,12 +133,29 @@ extern "C" int frontier_select_launch(const void* url, void* pri, void* valid,
                                       void* sel_mask, void* sel_idx, int R,
                                       int C, int k, void* stream) {
   if (R > 0) {
-    frontier_select_kernel<<<R, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    frontier_select_kernel<false><<<R, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int64_t*>(url), static_cast<float*>(pri),
         static_cast<bool*>(valid), C, k, static_cast<int64_t*>(sel_url),
         static_cast<float*>(sel_pri), static_cast<bool*>(sel_mask),
-        static_cast<int64_t*>(sel_idx));
+        static_cast<int64_t*>(sel_idx), nullptr, 0, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int select_harvest_launch(const void* url, void* pri, void* valid,
+                                     void* table, void* sel_url,
+                                     void* sel_pri, void* sel_mask,
+                                     void* sel_idx, void* cash, int R, int C,
+                                     int k, int ld_table, void* stream) {
+  if (R > 0) {
+    frontier_select_kernel<true><<<R, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int64_t*>(url), static_cast<float*>(pri),
+        static_cast<bool*>(valid), C, k, static_cast<int64_t*>(sel_url),
+        static_cast<float*>(sel_pri), static_cast<bool*>(sel_mask),
+        static_cast<int64_t*>(sel_idx), static_cast<float*>(table),
+        static_cast<int64_t>(ld_table), static_cast<float*>(cash));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into its own shared library, loaded with ``ctypes``: seconds per kernel,
-where a source that includes PyTorch's headers takes minutes. The build goes
+Each ``csrc/<source>.cu`` has a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes``: seconds per
+source, where a source that includes PyTorch's headers takes minutes. A
+source may export several kernels (``frontier_select.cu`` exports two). The build goes
 into ``build/repro_torch/`` at the root of the checkout, keyed by a hash of
 the source and the flags, so a changed source is never served a stale
 library. Nothing is compiled when a module is imported: the first launch
@@ -43,11 +44,15 @@ def find_nvcc() -> str:
 
 class Kernel:
     """One hand-written kernel: its source, its library, and the count of
-    its launches (``launches``, a plain integer the caller may reset)."""
+    its launches (``launches``, a plain integer the caller may reset).
+    ``csrc/<source>.cu`` exports ``<name>_launch`` and ``<source>_error``;
+    several kernels may share one source, and so one library."""
 
-    def __init__(self, name: str, n_ptr: int, n_int: int):
+    def __init__(self, name: str, n_ptr: int, n_int: int, *,
+                 source: Optional[str] = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.stem = source or name
+        self.source = CSRC / f"{self.stem}.cu"
         self._argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                           + [ctypes.c_void_p])            # + the stream
         self._fn = None
@@ -59,7 +64,7 @@ class Kernel:
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this kernel unless its library exists."""
@@ -88,7 +93,7 @@ class Kernel:
             fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.name}_error")
+            err = getattr(lib, f"{self.stem}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._fn, self._err = fn, err
@@ -107,12 +112,18 @@ class Kernel:
 
 
 def build_all(kernels: Iterable[Kernel]) -> Dict[str, float]:
-    """Build every kernel in parallel; returns {name: seconds} (0 for a
-    library that already existed)."""
+    """Build every library in parallel, one ``nvcc`` per source; returns
+    {kernel name: seconds} (0 for a library that already existed)."""
     t0 = time.time()
-    procs = [(k, k.start_build()) for k in kernels]
+    kernels = list(kernels)
+    by_library = {}
+    for k in kernels:
+        by_library.setdefault(k.library, k)
+    procs = [(k, k.start_build()) for k in by_library.values()]
     secs = {}
     for k, p in procs:
         k.finish_build(p)
-        secs[k.name] = 0.0 if p is None else time.time() - t0
-    return secs
+        secs[k.library] = 0.0 if p is None else time.time() - t0
+    for k in kernels:
+        k.build_log = by_library[k.library].build_log
+    return {k.name: secs[k.library] for k in kernels}

@@ -1,19 +1,26 @@
-"""The ``frontier_select`` wrapper: the URL allocator's pop.
+"""The ``frontier_select`` wrappers: the URL allocator's pop, and the pop
+fused with the url-lane cash harvest (``select_harvest``).
 
 Dispatch is by device: a CUDA tensor launches the hand-written kernel
-(``csrc/frontier_select.cu``) or raises; a CPU tensor takes the plain
-version (``ref.select_ref``). There is no fallback between the two.
+(``csrc/frontier_select.cu``, which exports both entry points) or raises;
+a CPU tensor takes the plain version (``ref.select_ref``,
+``ref.select_harvest_ref``). There is no fallback between the two.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import Kernel
-from repro_torch.kernels.frontier_select.ref import select_ref
+from repro_torch.kernels.frontier_select.ref import (select_harvest_ref,
+                                                     select_ref)
 
 # frontier_select_launch(url, pri, valid, sel_url, sel_pri, sel_mask,
 #                        sel_idx, R, C, k, stream)
 KERNEL = Kernel("frontier_select", n_ptr=7, n_int=3)
+# select_harvest_launch(url, pri, valid, table, sel_url, sel_pri, sel_mask,
+#                       sel_idx, cash, R, C, k, ld_table, stream)
+HARVEST = Kernel("select_harvest", n_ptr=9, n_int=4,
+                 source="frontier_select")
 
 
 def _check(url, pri, valid, k):
@@ -56,3 +63,39 @@ def select(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor, *,
     if return_idx:
         return sel_url, sel_pri, sel_mask, sel_idx
     return sel_url, sel_pri, sel_mask
+
+
+def select_harvest(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor,
+                   table: torch.Tensor, *, k: int):
+    """``select`` plus the url-lane harvest: table (R, C) f32 is the cash
+    lane, cell-aligned with the rows (it may be a view whose rows are
+    strided, e.g. ``order_state[:, 2:]``). Pops in place as ``select``
+    does, reads each popped cell's cash and zeroes that cell of ``table``
+    in place. Returns (sel_url, sel_pri, sel_mask, idx, cash), all (R, k)."""
+    _check(url, pri, valid, k)
+    if table.shape != url.shape or table.dtype != torch.float32 \
+            or table.device != url.device:
+        raise ValueError(f"select_harvest: want a float32 table of shape "
+                         f"{tuple(url.shape)} on {url.device}, got "
+                         f"{table.dtype} {tuple(table.shape)} on "
+                         f"{table.device}")
+    if url.device.type == "cpu":
+        return select_harvest_ref(url, pri, valid, table, k=k)
+    if url.device.type != "cuda":
+        raise ValueError(f"select_harvest: no kernel for {url.device}")
+    if not (url.is_contiguous() and pri.is_contiguous()
+            and valid.is_contiguous()) or table.stride(1) != 1:
+        raise ValueError("select_harvest: url/pri/valid must be contiguous "
+                         "and the table's rows contiguous")
+    R, C = url.shape
+    dev = url.device
+    sel_url = torch.empty((R, k), dtype=torch.int64, device=dev)
+    sel_pri = torch.empty((R, k), dtype=torch.float32, device=dev)
+    sel_mask = torch.empty((R, k), dtype=torch.bool, device=dev)
+    sel_idx = torch.empty((R, k), dtype=torch.int64, device=dev)
+    cash = torch.empty((R, k), dtype=torch.float32, device=dev)
+    HARVEST.launch(url.data_ptr(), pri.data_ptr(), valid.data_ptr(),
+                   table.data_ptr(), sel_url.data_ptr(), sel_pri.data_ptr(),
+                   sel_mask.data_ptr(), sel_idx.data_ptr(), cash.data_ptr(),
+                   R, C, k, table.stride(0))
+    return sel_url, sel_pri, sel_mask, sel_idx, cash

@@ -33,3 +33,19 @@ def select_ref(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor, *,
     if return_idx:
         return sel_url, sel_pri, mask, idx
     return sel_url, sel_pri, mask
+
+
+def select_harvest_ref(url: torch.Tensor, pri: torch.Tensor,
+                       valid: torch.Tensor, table: torch.Tensor, *, k: int):
+    """``select_ref`` fused with the url-lane harvest: each popped cell's
+    cash is read into ``cash`` (R, k), 0 where masked, and the cell of
+    ``table`` is zeroed in place. Returns (sel_url, sel_pri, sel_mask, idx,
+    cash)."""
+    sel_url, sel_pri, mask, idx = select_ref(url, pri, valid, k=k,
+                                             return_idx=True)
+    cash = torch.where(mask, torch.gather(table, 1, idx),
+                       torch.zeros_like(sel_pri))
+    rows = torch.arange(url.shape[0], device=url.device)[:, None]
+    r, c = rows.expand_as(idx)[mask], idx[mask]
+    table[r, c] = 0.0
+    return sel_url, sel_pri, mask, idx, cash

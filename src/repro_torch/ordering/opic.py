@@ -1,0 +1,136 @@
+"""OPIC — On-line Page Importance Computation, per frontier SLOT.
+Counterpart of ``repro/ordering/opic.py``.
+
+``CrawlState.order_state[:, 0]`` is a slot's cash and ``[:, 1]`` its
+history. Every domain-bearing slot starts with cash 1.0. At each step a
+slot with fetches banks its cash into history and splits it over the
+fetched pages' outlinks (1/O each): targets whose slot lives on this shard
+are added through the ``opic_update`` kernel, in item order; the rest ride
+the stages' value channel (``StepCarry.link_cash`` -> ``staging_val`` -> the
+dispatch payload's value lane) and are delivered or refunded there. Total
+cash is conserved up to f32 rounding in the split.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import CrawlConfig
+from repro_torch.core import partitioner as PT
+from repro_torch.core import ranker
+from repro_torch.core import webgraph as W
+from repro_torch.kernels.opic_update.ops import scatter_cash
+from repro_torch.ordering.policies import (ORD_WIDTH, OrderingPolicy,
+                                           register_ordering)
+
+# score blend: learned importance of the URL's domain slot vs the static
+# within-domain popularity tie-break
+_W_IMP, _W_POP = 0.7, 0.3
+
+
+def init_opic(cfg: CrawlConfig, n_shards: int, device) -> torch.Tensor:
+    """Uniform initial cash over domain-bearing slots; empty history."""
+    dm = PT.identity_map(cfg, n_shards, device)
+    cash = (dm.domain_of_slot >= 0).to(torch.float32)
+    return torch.stack([cash, torch.zeros_like(cash)], dim=-1)
+
+
+def local_rows(urls: torch.Tensor, cfg: CrawlConfig, state, shard: int,
+               r_slots: int):
+    """The local frontier row of each URL's domain slot, clamped into
+    range, and whether that slot lives on this shard."""
+    dom = torch.clamp(W.domain_of(urls, cfg), 0, cfg.n_domains - 1)
+    row = state.slot_of_domain.to(torch.int64)[dom] - shard * r_slots
+    return torch.clamp(row, 0, r_slots - 1), (row >= 0) & (row < r_slots)
+
+
+def slot_importance(state) -> torch.Tensor:
+    """cash + history of every local slot, relative to the largest."""
+    imp = state.order_state[:, 0] + state.order_state[:, 1]
+    return imp / torch.clamp(imp.max(), min=1e-6)
+
+
+def make_opic_score_fn(cfg: CrawlConfig, *, n_shards: int, shard: int = 0):
+    r_slots = cfg.n_slots // n_shards
+
+    def score(urls, cfg, state, val=None):
+        row, local = local_rows(urls, cfg, state, shard, r_slots)
+        s_imp = slot_importance(state)[row]
+        pop = W.popularity(urls, cfg)
+        # URLs whose domain row lives on another shard fall back to the
+        # static blend
+        s = torch.where(local, _W_IMP * s_imp + _W_POP * pop,
+                        ranker.score_urls(urls, cfg))
+        return torch.clamp(s, 0.0, 0.999)
+
+    return score
+
+
+def opic_update(ctx, state, carry):
+    """The OPIC spend step, a pipeline stage between fetch_analyze and
+    extract. Writes the slot columns of ``order_state`` in place."""
+    cfg = ctx.cfg
+    os_ = state.order_state
+    cash, hist = os_[:, 0], os_[:, 1]
+    r_slots = cash.shape[0]
+
+    # spend: a slot with fetches this step banks its cash into history
+    n_f = carry.sel.sum(dim=1)                                    # (r,)
+    spend = torch.where(n_f > 0, cash, torch.zeros_like(cash))
+    share = torch.where(
+        carry.sel,
+        (spend / torch.clamp(n_f, min=1).to(torch.float32))[:, None],
+        torch.zeros((), dtype=torch.float32, device=cash.device))  # (r, k)
+    per_link = share[..., None] / cfg.outlinks_per_page          # (r, k, 1)
+
+    # distribute along the fetched pages' outlinks (parsed once here and
+    # cached in the carry for extract_stage)
+    links = W.outlinks(carry.urls, cfg, ctx.cumw)                 # (r, k, O)
+    lmask = carry.sel[..., None].expand(links.shape)
+    contrib = per_link.expand(links.shape)
+    tslot = state.slot_of_domain.to(torch.int64)[
+        torch.clamp(W.domain_of(links, cfg), 0, cfg.n_domains - 1)]
+    row = tslot - carry.shard * r_slots
+    is_local = (row >= 0) & (row < r_slots) & lmask
+
+    # local targets: the opic_update kernel's scatter-add
+    new_cash = (cash - spend)[None]
+    scatter_cash(new_cash, torch.clamp(row, 0, r_slots - 1).reshape(1, -1),
+                 contrib.reshape(1, -1), is_local.reshape(1, -1))
+
+    # cross-shard targets ride the conserved value channel
+    remote = torch.where(lmask & ~is_local, contrib, torch.zeros_like(contrib))
+    os_[:, 1] = hist + spend
+    os_[:, 0] = new_cash[0]
+    return state, carry._replace(link_cash=remote, links=links), {}
+
+
+OPIC = register_ordering(OrderingPolicy(
+    "opic", True, init_opic, make_opic_score_fn, opic_update))
+
+
+# ---------------------------------------------------------------------------
+# conservation accounting (host-side)
+# ---------------------------------------------------------------------------
+
+def _in_transit(vals: torch.Tensor, ns: torch.Tensor) -> float:
+    v = vals.cpu().numpy().astype(np.float64)
+    return sum(float(v[i, :int(n)].sum())
+               for i, n in enumerate(ns.cpu().numpy()))
+
+
+def total_cash(state) -> float:
+    """Total OPIC cash: slot cash, the per-URL lane when the ordering keeps
+    one (``opic_url``, order_state columns 2:), cash in transit in the
+    staging buffers, and cash parked in the outbox. Conserved up to f32
+    rounding in the spend split."""
+    os_ = state.order_state.cpu().numpy().astype(np.float64)
+    return (float(os_[:, 0].sum() + os_[:, ORD_WIDTH:].sum())
+            + _in_transit(state.staging_val, state.staging_n)
+            + _in_transit(state.outbox_val, state.outbox_n))
+
+
+def total_wealth(state) -> float:
+    """cash + history + in-transit — grows only by banked history."""
+    return total_cash(state) + float(
+        state.order_state[:, 1].cpu().numpy().astype(np.float64).sum())

@@ -1,10 +1,11 @@
 """URL-ordering policy registry. Counterpart of
 ``repro/ordering/policies.py``.
 
-The stateless built-ins are ported: ``fifo`` (one bucket, arrival order),
+The stateless built-ins live here: ``fifo`` (one bucket, arrival order),
 ``backlink`` (the ranker's static blend, the default) and ``learned`` (a
 fixed linear probe over ``ranker.url_features``). The stateful OPIC
-orderings belong to the next slice of the port and raise here.
+orderings, ``opic`` (ordering/opic.py) and ``opic_url``
+(ordering/opic_url.py), register when first resolved.
 """
 from __future__ import annotations
 
@@ -21,15 +22,15 @@ from repro_torch.core import ranker
 ORD_WIDTH = 2
 ORD_URL0 = ORD_WIDTH
 
-NOT_PORTED = ("opic", "opic_url")
-
 
 class OrderingPolicy(NamedTuple):
     """One URL-ordering scheme, resolvable by name from ``cfg.ordering``.
 
-      init_state     — (cfg, n_shards, device) -> (n_slots, ORD_WIDTH) f32.
-      make_score_fn  — (cfg, n_shards) -> score_fn(urls, cfg, state,
-                       val=None) mapping URLs to [0, 1) queue scores.
+      init_state     — (cfg, n_shards, device) -> (n_slots, ORD_WIDTH) f32,
+                       or (n_slots, ORD_WIDTH + C) for a url-lane policy.
+      make_score_fn  — (cfg, *, n_shards, shard) -> score_fn(urls, cfg,
+                       state, val=None) mapping URLs to [0, 1) queue
+                       scores.
       update_stage   — optional pipeline stage run before extract.
       url_lane       — the policy keeps per-URL state in order_state.
     """
@@ -53,15 +54,13 @@ def register_ordering(policy: OrderingPolicy) -> OrderingPolicy:
 
 
 def orderings() -> Tuple[str, ...]:
+    import repro_torch.ordering.opic_url  # noqa: F401  (registers both OPICs)
     return tuple(sorted(_ORDERINGS))
 
 
 def get_ordering(name: str) -> OrderingPolicy:
     """Resolve a ``cfg.ordering`` string to its registered policy."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"ordering {name!r} is not ported yet (ROADMAP Queue 1, slice 2: "
-            f"the OPIC orderings)")
+    import repro_torch.ordering.opic_url  # noqa: F401  (registers both OPICs)
     if name not in _ORDERINGS:
         raise KeyError(f"unknown ordering policy {name!r}; "
                        f"registered: {orderings()}")
@@ -82,11 +81,11 @@ def zeros_state(cfg: CrawlConfig, n_shards: int, device) -> torch.Tensor:
                        device=device)
 
 
-def _backlink_score_fn(cfg, *, n_shards):
+def _backlink_score_fn(cfg, *, n_shards, shard=0):
     return as_score_fn(ranker.score_urls)
 
 
-def _fifo_score_fn(cfg, *, n_shards):
+def _fifo_score_fn(cfg, *, n_shards, shard=0):
     def score(urls, cfg, state, val=None):
         # one bucket for every URL: the FIFO tie-break is the whole ordering
         return torch.full(urls.shape, 0.5, dtype=torch.float32,
@@ -99,7 +98,7 @@ _LEARNED_W = (2.0, 0.8, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0)
 _LEARNED_B = -1.0
 
 
-def _learned_score_fn(cfg, *, n_shards):
+def _learned_score_fn(cfg, *, n_shards, shard=0):
     def score(urls, cfg, state, val=None):
         feats = ranker.url_features(urls, cfg)
         w = torch.tensor(_LEARNED_W, dtype=torch.float32, device=urls.device)

@@ -56,7 +56,8 @@ def test_webparf_configs_mirror_reference():
 
 
 @pytest.mark.parametrize("override", [
-    dict(ordering="opic"), dict(ordering="opic_url"),
+    dict(ordering="opic", telemetry=True),
+    dict(ordering="opic_url", coordination="firewall"),
     dict(coordination="firewall"), dict(coordination="crossover"),
     dict(coordination="batched"), dict(telemetry=True),
     dict(rebalance_threshold=1.5)])
@@ -96,6 +97,8 @@ def test_kernels_build_nothing_at_import():
         importlib.import_module(".".join(
             rel.parts[:-1] if rel.name == "__init__" else rel.parts))
     from repro_torch.kernels import all_kernels, launch_counts
-    assert {k.name for k in all_kernels()} == {"frontier_select", "bloom"}
+    names = {"frontier_select", "select_harvest", "bloom", "dedup_deposit",
+             "opic_update"}
+    assert {k.name for k in all_kernels()} == names
     assert all(k.source.exists() for k in all_kernels())
-    assert set(launch_counts()) == {"frontier_select", "bloom"}
+    assert set(launch_counts()) == names

@@ -16,8 +16,15 @@ from repro_torch.configs import webparf  # noqa: E402
 from repro_torch.core.stages import state_to_numpy  # noqa: E402
 from repro_torch.kernels.bloom import ops as BOPS  # noqa: E402
 from repro_torch.kernels.bloom.ref import bloom_ref  # noqa: E402
+from repro_torch.configs.base import scaled  # noqa: E402
+from repro_torch.kernels.dedup_deposit import ops as DOPS  # noqa: E402
+from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref  # noqa: E402
 from repro_torch.kernels.frontier_select import ops as SOPS  # noqa: E402
-from repro_torch.kernels.frontier_select.ref import NEG, select_ref  # noqa: E402
+from repro_torch.kernels.frontier_select.ref import (  # noqa: E402
+    NEG, select_harvest_ref, select_ref)
+from repro_torch.kernels.opic_update import ops as OOPS  # noqa: E402
+from repro_torch.kernels.opic_update.ref import opic_ref  # noqa: E402
+from repro_torch.ordering.opic import total_cash  # noqa: E402
 
 
 @pytest.fixture
@@ -95,6 +102,116 @@ def test_bloom_kernel_matches_plain(cuda, R, M, b, k, dup, prefill,
     assert torch.equal(s1, s2) and torch.equal(b1, b2)
     if prefill:
         assert bool(s1.any())
+
+
+@pytest.mark.parametrize("R,C,k,fill", [(4, 64, 4, 0.6), (2, 128, 8, 1.0),
+                                        (3, 37, 5, 0.0), (512, 4096, 1, 0.6)])
+def test_select_harvest_kernel_matches_plain(cuda, R, C, k, fill):
+    """On the url lane as the stages hold it: a strided view of a wider
+    array, with 0 cash on invalid cells."""
+    url, pri, valid = rows(R, C, seed=R + C + k, fill=fill)
+    lane = np.random.default_rng(R).random((R, C)) * valid
+    wide = torch.zeros((R, 2 + C), device=cuda)
+    wide[:, 2:] = torch.tensor(lane, dtype=torch.float32, device=cuda)
+    u = torch.tensor(url, device=cuda)
+    p1, v1 = torch.tensor(pri, device=cuda), torch.tensor(valid, device=cuda)
+    p2, v2, w2 = p1.clone(), v1.clone(), wide.clone()
+    n0 = SOPS.HARVEST.launches
+    got = SOPS.select_harvest(u, p1, v1, wide[:, 2:], k=k)
+    want = select_harvest_ref(u, p2, v2, w2[:, 2:], k=k)
+    torch.cuda.synchronize()
+    assert SOPS.HARVEST.launches == n0 + 1
+    for a, b in zip((*got, p1, v1, wide), (*want, p2, v2, w2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,R,N,tile", [(1, 512, 8192, 256), (3, 5, 300, 64),
+                                        (2, 64, 77, 256), (512, 4096, 4096,
+                                                          256)])
+def test_opic_update_kernel_matches_plain(cuda, B, R, N, tile):
+    """Duplicate targets, wrapping and out-of-range rows, a masked row."""
+    rng = np.random.default_rng(B + R + N)
+    cash = torch.tensor(rng.random((B, R)), dtype=torch.float32, device=cuda)
+    rows_ = torch.tensor(rng.integers(-R - 2, R + 2, (B, N)), device=cuda)
+    contrib = torch.tensor(rng.random((B, N)) * 10.0 ** rng.integers(
+        -6, 3, (B, N)), dtype=torch.float32, device=cuda)
+    mask = torch.tensor(rng.random((B, N)) < 0.8, device=cuda)
+    if B > 1:
+        mask[-1] = False
+    c2, cash0 = cash.clone(), cash.clone()
+    n0 = OOPS.KERNEL.launches
+    OOPS.scatter_cash(cash, rows_, contrib, mask, tile=tile)
+    opic_ref(c2, rows_, contrib, mask, tile=tile)
+    torch.cuda.synchronize()
+    assert OOPS.KERNEL.launches == n0 + 1
+    assert torch.equal(cash, c2) and not torch.equal(cash, cash0)
+
+
+@pytest.mark.parametrize("R,M,C,b,tile,dup", [
+    (1, 64, 32, 10, 32, 0.3), (4, 96, 64, 12, 32, 0.5),
+    (3, 300, 50, 10, 128, 0.5), (2, 100, 40, 9, 256, 0.9),
+    (16, 4096, 4096, 24, 256, 0.3)])
+def test_dedup_deposit_kernel_matches_plain(cuda, R, M, C, b, tile, dup):
+    """Queued twins (a URL queued twice among them), URLs inserted before
+    and gone, repeats within and across tiles, a masked row."""
+    rng = np.random.default_rng(R + M + C)
+    f_url = rng.integers(1, 1 << 20, (R, C))
+    f_url[:, 1] = f_url[:, 2]
+    f_valid = rng.random((R, C)) < 0.7
+    pick = rng.random((R, M))
+    queued = np.take_along_axis(f_url, rng.integers(0, C, (R, M)), axis=1)
+    gone = rng.integers(1 << 20, 1 << 21, (R, M))
+    urls = np.where(pick < dup / 2, queued,
+                    np.where(pick < dup, gone,
+                             rng.integers(1 << 21, 1 << 22, (R, M))))
+    urls[:, M // 2:] = np.where(rng.random((R, M - M // 2)) < dup,
+                                urls[:, :M - M // 2], urls[:, M // 2:])
+    mask = rng.random((R, M)) < 0.8
+    if R > 1:
+        mask[-1] = False
+    bits = torch.zeros((R, 1 << b), dtype=torch.uint8)
+    bloom_ref(bits, torch.tensor(np.concatenate([f_url, gone], 1)),
+              torch.tensor(np.concatenate([f_valid, np.ones_like(mask)], 1)),
+              k=4)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    args = [t(urls), t(mask), t(rng.random((R, M)).astype(np.float32)),
+            t(f_url), t(f_valid)]
+    lane = torch.tensor(rng.random((R, C)) * f_valid, dtype=torch.float32)
+    wide = torch.zeros((R, 2 + C))
+    wide[:, 2:] = lane
+    b1, w1 = bits.to(cuda), wide.to(cuda)
+    b2, w2 = b1.clone(), w1.clone()
+    n0 = DOPS.KERNEL.launches
+    s1, r1 = DOPS.dedup_deposit(b1, *args, w1[:, 2:], k=4, url_tile=tile)
+    s2, r2 = dedup_deposit_ref(b2, *args, w2[:, 2:], k=4,
+                               url_tile=min(tile, M))
+    torch.cuda.synchronize()
+    assert DOPS.KERNEL.launches == n0 + 1
+    for a, b_ in ((s1, s2), (b1, b2), (w1, w2), (r1, r2)):
+        assert torch.equal(a, b_)
+    assert bool(s1.any()) and not torch.equal(w1[:, 2:].cpu(), lane)
+
+
+@pytest.mark.parametrize("ordering,fused", [("opic", True),
+                                            ("opic_url", True),
+                                            ("opic_url", False)])
+def test_opic_session_on_card_matches_cpu(cuda, ordering, fused):
+    """The OPIC crawls through the kernels equal the crawls through the
+    plain versions, in every output and state leaf, and conserve cash."""
+    cfg = scaled(webparf.reduced(), ordering=ordering, fused_dispatch=fused,
+                 link_pop_bias=1.0)
+    reps, states = {}, {}
+    for dev in (cuda, "cpu"):
+        sess = CrawlSession(cfg, device=dev)
+        key = torch.device(dev).type
+        reps[key], states[key] = sess.run(48), state_to_numpy(sess.state)
+        np.testing.assert_allclose(total_cash(sess.state), cfg.n_domains,
+                                   rtol=1e-6)
+    np.testing.assert_array_equal(reps["cuda"].urls, reps["cpu"].urls)
+    assert reps["cuda"].stats == reps["cpu"].stats
+    for name in states["cpu"]:
+        np.testing.assert_array_equal(states["cuda"][name],
+                                      states["cpu"][name], err_msg=name)
 
 
 def test_session_on_card_matches_cpu(cuda):
