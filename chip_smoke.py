@@ -7,7 +7,7 @@ Phases, one JSON line each (a phase that fails raises, and the script exits
 non-zero):
 
   1. build   — nvcc builds every kernel's library from csrc/, one process
-               per source, all started together (five kernels, four
+               per source, all started together (six kernels, five
                sources: select_harvest shares frontier_select.cu).
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
@@ -32,9 +32,27 @@ non-zero):
                (plain versions) for backlink, opic, opic_url fused and
                opic_url unfused (link_pop_bias=1.0, so twins are hit);
                every output and state leaf must match.
-  5. kernels — each kernel's time (CUDA events) beside its plain version's,
+  5. lm      — flash_parity: flash_attention against its plain version on
+               small cases (every head dim, GQA groups 1/3/6, lengths 32,
+               192 and 256, causal on and off, f32 and bf16);
+               lm_serve: Qwen2-1.5B at full width (28 layers, d 1536,
+               12/2 heads, hd 128, vocab 151936) from a seeded init, bf16,
+               prefill of 4 x 2048 prompts and 32 greedy tokens through
+               ``launch.serve.serve``, one flash_attention launch per layer
+               (counts zeroed just before, read just after), no non-finite
+               logits, and a profile of one prefill and of four decode
+               steps; lm_long: one serve of a 32768-token prompt (batch
+               1) and 8 tokens, counted as lm_serve is;
+               lm_captured_parity: the kernel against its plain version on
+               the q, k, v of layer 0 and layer 27 of the 4 x 2048
+               prefill, in bf16 and cast to f32; lm_cpu: the reduced model in
+               f32 on the card and the CPU, logits within 1e-4 over a
+               prefill and 16 teacher-forced decode steps.
+  6. kernels — each kernel's time (CUDA events) beside its plain version's,
                a library call's where one computes the same function, and
-               its bound: the bytes it must move over 3.35 TB/s.
+               its bound: the bytes it must move over 3.35 TB/s, or for
+               flash_attention the larger of that and its operations over
+               989 TFLOP/s.
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -376,6 +394,330 @@ def phase_parity():
              "opic_update")}
 
 
+# flash_attention against its plain version: the reference's tolerances
+# (tests/test_kernels.py), as |got - want| <= tol + tol * |want|
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def flash_inputs(rng, B, Hq, Hkv, S, hd, dtype, *, strided=True):
+    """q (B, Hq, S, hd), k, v (B, Hkv, S, hd) on the card, drawn with
+    numpy; ``strided`` lays them out as the projections do, (B, S, H, hd)
+    transposed."""
+    import torch
+    dt = getattr(torch, dtype)
+    out = []
+    for H in (Hq, Hkv, Hkv):
+        x = torch.tensor(rng.standard_normal((B, S, H, hd)),
+                         dtype=torch.float32, device=DEV).to(dt)
+        out.append(x.transpose(1, 2) if strided else
+                   x.transpose(1, 2).contiguous())
+    return out
+
+
+def flash_pair(q, k, v, causal, label):
+    """The kernel and its plain version on the same inputs; raises past the
+    dtype's tolerance or on a non-finite output, returns max |diff|."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import _gqa_fold, attention
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    got = attention(q, k, v, causal=causal)
+    qg, kf, vf, group = _gqa_fold(q, k, v)
+    want = flash_ref(qg, kf, vf, causal=causal, group=group
+                     ).reshape(q.shape)
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {label}: non-finite output")
+    excess = (got - want).abs() - tol * (1 + want.abs())
+    if float(excess.max()) > 0:
+        raise AssertionError(f"flash_attention {label}: differs from the "
+                             f"plain version beyond {tol}: max |diff| "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def phase_flash_parity():
+    """flash_attention against its plain version on small cases: every head
+    dim the kernel instantiates, GQA groups 1, 3 and 6, lengths 32, 192
+    (ragged tiles) and 256, causal on and off, f32 and bf16, strided and
+    contiguous layouts."""
+    rng = np.random.default_rng(SEED + 3)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for hd in (8, 16, 32, 64, 96, 128):
+        for group in (1, 3, 6):
+            for S in (32, 192, 256):
+                for causal in (True, False):
+                    for dtype in ("float32", "bfloat16"):
+                        q, k, v = flash_inputs(rng, 2, 2 * group, 2, S, hd,
+                                               dtype, strided=n % 2 == 0)
+                        label = (f"hd={hd} group={group} S={S} "
+                                 f"causal={causal} {dtype}")
+                        errs[dtype] = max(errs[dtype],
+                                          flash_pair(q, k, v, causal, label))
+                        n += 1
+    out = {"phase": "flash_parity", "cases": n, "max_abs_err": errs,
+           "tolerance": "|got - want| <= tol * (1 + |want|), tol "
+                        f"{FLASH_TOL}"}
+    emit(out)
+    return out
+
+
+# the LM serving path: qwen2-1.5b at full width, prefill_32k's shape cut
+# from batch 32 x 32768 to batch 4 x 2048, then 32 greedy tokens; the
+# kernel's timings and parity run at this shape. A second serve keeps
+# prefill_32k's length with the batch cut to 1 (32 x 32768 in one prefill
+# would not fit the card's memory).
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 4, 2048, 32
+LM_LONG_PROMPT, LM_LONG_GEN = 32768, 8
+LM_CPU_TOL = 1e-4                   # cuda vs cpu logits, reduced f32 model
+H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
+
+
+def capture_flash(model, prompts, layers):
+    """{layer: (q, k, v)} as one prefill hands them to ``flash_attention``
+    at the given layers."""
+    import itertools
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import transformer as T
+    call = itertools.count()
+    picked = sorted(layers)
+    got = capture_calls([FA], "attention",
+                        lambda: T.prefill_step(model, prompts), len(picked),
+                        pick=lambda args: next(call) in layers)
+    return {layer: tuple(args[:3]) for layer, (args, _) in zip(picked, got)}
+
+
+def profile_lm(model, prompts, decode_steps=4):
+    """One prefill, then ``decode_steps`` decode steps, each under
+    torch.profiler: the device's busy time, its idle share, the device
+    events (kernels and copies) per call, and the kernels that took most
+    of the time."""
+    from repro_torch.models import transformer as T
+    P = prompts.shape[1]
+    pre = profile_device(lambda: T.prefill_step(model, prompts), 1)
+    logits, cache = T.prefill_step(model, prompts, max_len=P + decode_steps)
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+
+    def decode():
+        nonlocal cache
+        for _ in range(decode_steps):
+            _, cache = T.decode_step(model, tok, cache)
+    return {"prefill": pre, "decode": profile_device(decode, decode_steps)}
+
+
+def profile_device(fn, calls):
+    """``fn()`` (``calls`` calls of the path) under torch.profiler: the
+    device's busy time over the wall time (the profiler's own overhead
+    included), so its idle share, the device events, the kernels that took
+    most of the time and the host's runtime calls, each per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    per_name, n, runtime = {}, 0, Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = (per_name.get(e.name, 0.0)
+                                + e.time_range.elapsed_us())
+            n += 1
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "cudaMemcpyAsync", "cudaLaunchKernel"):
+            runtime[e.name] += 1
+    busy_us = sum(per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms_per_call": wall_us / 1e3 / calls,
+            "device_events_per_call": n / calls,
+            "device_busy_ms_per_call": busy_us / 1e3 / calls,
+            "device_idle_share": 1 - busy_us / wall_us if n else None,
+            "top_device_ms_per_call": {k[:80]: v / 1e3 / calls
+                                       for k, v in top},
+            "runtime_calls_per_call": {k: v / calls
+                                       for k, v in runtime.items()}}
+
+
+def phase_lm_serve():
+    """Qwen2-1.5B at full width (28 layers, d 1536, 12/2 heads, hd 128,
+    vocab 151936) from the port's seeded init, bf16 on the card: a first
+    prefill captures layer 0's and the last layer's attention inputs, a
+    short serve warms up, then the counted run: ``serve`` of LM_BATCH x
+    LM_PROMPT prompts and LM_GEN tokens, counts zeroed just before it and
+    read just after. Fails on non-finite logits (``serve`` raises) and
+    unless prefill launched the kernel once per layer."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    cfg = get_arch(LM_ARCH)[0]
+    t0 = time.time()
+    model = T.init_lm(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    prompts = torch.tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device=DEV)
+    captured = capture_flash(model, prompts, {0, cfg.n_layers - 1})
+    serve(model, prompts, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, t_pre, t_dec = serve(model, prompts, LM_GEN)
+    counts = launch_counts()
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm: flash_attention launched "
+                             f"{counts['flash_attention']} times in one "
+                             f"prefill of {cfg.n_layers} layers: {counts}")
+    if toks.shape != (LM_BATCH, LM_GEN) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"lm: tokens malformed: {tuple(toks.shape)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_lm(model, prompts)
+    out = {"phase": "lm_serve", "arch": LM_ARCH,
+           "config": dataclasses.asdict(cfg), "n_params": cfg.n_params,
+           "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+           "init_s": init_s, "prefill_ms": 1e3 * t_pre,
+           "decode_ms_per_token": 1e3 * t_dec / (LM_GEN - 1),
+           "generated_tok_per_s": LM_BATCH * LM_GEN / (t_pre + t_dec),
+           "decode_tok_per_s": LM_BATCH * (LM_GEN - 1) / t_dec,
+           "prefill_tok_per_s": LM_BATCH * LM_PROMPT / t_pre,
+           "peak_mem_gib": peak, "launches": counts,
+           "first_tokens": toks[:, :8].tolist(), "profile": prof}
+    emit(out)
+    return model, captured, counts
+
+
+def phase_lm_captured(captured):
+    """flash_attention against its plain version on the attention inputs
+    that the full-width prefill itself produced: as captured (bf16), and
+    cast to f32, where both compute the same f32 arithmetic and are held to
+    the f32 tolerance over the whole length of the prefill. Returns the
+    bf16 max |diff| (the path's dtype)."""
+    out = {"phase": "lm_captured_parity", "tolerance": FLASH_TOL}
+    err = 0.0
+    for layer, (q, k, v) in sorted(captured.items()):
+        e = flash_pair(q, k, v, True, f"layer {layer} {tuple(q.shape)} "
+                                      f"{q.dtype}")
+        e32 = flash_pair(q.float(), k.float(), v.float(), True,
+                         f"layer {layer} {tuple(q.shape)} as float32")
+        out[f"layer_{layer}"] = {"shape_q": list(q.shape),
+                                 "shape_kv": list(k.shape),
+                                 "dtype": str(q.dtype), "max_abs_err": e,
+                                 "max_abs_err_float32": e32}
+        err = max(err, e)
+    emit(out)
+    return err
+
+
+def phase_lm_long(model):
+    """One ``serve`` at prefill_32k's prompt length (LM_LONG_PROMPT) with
+    the batch cut to 1: counts zeroed just before it and read just after,
+    one flash_attention launch per layer, finite logits."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+    cfg = model.cfg
+    prompts = torch.tensor(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, LM_LONG_PROMPT)), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, t_pre, t_dec = serve(model, prompts, LM_LONG_GEN)
+    counts = launch_counts()
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm_long: flash_attention launched "
+                             f"{counts['flash_attention']} times in one "
+                             f"prefill of {cfg.n_layers} layers: {counts}")
+    if toks.shape != (1, LM_LONG_GEN):
+        raise AssertionError(f"lm_long: tokens malformed: "
+                             f"{tuple(toks.shape)}")
+    emit({"phase": "lm_long", "arch": LM_ARCH, "batch": 1,
+          "prompt_len": LM_LONG_PROMPT, "gen": LM_LONG_GEN,
+          "prefill_ms": 1e3 * t_pre,
+          "decode_ms_per_token": 1e3 * t_dec / (LM_LONG_GEN - 1),
+          "prefill_tok_per_s": LM_LONG_PROMPT / t_pre,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": counts, "tokens": toks.tolist()})
+
+
+def phase_lm_cpu(steps=16):
+    """The reduced qwen2-1.5b in f32 with the same weights on the card and
+    on the CPU: a 32-token prefill, then ``steps`` teacher-forced decode
+    steps; every step's logits must agree within LM_CPU_TOL. TF32 is off:
+    it would round the products to 10 bits."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = scaled(get_reduced(LM_ARCH), dtype="float32")
+    cpu = T.init_lm(cfg, seed=SEED, device="cpu")
+    card = T.params_from_numpy(cfg, T.params_to_numpy(cpu), device=DEV)
+    P = 32
+    toks = torch.tensor(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, (LM_BATCH, P + steps)))
+    logits = {}
+    for name, m in (("cuda", card), ("cpu", cpu)):
+        t = toks.to(m.device)
+        lg, cache = T.prefill_step(m, t[:, :P], max_len=P + steps)
+        out = [lg]
+        for i in range(P, P + steps):
+            lg, cache = T.decode_step(m, t[:, i:i + 1], cache)
+            out.append(lg)
+        logits[name] = torch.cat(out, 1).cpu()
+    a, b = logits["cuda"], logits["cpu"]
+    err = float((a - b).abs().max())
+    if not torch.isfinite(a).all() or err > LM_CPU_TOL:
+        raise AssertionError(f"lm: cuda and cpu logits differ by {err} > "
+                             f"{LM_CPU_TOL}")
+    emit({"phase": "lm_cpu", "config": dataclasses.asdict(cfg),
+          "prefill": P, "decode_steps": steps, "max_abs_err": err,
+          "tolerance": LM_CPU_TOL, "argmax_equal": bool(torch.equal(
+              a.argmax(-1), b.argmax(-1)))})
+
+
+def kernels_lm(captured, counts, err):
+    """flash_attention at layer 0's captured inputs: the kernel, its plain
+    version and the library's fused attention (a yardstick only), and the
+    bound: the larger of the operations the causal products need over the
+    bf16 tensor-core peak and the bytes of q, k, v and o over 3.35 TB/s."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import _gqa_fold, attention
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    q, k, v = captured[0]
+    B, Hq, S, hd = q.shape
+    n = 50
+    ms = cuda_ms(lambda: attention(q, k, v, causal=True), n)
+    qg, kf, vf, group = _gqa_fold(q, k, v)
+    plain = cuda_ms(lambda: flash_ref(qg, kf, vf, causal=True, group=group),
+                    n)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), n)
+    flops = 4 * B * Hq * hd * (S * (S + 1) // 2)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops, t_bytes = 1e3 * flops / H100_BF16_FLOPS, \
+        1e3 * nbytes / HBM_BYTES_PER_S
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:63",
+            "launches": counts["flash_attention"],
+            "launches_per_prefill": counts["flash_attention"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib, "path": "lm serve (prefill)",
+            "shape": {"q": list(q.shape), "kv": list(k.shape),
+                      "dtype": str(q.dtype), "causal": True},
+            "flops": flops, "bytes": nbytes, "ops_bound_ms": t_ops,
+            "bytes_bound_ms": t_bytes}
+
+
 # each crawl path of the main phase, and the kernels it must launch
 PATHS = {
     "opic_url": (64, ("select_harvest", "dedup_deposit", "opic_update")),
@@ -475,42 +817,15 @@ def count_syncs(sess, steps):
 
 
 def phase_profile(sess, steps):
-    """Where a step's time goes: torch.profiler's CUDA events over whole
-    dispatch intervals give the device's busy time, and so its idle share
-    of the wall time (the profiler's own overhead included); the host syncs
-    are counted twice, by the profiler's runtime calls and by torch's sync
-    debug mode over as many steps again."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            sess.step()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    per_name, n, runtime = {}, 0, Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = (per_name.get(e.name, 0.0)
-                                + e.time_range.elapsed_us())
-            n += 1
-        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                        "cudaMemcpyAsync", "cudaLaunchKernel"):
-            runtime[e.name] += 1
-    busy_us = sum(per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    """Where a step's time goes: ``profile_device`` over whole dispatch
+    intervals, one call a step; the host syncs are counted twice, by the
+    profiler's runtime calls and by torch's sync debug mode over as many
+    steps again."""
+    prof = profile_device(lambda: [sess.step() for _ in range(steps)],
+                          steps)
     n_sync, sync_lines = count_syncs(sess, steps)
     emit({"phase": "profile", "ordering": sess.cfg.ordering, "steps": steps,
-          "wall_ms": wall_us / 1e3,
-          "device_events": n, "device_busy_ms": busy_us / 1e3,
-          "device_idle_share": 1 - busy_us / wall_us if n else None,
-          "top_device_ms": {k[:80]: v / 1e3 for k, v in top},
-          "runtime_calls_per_step": {k: v / steps
-                                     for k, v in runtime.items()},
-          "sync_debug_syncs_per_step": n_sync / steps,
+          **prof, "sync_debug_syncs_per_step": n_sync / steps,
           "sync_debug_lines": sync_lines})
 
 
@@ -559,11 +874,11 @@ def phase_trajectory(steps=32):
     emit(out)
 
 
-def capture_calls(modules, attr, sess, n, pick=lambda args: True):
+def capture_calls(modules, attr, drive, n, pick=lambda args: True):
     """The arguments of the next ``n`` calls to ``attr`` (patched on every
     module in ``modules``, where the path looks it up) for which
-    ``pick(args)`` holds, cloned as they were passed, while the session
-    steps."""
+    ``pick(args)`` holds, cloned as they were passed (strided views stay
+    strided), while ``drive()`` (a session's step, a prefill) runs."""
     import torch
     got = []
     origs = [getattr(m, attr) for m in modules]
@@ -577,7 +892,7 @@ def capture_calls(modules, attr, sess, n, pick=lambda args: True):
         setattr(m, attr, spy)
     try:
         while len(got) < n:
-            sess.step()
+            drive()
     finally:
         for m, o in zip(modules, origs):
             setattr(m, attr, o)
@@ -590,7 +905,7 @@ def capture_dispatch_masks(sess, n):
     packed at its front by router.pack_buckets."""
     from repro_torch.core import dedup as DD
     return [args[2] for args, _ in
-            capture_calls([DD], "probe_insert", sess, n)]
+            capture_calls([DD], "probe_insert", sess.step, n)]
 
 
 def fresh_urls(rng, masks, n, cfg):
@@ -727,7 +1042,7 @@ def kernels_opic(sess):
     """opic_update at the opic path's spend: the stage's own (1, 8192)
     items onto the 512 slot cash entries."""
     from repro_torch.ordering import opic as OP
-    (args, kw), = capture_calls([OP], "scatter_cash", sess, 1)
+    (args, kw), = capture_calls([OP], "scatter_cash", sess.step, 1)
     ms, plain, lib, nbytes = time_scatter(args, 50)
     return {"spend_shape": list(args[1].shape), "spend_ms": ms,
             "spend_plain_ms": plain, "spend_library_ms": lib,
@@ -778,7 +1093,7 @@ def kernels_opic_url(sess, counts, errs, steps):
     del tabs, pv
     # opic_update: the dispatch's place_valued cell scatter, captured (the
     # allocate give-backs scatter one item a row)
-    (args, kw), = capture_calls([F], "scatter_cash_cells", sess, 1,
+    (args, kw), = capture_calls([F], "scatter_cash_cells", sess.step, 1,
                                 pick=lambda a: a[2].shape[1] > 1)
     table, _, cols, vals, fits = args
     # the calls reach scatter_cash as the row-aligned batch
@@ -787,7 +1102,7 @@ def kernels_opic_url(sess, counts, errs, steps):
     # dedup_deposit: batches laid out as the next dispatches (their
     # masks), fresh URLs and values, against the live frontier and lane
     masks = [args[2] for args, _ in capture_calls(
-        [ST], "dedup_deposit", sess, 4)]
+        [ST], "dedup_deposit", sess.step, 4)]
     Rb, M = masks[0].shape
     rng = np.random.default_rng(SEED + 2)
     kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
@@ -861,7 +1176,18 @@ def main() -> int:
     del sess
     free_card()
     phase_trajectory()
-    kernels = rows_["backlink"] + rows_["opic_url"]
+    free_card()
+    flash = phase_flash_parity()
+    model, captured, counts_lm = phase_lm_serve()
+    phase_lm_long(model)
+    del model
+    free_card()
+    err_lm = max(max(flash["max_abs_err"].values()),
+                 phase_lm_captured(captured))
+    phase_lm_cpu()
+    rows_["lm"] = [kernels_lm(captured, counts_lm, err_lm)]
+    del captured
+    kernels = rows_["backlink"] + rows_["opic_url"] + rows_["lm"]
     for r in kernels:
         if r["name"] == "opic_update":
             r.update(spend, launches_opic_path=counts_opic["opic_update"],

@@ -1,14 +1,129 @@
-"""The crawl configuration of the PyTorch port.
+"""The configurations of the PyTorch port.
 
-A copy of ``repro.configs.base.CrawlConfig`` (field names and defaults are
-held equal by tests/test_torch_boundary.py): the port keeps its own copy so it
-imports nothing of the JAX package. Only the crawl family is ported; the
-LM/GNN/RecSys config classes stay with the JAX package.
+Copies of ``repro.configs.base``'s ``ShapeSpec``, ``LM_SHAPES``,
+``CRAWL_SHAPES``, ``MoEConfig``, ``LMConfig`` and ``CrawlConfig`` (field
+names and defaults are held equal by tests/test_torch_boundary.py): the port
+keeps its own copies so it imports nothing of the JAX package. The crawl
+family and the dense LM family are ported; ``MoEConfig`` is here because
+``LMConfig.moe`` names it, though MoE layers are not ported yet. The GNN and
+RecSys config classes stay with the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (arch x shape) cell; ``kind`` names the step it drives (lm:
+    "train", "prefill", "decode")."""
+    name: str
+    kind: str
+    dims: Dict[str, int] = field(default_factory=dict)
+
+    def __getitem__(self, k: str) -> int:
+        return self.dims[k]
+
+    def get(self, k: str, default: int = 0) -> int:
+        return self.dims.get(k, default)
+
+
+LM_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
+
+CRAWL_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("crawl_step", "crawl", dict()),
+)
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int               # routed experts
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0            # always-on shared experts (DeepSeekMoE)
+    dense_residual: bool = False # parallel dense MLP branch (Arctic)
+    d_ff_dense: int = 0          # width of dense residual / first-k-dense MLP
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 1e-2
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    family: str = "lm"
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    first_k_dense: int = 0       # first k layers use the dense MLP even in MoE models
+    dtype: str = "bfloat16"
+    remat: bool = True           # training only (not ported)
+    scan_layers: bool = True     # the port holds its layers in a ModuleList
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (embedding + per-layer), analytic."""
+        d, h = self.d_model, self.head_dim
+        attn = d * (self.n_heads * h) + 2 * d * (self.n_kv_heads * h) + (self.n_heads * h) * d
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * h
+        dense_mlp = 3 * d * self.d_ff
+        per_layer = []
+        for i in range(self.n_layers):
+            mlp = dense_mlp
+            if self.moe is not None and i >= self.first_k_dense:
+                m = self.moe
+                mlp = (m.n_experts + m.n_shared) * 3 * d * m.d_ff_expert + d * m.n_experts
+                if m.dense_residual:
+                    mlp += 3 * d * (m.d_ff_dense or self.d_ff)
+            per_layer.append(attn + mlp + 2 * d)
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return embed + sum(per_layer) + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k + shared experts count)."""
+        if self.moe is None:
+            return self.n_params
+        d = self.d_model
+        m = self.moe
+        full_moe = (m.n_experts + m.n_shared) * 3 * d * m.d_ff_expert
+        act_moe = (m.top_k + m.n_shared) * 3 * d * m.d_ff_expert
+        n_moe_layers = self.n_layers - self.first_k_dense
+        return self.n_params - n_moe_layers * (full_moe - act_moe)
+
+
+# ---------------------------------------------------------------------------
+# WebParF (the paper's own system) config
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

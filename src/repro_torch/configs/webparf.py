@@ -1,8 +1,9 @@
 """WebParF crawl configuration — the paper's own system (Gupta, Bhatia,
 Manchanda 2014). Counterpart of ``repro/configs/webparf.py``."""
-from repro_torch.configs.base import CrawlConfig, scaled
+from repro_torch.configs.base import CRAWL_SHAPES, CrawlConfig, scaled
 
 CONFIG = CrawlConfig()
+SHAPES = CRAWL_SHAPES
 
 
 def reduced() -> CrawlConfig:

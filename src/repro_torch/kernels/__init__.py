@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels and their plain PyTorch versions.
 
 Each family (``frontier_select`` with ``select_harvest``, ``bloom``,
-``opic_update``, ``dedup_deposit``) has ``ops.py`` (the wrappers that
-dispatch by device and count launches) and ``ref.py`` (the plain versions).
+``opic_update``, ``dedup_deposit``, and the LM's ``flash_attention``) has
+``ops.py`` (the wrappers that dispatch by device and count launches) and
+``ref.py`` (the plain versions).
 ``all_kernels()`` lists them for builds and launch counts; ``rowsum.py``
 holds the fixed-order f32 row sum the value channel shares.
 """
@@ -16,10 +17,11 @@ from repro_torch.kernels.build import Kernel, build_all
 def all_kernels() -> Tuple[Kernel, ...]:
     from repro_torch.kernels.bloom.ops import KERNEL as BLOOM
     from repro_torch.kernels.dedup_deposit.ops import KERNEL as DEPOSIT
+    from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
     from repro_torch.kernels.frontier_select.ops import HARVEST
     from repro_torch.kernels.frontier_select.ops import KERNEL as SELECT
     from repro_torch.kernels.opic_update.ops import KERNEL as OPIC
-    return (SELECT, HARVEST, BLOOM, DEPOSIT, OPIC)
+    return (SELECT, HARVEST, BLOOM, DEPOSIT, OPIC, FLASH)
 
 
 def reset_launches() -> None:

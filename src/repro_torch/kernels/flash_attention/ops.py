@@ -1,0 +1,101 @@
+"""The ``flash_attention`` wrapper: GQA-aware causal attention.
+
+Counterpart of ``repro/kernels/flash_attention/ops.py`` (``attention``).
+Dispatch is by device: a CUDA tensor launches the hand-written kernel
+(``csrc/flash_attention.cu``) or raises; a CPU tensor takes the plain
+version (``ref.flash_ref``). There is no fallback between the two.
+
+GQA is folded as ``_gqa_fold`` folds it: the query heads of batch row b are
+grouped by KV head, so query head h reads KV head ``h // group``. The plain
+version gets the folded tensors; the kernel gets the unfolded ones with
+their strides and does the same fold by index, so q, k and v may be
+strided views such as those ``layers._project_qkv`` makes (``(B, S, H, hd)``
+transposed to ``(B, H, S, hd)``). On the prefill path only v arrives so and
+is read without a copy; RoPE has already made q and k new contiguous
+tensors. The kernel's output is laid out ``(B, Sq, Hq, hd)`` in memory and
+returned as its ``(B, Hq, Sq, hd)`` view, so the attention block's
+transpose back is free.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.build import Kernel
+from repro_torch.kernels.flash_attention.ref import flash_ref
+
+# flash_attention_launch(q, k, v, o, B, Hq, Hkv, Sq, Skv, hd, is_bf16,
+#   causal, q strides (b, h, s), k strides, v strides, o strides, stream)
+KERNEL = Kernel("flash_attention", n_ptr=4, n_int=20)
+HEAD_DIMS = (8, 16, 32, 64, 96, 128)       # the kernel's instantiations
+DTYPES = (torch.float32, torch.bfloat16)
+_INT_MAX = 2 ** 31 - 1
+
+
+def _gqa_fold(q, k, v) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                int]:
+    """(B, Hq, S, hd) q rows grouped as (B*Hkv, group) so the plain
+    version's ``h // group`` KV index lines up."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qg = q.reshape(B * Hkv * group, Sq, hd)
+    kf = k.reshape(B * Hkv, Skv, hd)
+    vf = v.reshape(B * Hkv, Skv, hd)
+    return qg, kf, vf, group
+
+
+def _check(q, k, v, block_q, block_k):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"flash_attention: want q (B, Hq, Sq, hd) and k, v "
+                         f"(B, Hkv, Skv, hd) with Hkv dividing Hq, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention: want float32 or bfloat16 for all "
+                        f"three, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: tensors on different devices")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"flash_attention: blocks {block_q}, {block_k} < 1")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, block_q: int = 128,
+              block_k: int = 128) -> torch.Tensor:
+    """q (B, Hq, Sq, hd); k, v (B, Hkv, Skv, hd). Returns (B, Hq, Sq, hd) in
+    q.dtype. ``block_k`` is the plain version's KV tile; the kernel's
+    tiles are fixed (64 x 64), and the results agree up to f32 rounding.
+    ``block_q`` changes no result (query rows are independent) and stays
+    for the reference's signature."""
+    _check(q, k, v, block_q, block_k)
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if q.device.type == "cpu":
+        qg, kf, vf, group = _gqa_fold(q, k, v)
+        out = flash_ref(qg, kf, vf, causal=causal, group=group,
+                        block_k=max(1, min(block_k, Skv)))
+        return out.reshape(B, Hq, Sq, hd)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0:
+        return out
+    strides = []
+    for t in (q, k, v, out):
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError("flash_attention: the head dim must be "
+                             "contiguous")
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    if max(strides) > _INT_MAX or max(B, Hq, Sq, Skv) > _INT_MAX:
+        raise ValueError("flash_attention: a stride or size beyond int32")
+    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, Hq, Hkv, Sq, Skv, hd, int(q.dtype == torch.bfloat16),
+                  int(causal), *strides)
+    return out

@@ -98,7 +98,83 @@ def test_kernels_build_nothing_at_import():
             rel.parts[:-1] if rel.name == "__init__" else rel.parts))
     from repro_torch.kernels import all_kernels, launch_counts
     names = {"frontier_select", "select_harvest", "bloom", "dedup_deposit",
-             "opic_update"}
+             "opic_update", "flash_attention"}
     assert {k.name for k in all_kernels()} == names
     assert all(k.source.exists() for k in all_kernels())
     assert set(launch_counts()) == names
+
+
+DENSE_LMS = ("qwen2-1.5b", "phi3-mini-3.8b", "deepseek-coder-33b")
+
+
+def test_lm_config_classes_mirror_reference():
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert fields(tbase.LMConfig) == fields(jbase.LMConfig)
+    assert fields(tbase.MoEConfig) == fields(jbase.MoEConfig)
+    assert fields(tbase.ShapeSpec) == fields(jbase.ShapeSpec)
+    assert [dataclasses.asdict(s) for s in tbase.LM_SHAPES] == \
+        [dataclasses.asdict(s) for s in jbase.LM_SHAPES]
+    moe = dict(n_experts=8, top_k=2, d_ff_expert=32, n_shared=1)
+    for kw in ({}, {"moe": "moe", "first_k_dense": 1}):
+        kt = {k: tbase.MoEConfig(**moe) if v == "moe" else v
+              for k, v in kw.items()}
+        kj = {k: jbase.MoEConfig(**moe) if v == "moe" else v
+              for k, v in kw.items()}
+        t = tbase.LMConfig("x", 3, 64, 4, 2, 128, 256, qkv_bias=True, **kt)
+        j = jbase.LMConfig("x", 3, 64, 4, 2, 128, 256, qkv_bias=True, **kj)
+        assert (t.n_params, t.n_active_params, t.head_dim) == \
+            (j.n_params, j.n_active_params, j.head_dim)
+
+
+@pytest.mark.parametrize("arch", DENSE_LMS + ("webparf",))
+def test_ported_arch_configs_mirror_reference(arch):
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    (tc, ts), (jc, js) = tconfigs.get_arch(arch), jconfigs.get_arch(arch)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert dataclasses.asdict(tconfigs.get_reduced(arch)) == \
+        dataclasses.asdict(jconfigs.get_reduced(arch))
+    assert [dataclasses.asdict(s) for s in ts] == \
+        [dataclasses.asdict(s) for s in js]
+    if arch != "webparf":
+        assert tc.n_params == jc.n_params
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b",
+                                  "gat-cora", "bert4rec", "dien",
+                                  "wide-deep", "dcn-v2"])
+def test_unported_archs_raise(arch):
+    from repro.configs import ARCH_NAMES
+    from repro_torch import configs as tconfigs
+    assert arch in ARCH_NAMES
+    with pytest.raises(NotImplementedError, match="slice"):
+        tconfigs.get_arch(arch)
+    with pytest.raises(NotImplementedError, match="slice"):
+        tconfigs.get_reduced(arch)
+
+
+def test_moe_lm_raises():
+    from repro_torch.models import layers, transformer
+    cfg = tbase.LMConfig("moe", 2, 64, 4, 2, 128, 256,
+                         moe=tbase.MoEConfig(8, 2, 32))
+    with pytest.raises(NotImplementedError):
+        transformer.init_lm(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        layers.moe_block(None, cfg, torch.zeros(1, 2, 64), n_groups=1)
+
+
+def test_serve_and_init_lm_need_a_card_by_default():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import init_lm
+    cfg = get_reduced("qwen2-1.5b")
+    if torch.cuda.is_available():
+        assert init_lm(cfg).embed.is_cuda
+        assert serve.main(["--gen", "2"]) == 0
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            init_lm(cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(["--gen", "2"])
+    assert serve.main(["--gen", "2", "--device", "cpu"]) == 0

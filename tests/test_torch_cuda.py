@@ -5,7 +5,9 @@ This file imports no JAX (the machine with the card has none), so that
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
 runs it there; without a card every test skips. Inputs are made with numpy
-from a seed, and the kernel must equal its plain version exactly."""
+from a seed, and the crawl kernels must equal their plain versions exactly;
+flash_attention must agree with its plain version within the reference's
+tolerances (2e-5 f32, 2e-2 bf16), since the two sum in different orders."""
 import numpy as np
 import pytest
 
@@ -19,6 +21,8 @@ from repro_torch.kernels.bloom.ref import bloom_ref  # noqa: E402
 from repro_torch.configs.base import scaled  # noqa: E402
 from repro_torch.kernels.dedup_deposit import ops as DOPS  # noqa: E402
 from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FOPS  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
 from repro_torch.kernels.frontier_select import ops as SOPS  # noqa: E402
 from repro_torch.kernels.frontier_select.ref import (  # noqa: E402
     NEG, select_harvest_ref, select_ref)
@@ -231,3 +235,62 @@ def test_session_on_card_matches_cpu(cuda):
     for name in states["cpu"]:
         np.testing.assert_array_equal(states["cuda"][name],
                                       states["cpu"][name], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd,group,S", [(8, 1, 32), (16, 3, 192),
+                                        (32, 6, 256), (64, 1, 192),
+                                        (96, 6, 32), (128, 6, 256),
+                                        (128, 3, 100)])
+def test_flash_attention_kernel_matches_plain(cuda, hd, group, S, causal,
+                                              dtype):
+    """Every head dim the kernel instantiates, GQA groups, ragged tiles;
+    q, k, v as the projections lay them out ((B, S, H, hd) transposed)."""
+    rng = np.random.default_rng(hd + group + S)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.standard_normal((2, S, H, hd)),
+                            dtype=torch.float32).to(cuda, dt).transpose(1, 2)
+               for H in (2 * group, 2, 2))
+    n0 = FOPS.KERNEL.launches
+    got = FOPS.attention(q, k, v, causal=causal)
+    qg, kf, vf, g = FOPS._gqa_fold(q, k, v)
+    want = flash_ref(qg, kf, vf, causal=causal, group=g).reshape(q.shape)
+    torch.cuda.synchronize()
+    assert FOPS.KERNEL.launches == n0 + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+def test_lm_on_card_matches_cpu(cuda):
+    """The reduced qwen2 in f32 with the same weights on both devices:
+    prefill (through the kernel) and 8 teacher-forced decode steps give
+    logits within 1e-4. TF32 is off, as it would round the products."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = scaled(get_reduced("qwen2-1.5b"), dtype="float32")
+        cpu = T.init_lm(cfg, seed=0, device="cpu")
+        card = T.params_from_numpy(cfg, T.params_to_numpy(cpu), device=cuda)
+        toks = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 24)))
+        n0 = FOPS.KERNEL.launches
+        out = {}
+        for name, m in (("cuda", card), ("cpu", cpu)):
+            t = toks.to(m.device)
+            lg, cache = T.prefill_step(m, t[:, :16], max_len=24)
+            logs = [lg]
+            for i in range(16, 24):
+                lg, cache = T.decode_step(m, t[:, i:i + 1], cache)
+                logs.append(lg)
+            out[name] = torch.cat(logs, 1).cpu()
+        assert FOPS.KERNEL.launches == n0 + cfg.n_layers
+        np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(),
+                                   rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
