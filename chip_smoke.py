@@ -7,11 +7,15 @@ Phases, one JSON line each (a phase that fails raises, and the script exits
 non-zero):
 
   1. build   — nvcc builds every kernel's library from csrc/, one process
-               per source, all started together (six kernels, five
-               sources: select_harvest shares frontier_select.cu).
+               per source, all started together (eight kernels, five
+               sources: select_harvest shares frontier_select.cu,
+               bloom_packed bloom.cu, dedup_deposit_packed
+               dedup_deposit.cu).
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
-               shapes with ties, duplicates, ragged tiles and masked rows.
+               shapes with ties, duplicates, ragged tiles and masked rows
+               (the packed kernels also on rows of one to four words and
+               on words with bit 31 set).
   3. main    — three crawls at the full webparf.CONFIG (256 domains, 512
                frontier rows of 4096, 512 Bloom rows of 2^24 bytes), one
                at a time, each session freed before the next is built:
@@ -28,6 +32,15 @@ non-zero):
                frontier and Bloom batches (backlink), the spend scatter
                (opic), the harvest, the dispatch batch and the cell scatter
                (opic_url), captured from the path itself.
+     packed  — the packed Bloom family's entry points on the opic_url
+               session's filter (512 x 2^24 bits, packed once into 1 GiB
+               of int32 words): bloom_packed and dedup_deposit_packed
+               beside the byte-per-bit kernels over dispatch batches laid
+               out as the path's, re-sending queued and inserted URLs so
+               that seen, twin deposits and refunds are non-zero; every
+               output identical; then dedup_deposit(..., packed=True)
+               against the byte-per-bit call. Counts zeroed just before,
+               read just after.
   4. trajectory — the CLI-sized config runs on the card and on the CPU
                (plain versions) for backlink, opic, opic_url fused and
                opic_url unfused (link_pop_bias=1.0, so twins are hit);
@@ -48,8 +61,10 @@ non-zero):
                prefill, in bf16 and cast to f32; lm_cpu: the reduced model in
                f32 on the card and the CPU, logits within 1e-4 over a
                prefill and 16 teacher-forced decode steps.
-  6. kernels — each kernel's time (CUDA events) beside its plain version's,
-               a library call's where one computes the same function, and
+  6. kernels — each kernel's time (CUDA events) beside its plain version's
+               (the packed ones on their words, with the boundary call's
+               time beside its bound), a library call's where one
+               computes the same function, and
                its bound: the bytes it must move over 3.35 TB/s, or for
                flash_attention the larger of that and its operations over
                989 TFLOP/s.
@@ -177,24 +192,33 @@ def _select_pair(url, pri, valid, k):
     return err
 
 
-def _bloom_pair(bits, urls, mask, k):
+def _bloom_pair(bits, urls, mask, k, *, packed=False):
+    """bloom (or, ``packed``, bloom_packed on the words of ``bits``) and its
+    plain version on the same inputs."""
     import torch
-    from repro_torch.kernels.bloom.ops import probe_insert
-    from repro_torch.kernels.bloom.ref import bloom_ref
+    from repro_torch.kernels.bloom.ops import probe_insert, probe_insert_packed
+    from repro_torch.kernels.bloom.ref import (bloom_packed_ref, bloom_ref,
+                                               pack_bits)
     dev = DEV
+    name = "bloom_packed" if packed else "bloom"
     b1 = torch.tensor(bits, device=dev)
+    if packed:
+        b1 = pack_bits(b1)
     b2 = b1.clone()
     u = torch.tensor(urls, device=dev)
     m = torch.tensor(mask, device=dev)
-    s1 = probe_insert(b1, u, m, k=k)
-    s2 = bloom_ref(b2, u, m, k=k, url_tile=min(256, u.shape[1]))
+    fn, ref = ((probe_insert_packed, bloom_packed_ref) if packed else
+               (probe_insert, bloom_ref))
+    s1 = fn(b1, u, m, k=k)
+    s2 = ref(b2, u, m, k=k, url_tile=min(256, u.shape[1]))
     torch.cuda.synchronize()
     if not torch.equal(s1, s2):
-        raise AssertionError(f"bloom {tuple(urls.shape)} k={k}: seen differs")
+        raise AssertionError(f"{name} {tuple(urls.shape)} k={k}: seen differs")
     if not torch.equal(b1, b2):
-        raise AssertionError(f"bloom {tuple(urls.shape)} k={k}: bits differ")
+        raise AssertionError(f"{name} {tuple(urls.shape)} k={k}: the filter "
+                             f"differs")
     return max(float((s1.int() - s2.int()).abs().max()),
-               float((b1.int() - b2.int()).abs().max())), int(s1.sum())
+               float((b1.long() - b2.long()).abs().max())), int(s1.sum())
 
 
 def _harvest_pair(url, pri, valid, k):
@@ -293,31 +317,49 @@ def dedup_batch(rng, R, M, C, b, *, dup=0.5, k=4):
     return bits.numpy(), urls, mask, val, f_url, f_valid, lane
 
 
-def _dedup_pair(bits, urls, mask, val, f_url, f_valid, lane, k, tile=256):
+def _dedup_pair(bits, urls, mask, val, f_url, f_valid, lane, k, tile=256,
+                *, packed=False):
+    """dedup_deposit (or, ``packed``, dedup_deposit_packed on the words of
+    ``bits``) and its plain version on the same inputs."""
     import torch
-    from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
-    from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref
+    from repro_torch.kernels.bloom.ref import pack_bits
+    from repro_torch.kernels.dedup_deposit.ops import (dedup_deposit,
+                                                       dedup_deposit_packed)
+    from repro_torch.kernels.dedup_deposit.ref import (
+        dedup_deposit_packed_ref, dedup_deposit_ref)
     dev = DEV
+    kname = "dedup_deposit_packed" if packed else "dedup_deposit"
     R, C = f_url.shape
     t = [torch.tensor(a, device=dev) for a in (urls, mask, val, f_url,
                                                 f_valid)]
     b1 = torch.tensor(bits, device=dev)
+    if packed:
+        b1 = pack_bits(b1)
     w1 = torch.zeros((R, 2 + C), device=dev)
     w1[:, 2:] = torch.tensor(lane, device=dev)
     b2, w2 = b1.clone(), w1.clone()
-    s1, r1 = dedup_deposit(b1, *t, w1[:, 2:], k=k, url_tile=tile)
-    s2, r2 = dedup_deposit_ref(b2, *t, w2[:, 2:], k=k,
-                               url_tile=min(tile, urls.shape[1]))
+    fn, ref = ((dedup_deposit_packed, dedup_deposit_packed_ref) if packed
+               else (dedup_deposit, dedup_deposit_ref))
+    s1, r1 = fn(b1, *t, w1[:, 2:], k=k, url_tile=tile)
+    s2, r2 = ref(b2, *t, w2[:, 2:], k=k, url_tile=min(tile, urls.shape[1]))
     torch.cuda.synchronize()
-    for name, a, b in (("seen", s1, s2), ("bits", b1, b2),
+    for name, a, b in (("seen", s1, s2), ("filter", b1, b2),
                        ("order_state", w1, w2), ("refund", r1, r2)):
         if not torch.equal(a, b):
-            raise AssertionError(f"dedup_deposit {tuple(urls.shape)} C={C}:"
+            raise AssertionError(f"{kname} {tuple(urls.shape)} C={C}:"
                                  f" {name} differs from the plain version")
     n_hit = int((w1[:, 2:] != torch.tensor(lane, device=dev)).sum())
     err = max(float((a.double() - b.double()).abs().max())
               for a, b in ((s1, s2), (b1, b2), (w1, w2), (r1, r2)))
     return err, int(s1.sum()), n_hit
+
+
+def set_bit31(bits):
+    """Bit 31 of every other 32-bit word set, so packed words go negative
+    as int32."""
+    bits = bits.copy()
+    bits[:, 31::64] = 1
+    return bits
 
 
 def phase_parity():
@@ -350,6 +392,7 @@ def phase_parity():
     bloom_ref(bt, torch.tensor(pre_u), torch.tensor(pre_m), k=k)
     urls, mask = bloom_batch(rng, R, M)
     urls[:, ::3] = pre_u[:, ::3]            # a third were inserted before
+    urls_main, mask_main = urls, mask
     err, n_seen = _bloom_pair(bt.numpy(), urls, mask, k)
     cases = [(R, M, b, k, n_seen)]
     for R, M, b, k, dup in [(1, 256, 10, 2, 0.5), (4, 256, 12, 4, 0.3),
@@ -361,6 +404,25 @@ def phase_parity():
         err = max(err, e)
         cases.append((R, M, b, k, n_seen))
     out["bloom"] = {"max_abs_err": err, "cases": cases}
+    # bloom_packed: the same main-path slice on its words, then small
+    # shapes: rows of 1, 2 and 4 words (every URL of a tile collides),
+    # repeats within and across tiles, ragged M, a fully masked row, words
+    # with bit 31 set, a quarter of the lanes inserted before
+    err, n_seen = _bloom_pair(bt.numpy(), urls_main, mask_main, 4,
+                              packed=True)
+    cases = [(16, 4096, 24, 4, n_seen)]
+    for R, M, b, k, dup in [(1, 256, 5, 2, 0.5), (4, 256, 6, 4, 0.3),
+                            (2, 512, 7, 3, 0.6), (8, 512, 11, 5, 0.3),
+                            (3, 300, 10, 4, 0.5), (2, 100, 9, 4, 0.9)]:
+        urls, mask = bloom_batch(rng, R, M, dup=dup)
+        pre = torch.zeros((R, 1 << b), dtype=torch.uint8)
+        bloom_ref(pre, torch.tensor(urls[:, ::4]),
+                  torch.ones(urls[:, ::4].shape, dtype=torch.bool), k=k)
+        e, n_seen = _bloom_pair(set_bit31(pre.numpy()), urls, mask, k,
+                                packed=True)
+        err = max(err, e)
+        cases.append((R, M, b, k, n_seen))
+    out["bloom_packed"] = {"max_abs_err": err, "cases": cases}
     # dedup_deposit: the dispatch's (16 rows of the 512) x M 4096 against
     # queues of C 4096 at b=24, k=4, then small shapes and tiles
     err, cases = 0.0, []
@@ -376,6 +438,22 @@ def phase_parity():
         err = max(err, e)
         cases.append((R, M, C, b, k, tile, n_seen, n_hit))
     out["dedup_deposit"] = {"max_abs_err": err, "cases": cases}
+    # dedup_deposit_packed: the same shapes, rows of one word among them,
+    # words with bit 31 set
+    err, cases = 0.0, []
+    for R, M, C, b, k, tile, dup in [
+            (16, 4096, 4096, 24, 4, 256, 0.3), (1, 64, 32, 10, 3, 32, 0.5),
+            (4, 96, 64, 12, 3, 32, 0.5), (3, 300, 50, 10, 4, 128, 0.6),
+            (2, 100, 40, 5, 4, 256, 0.9), (4, 256, 8, 6, 4, 64, 0.9)]:
+        bits, *rest = dedup_batch(rng, R, M, C, b, dup=dup, k=k)
+        e, n_seen, n_hit = _dedup_pair(set_bit31(bits), *rest, k, tile,
+                                       packed=True)
+        if n_seen == 0 or n_hit == 0:
+            raise AssertionError(f"dedup_deposit_packed parity {(R, M, C)} "
+                                 f"hit no seen URL or no queued twin")
+        err = max(err, e)
+        cases.append((R, M, C, b, k, tile, n_seen, n_hit))
+    out["dedup_deposit_packed"] = {"max_abs_err": err, "cases": cases}
     # opic_update: the opic spend (1 x 8192 items onto 512 slots), the url
     # lane's cells (512 rows of 4096 cells, 4096 items a row), then small
     err, cases = 0.0, []
@@ -391,7 +469,7 @@ def phase_parity():
     emit(out)
     return {name: out[name]["max_abs_err"] for name in
             ("frontier_select", "select_harvest", "bloom", "dedup_deposit",
-             "opic_update")}
+             "opic_update", "bloom_packed", "dedup_deposit_packed")}
 
 
 # flash_attention against its plain version: the reference's tolerances
@@ -921,11 +999,12 @@ def fresh_urls(rng, masks, n, cfg):
     return out
 
 
-def bloom_bytes(bits, batches, kh, b):
+def bloom_bytes(batches, kh, b, word_bytes=1):
     """What a Bloom probe-and-insert must move for each batch: every lane's
-    mask and seen flag, the live URLs in 32-byte sectors, k probe bytes per
-    live URL; and the filter positions it may newly set (to count them
-    around the timed calls). Returns (bytes, live URLs, positions)."""
+    mask and seen flag, the live URLs in 32-byte sectors, k probe bytes (k
+    words of ``word_bytes`` packed) per live URL; and the filter positions
+    it may newly set (to count them around the timed calls). Returns
+    (bytes, live URLs, positions)."""
     import torch
     from repro_torch.kernels.bloom.ref import _bit_indices
     nbytes, n_live, pos = 0, 0, []
@@ -934,7 +1013,7 @@ def bloom_bytes(bits, batches, kh, b):
         live = torch.nonzero(m.view(-1))[:, 0]
         n_live += live.numel()
         nbytes += 2 * R * M + 32 * torch.unique(live // 4).numel() \
-            + kh * live.numel()
+            + word_bytes * kh * live.numel()
         rows = torch.nonzero(m)[:, :1]
         pos.append((rows * (1 << b) + _bit_indices(u, kh, b)[m]).view(-1))
     return nbytes, n_live, torch.unique(torch.cat(pos))
@@ -944,7 +1023,7 @@ def row(name, source, replaces, counts, steps, errs, ms, plain, nbytes, lib,
         **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "launches_per_step": counts[name] / steps,
+            "launches_per_step": counts[name] / steps if steps else None,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
             "library_ms": lib, **extra}
@@ -988,7 +1067,7 @@ def kernels_backlink(sess, counts, errs, steps):
     rng = np.random.default_rng(SEED + 1)
     kern_b, plain_b = fresh_urls(rng, masks, n, cfg), \
         fresh_urls(rng, masks, n, cfg)
-    nbytes, n_live, pos = bloom_bytes(st.bloom_bits, kern_b, kh, b)
+    nbytes, n_live, pos = bloom_bytes(kern_b, kh, b)
     flat = st.bloom_bits.view(-1)
     before = flat[pos]
     it = iter(kern_b)
@@ -1112,8 +1191,8 @@ def kernels_opic_url(sess, counts, errs, steps):
                                     device=DEV))
                 for u, m in fresh_urls(rng, masks, n, cfg)]
     kern_b, plain_b = batches(), batches()
-    nbytes, n_live, pos = bloom_bytes(st.bloom_bits,
-                                      [(u, m) for u, m, _ in kern_b], kh, b)
+    nbytes, n_live, pos = bloom_bytes([(u, m) for u, m, _ in kern_b],
+                                      kh, b)
     # plus each live URL's value (4 B) and the (R,) refund; with fresh URLs
     # no URL is seen, so no queue is read and no cell written
     nbytes += 4 * n_live + 4 * Rb * len(kern_b)
@@ -1148,6 +1227,214 @@ def kernels_opic_url(sess, counts, errs, steps):
     return out
 
 
+def packed_batches(rng, masks, st, n, url_space_log2):
+    """n + 1 batches (urls, mask, values) laid out as the captured dispatch
+    masks. The first holds fresh URLs; each later one sends, a third each,
+    URLs still queued in the lane's frontier row (seen, with a queued twin),
+    URLs of the batch before (inserted by then: seen, a refund unless
+    queued) and fresh URLs."""
+    import torch
+    fu, fv = st.f_url.cpu().numpy(), st.f_valid.cpu().numpy()
+    out, prev = [], None
+    for i in range(n + 1):
+        m = masks[i % len(masks)].cpu().numpy()
+        R, M = m.shape
+        rows = np.arange(R)[:, None]
+        u = rng.integers(0, 1 << url_space_log2, (R, M))
+        if prev is not None:
+            pick = rng.random((R, M))
+            for src, ok, lo, hi in ((fu, fv, 0.0, 1 / 3),
+                                    (prev[0], prev[1], 1 / 3, 2 / 3)):
+                order = np.argsort(~ok, axis=1, kind="stable")
+                cnt = ok.sum(axis=1)[:, None]
+                j = np.minimum((rng.random((R, M)) * cnt).astype(np.int64),
+                               np.maximum(cnt - 1, 0))
+                u = np.where((pick >= lo) & (pick < hi) & (cnt > 0),
+                             src[rows, order[rows, j]], u)
+        u = np.where(m, u, 0)
+        out.append((torch.tensor(u, device=DEV), masks[i % len(masks)],
+                    torch.tensor(rng.random((R, M)), dtype=torch.float32,
+                                 device=DEV)))
+        prev = (u, m)
+    return out
+
+
+def bits_at(words, pos):
+    """The filter bits at flat positions ``pos`` of packed int32 words."""
+    import torch
+    return (words.view(-1)[pos >> 5] >> (pos & 31).to(torch.int32)) & 1
+
+
+def phase_packed(sess, errs, n_mixed=3, n_boundary=4):
+    """The packed Bloom family's entry points at the full CONFIG filter:
+    ``st.bloom_bits`` (512 rows of 2^24 bytes) is packed once into 1 GiB of
+    words, and dispatch batches laid out as the path's own (their masks,
+    captured) go through the byte-per-bit ``bloom`` and ``dedup_deposit``
+    and through ``bloom_packed`` and ``dedup_deposit_packed``, each kernel
+    on its own filter and lane; after the first batch they re-send queued
+    URLs and URLs inserted before, so ``seen``, twin deposits and refunds
+    are all non-zero. Every output and the lanes must be identical, and the
+    byte rows must pack to the words. Then ``dedup_deposit(..., packed=True)``
+    (pack, kernel, unpack) against the byte-per-bit call on more batches.
+    Counts are zeroed just before the packed calls and read just after.
+    Returns the two kernels' rows for the ``kernels`` line."""
+    import torch
+    from repro_torch.core import stages as ST
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.bloom.ops import probe_insert, probe_insert_packed
+    from repro_torch.kernels.bloom.ref import bloom_packed_ref, pack_bits
+    from repro_torch.kernels.dedup_deposit.ops import (dedup_deposit,
+                                                       dedup_deposit_packed)
+    from repro_torch.kernels.dedup_deposit.ref import (
+        dedup_deposit_packed_ref, first_twin, sorted_queue)
+    from repro_torch.ordering.opic_url import url_cash_table
+    cfg, st = sess.cfg, sess.state
+    kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
+    masks = [args[2] for args, _ in capture_calls(
+        [ST], "dedup_deposit", sess.step, 4)]
+    rng = np.random.default_rng(SEED + 6)
+    batches = packed_batches(rng, masks, st, n_mixed, cfg.url_space_log2)
+    bound = packed_batches(rng, masks, st, n_boundary, cfg.url_space_log2)
+    queue = sorted_queue(st.f_url, st.f_valid)
+    bits_b = st.bloom_bits                  # bloom's filter, in place
+    bits_d = bits_b.clone()                 # dedup_deposit's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    words_b = pack_bits(bits_b)
+    torch.cuda.synchronize()
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    words_d = words_b.clone()
+    lane_b = url_cash_table(st).clone()     # byte dedup_deposit's lane
+    lane_p = lane_b.clone()                 # dedup_deposit_packed's
+    fq = (st.f_url, st.f_valid)
+    reset_launches()
+    per = []
+    for u, m, v in batches:
+        s_b = probe_insert(bits_b, u, m, k=kh)
+        s_bp = probe_insert_packed(words_b, u, m, k=kh)
+        before = lane_b.clone()
+        s_d, r_d = dedup_deposit(bits_d, u, m, v, *fq, lane_b, k=kh)
+        s_dp, r_dp = dedup_deposit_packed(words_d, u, m, v, *fq, lane_p,
+                                          k=kh)
+        torch.cuda.synchronize()
+        for name, x, y in (("bloom seen", s_b, s_bp),
+                           ("dedup_deposit seen", s_d, s_dp),
+                           ("lane", lane_b, lane_p), ("refund", r_d, r_dp)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"packed: {name} differs between the "
+                                     f"byte-per-bit and the packed kernel")
+        hit, _ = first_twin(u, s_d, queue)
+        per.append({"live": int(m.sum()), "seen": int(s_d.sum()),
+                    "twins": int(hit.sum()),
+                    "refunds": int((s_d & ~hit).sum()),
+                    "cells_changed": int((lane_b != before).sum()),
+                    "refund_sum": float(r_d.sum())})
+    # each kernel's words are its byte-per-bit twin's rows, packed; the two
+    # chains inserted the same URLs
+    for name, x, w in (("bloom", bits_b, words_b),
+                       ("dedup_deposit", bits_d, words_d)):
+        if not torch.equal(pack_bits(x), w):
+            raise AssertionError(f"packed: {name}'s byte rows do not pack "
+                                 f"to its packed twin's words")
+    if not torch.equal(bits_b, bits_d):
+        raise AssertionError("packed: the byte rows of the two chains differ")
+    # the boundary call: pack, kernel, unpack, on byte rows (bits_b)
+    # against the byte-per-bit kernel (bits_d) on the same batches
+    lane_x, lane_y = lane_b.clone(), lane_b.clone()
+    outs_x, outs_y = [], []
+    it = iter(bound)
+    ms_boundary = cuda_ms(lambda: outs_x.append(dedup_deposit(
+        bits_b, *next(it), *fq, lane_x, k=kh, packed=True)), len(bound) - 1)
+    counts = launch_counts()
+    it = iter(bound)
+    ms_boundary_byte = cuda_ms(lambda: outs_y.append(dedup_deposit(
+        bits_d, *next(it), *fq, lane_y, k=kh)), len(bound) - 1)
+    if counts["bloom_packed"] != len(batches) or \
+            counts["dedup_deposit_packed"] != len(batches) + len(bound):
+        raise AssertionError(f"packed: launch counts {counts}")
+    for (x1, x2), (y1, y2) in zip(outs_x, outs_y):
+        if not (torch.equal(x1, y1) and torch.equal(x2, y2)):
+            raise AssertionError("packed: dedup_deposit(packed=True) differs "
+                                 "from the byte-per-bit call")
+    if not torch.equal(lane_x, lane_y):
+        raise AssertionError("packed: the boundary call's lane differs")
+    tot = {key: sum(p[key] for p in per) for key in per[0]}
+    if min(tot["seen"], tot["twins"], tot["refunds"]) == 0 or \
+            tot["refund_sum"] <= 0:
+        raise AssertionError(f"packed: the batches hit no seen URL, twin or "
+                             f"refund: {tot}")
+    if not torch.equal(bits_b, bits_d):
+        raise AssertionError("packed: the boundary call's byte rows differ "
+                             "from the byte-per-bit call's")
+    del words_d, bits_d, lane_x, lane_y, outs_x, outs_y
+    gc.collect()
+    emit({"phase": "packed", "config": "webparf.CONFIG ordering=opic_url",
+          "filter_bytes": bits_b.numel(), "words_bytes": 4 * words_b.numel(),
+          "pack_ms": pack_ms, "batches": per, "totals": tot,
+          "boundary_calls": len(bound), "launches": counts,
+          "identical": True})
+    # the kernels' times on fresh batches laid out as the path's (as
+    # kernels_opic_url times the byte-per-bit ones), then on batches that
+    # re-send queued and inserted URLs; each packed kernel beside its
+    # byte-per-bit twin on the same batches, each on its own filter and lane
+    n = 50
+    rows_ = []
+    lanes = {True: lane_b.clone(), False: lane_b.clone()}
+
+    def timed(name, batches, packed, plain=False):
+        it = iter(batches)
+        filt = words_b if packed else bits_b
+        if name == "dedup_deposit_packed":
+            fn = ((dedup_deposit_packed_ref if plain else dedup_deposit_packed)
+                  if packed else dedup_deposit)
+            return cuda_ms(lambda: fn(filt, *next(it), *fq, lanes[packed],
+                                      k=kh), len(batches) - 1)
+        fn = ((bloom_packed_ref if plain else probe_insert_packed) if packed
+              else probe_insert)
+        return cuda_ms(lambda: fn(filt, *next(it)[:2], k=kh),
+                       len(batches) - 1)
+
+    for name in ("bloom_packed", "dedup_deposit_packed"):
+        deposit = name == "dedup_deposit_packed"
+        kern_b, plain_b = ([(u, m, torch.tensor(rng.random(m.shape),
+                                                dtype=torch.float32,
+                                                device=DEV))
+                            for u, m in fresh_urls(rng, masks, n, cfg)]
+                           for _ in range(2))
+        hit_b = packed_batches(rng, masks, st, n, cfg.url_space_log2)
+        nbytes, n_live, pos = bloom_bytes([(u, m) for u, m, _ in kern_b], kh,
+                                          b, word_bytes=4)
+        if deposit:       # each live URL's value and the (R,) refund
+            nbytes += 4 * n_live + 4 * masks[0].shape[0] * len(kern_b)
+        before = bits_at(words_b, pos)
+        ms = timed(name, kern_b, True)
+        new = (before == 0) & (bits_at(words_b, pos) == 1)
+        n_new = torch.unique(pos[new] >> 5).numel()
+        nbytes = (nbytes + 4 * n_new) / len(kern_b)
+        byte_ms = timed(name, kern_b, False)
+        plain = timed(name, plain_b, True, plain=True)
+        hit_ms, hit_byte_ms = (timed(name, hit_b, packed)
+                               for packed in (True, False))
+        src, line = (("dedup_deposit", "dedup_deposit/dedup_deposit.py:105")
+                     if deposit else ("bloom", "bloom/bloom.py:137"))
+        r = row(name, f"src/repro_torch/csrc/{src}.cu",
+                f"src/repro/kernels/{line}", counts, None, errs, ms, plain,
+                nbytes, None, path="packed (the entry points, opic_url "
+                "CONFIG filter)", launches_crawl_path=0,
+                shape=list(masks[0].shape), live_urls=n_live / len(kern_b),
+                new_words=n_new / len(kern_b), byte_per_bit_ms=byte_ms,
+                resending_ms=hit_ms, resending_byte_per_bit_ms=hit_byte_ms)
+        if deposit:
+            r.update(boundary_ms=ms_boundary,
+                     boundary_byte_per_bit_ms=ms_boundary_byte,
+                     boundary_bound_ms=1e3 * 2 * (bits_b.numel()
+                                                  + 4 * words_b.numel())
+                     / HBM_BYTES_PER_S,
+                     boundary_shape=list(bits_b.shape))
+        rows_.append(r)
+    return rows_
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1163,6 +1450,7 @@ def main() -> int:
     steps = PATHS["opic_url"][0]
     phase_profile(sess, 2 * sess.cfg.dispatch_interval)
     rows_["opic_url"] = kernels_opic_url(sess, counts, errs, steps)
+    rows_["packed"] = phase_packed(sess, errs)
     del sess
     free_card()
     sess, counts_opic = phase_main("opic")
@@ -1187,7 +1475,8 @@ def main() -> int:
     phase_lm_cpu()
     rows_["lm"] = [kernels_lm(captured, counts_lm, err_lm)]
     del captured
-    kernels = rows_["backlink"] + rows_["opic_url"] + rows_["lm"]
+    kernels = (rows_["backlink"] + rows_["opic_url"] + rows_["lm"]
+               + rows_["packed"])
     for r in kernels:
         if r["name"] == "opic_update":
             r.update(spend, launches_opic_path=counts_opic["opic_update"],

@@ -148,8 +148,8 @@ class CrawlConfig:
     seed_urls_per_domain: int = 32    # Phase I hub seeds per domain pool
     zipf_a: float = 1.1               # domain-size skew
     partitioning: str = "webparf"     # "webparf" | "url_hash" | "random"
-    ordering: str = "backlink"        # "fifo" | "backlink" | "learned" here;
-                                      # "opic" | "opic_url" are not ported yet
+    ordering: str = "backlink"        # "fifo" | "backlink" | "learned" |
+                                      # "opic" | "opic_url", all ported
     coordination: str = "exchange"    # only "exchange" is ported
     comm_quota: int = -1              # "batched" only (not ported)
     slot_factor: int = 2              # frontier rows per domain

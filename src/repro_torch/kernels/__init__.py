@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels and their plain PyTorch versions.
 
-Each family (``frontier_select`` with ``select_harvest``, ``bloom``,
-``opic_update``, ``dedup_deposit``, and the LM's ``flash_attention``) has
+Each family (``frontier_select`` with ``select_harvest``, ``bloom`` with
+``bloom_packed``, ``opic_update``, ``dedup_deposit`` with
+``dedup_deposit_packed``, and the LM's ``flash_attention``) has
 ``ops.py`` (the wrappers that dispatch by device and count launches) and
 ``ref.py`` (the plain versions).
 ``all_kernels()`` lists them for builds and launch counts; ``rowsum.py``
@@ -16,12 +17,16 @@ from repro_torch.kernels.build import Kernel, build_all
 
 def all_kernels() -> Tuple[Kernel, ...]:
     from repro_torch.kernels.bloom.ops import KERNEL as BLOOM
+    from repro_torch.kernels.bloom.ops import PACKED as BLOOM_PACKED
     from repro_torch.kernels.dedup_deposit.ops import KERNEL as DEPOSIT
+    from repro_torch.kernels.dedup_deposit.ops import \
+        PACKED as DEPOSIT_PACKED
     from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
     from repro_torch.kernels.frontier_select.ops import HARVEST
     from repro_torch.kernels.frontier_select.ops import KERNEL as SELECT
     from repro_torch.kernels.opic_update.ops import KERNEL as OPIC
-    return (SELECT, HARVEST, BLOOM, DEPOSIT, OPIC, FLASH)
+    return (SELECT, HARVEST, BLOOM, DEPOSIT, OPIC, FLASH, BLOOM_PACKED,
+            DEPOSIT_PACKED)
 
 
 def reset_launches() -> None:

@@ -98,7 +98,8 @@ def test_kernels_build_nothing_at_import():
             rel.parts[:-1] if rel.name == "__init__" else rel.parts))
     from repro_torch.kernels import all_kernels, launch_counts
     names = {"frontier_select", "select_harvest", "bloom", "dedup_deposit",
-             "opic_update", "flash_attention"}
+             "opic_update", "flash_attention", "bloom_packed",
+             "dedup_deposit_packed"}
     assert {k.name for k in all_kernels()} == names
     assert all(k.source.exists() for k in all_kernels())
     assert set(launch_counts()) == names

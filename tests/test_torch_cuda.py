@@ -17,10 +17,12 @@ from repro_torch.api import CrawlSession  # noqa: E402
 from repro_torch.configs import webparf  # noqa: E402
 from repro_torch.core.stages import state_to_numpy  # noqa: E402
 from repro_torch.kernels.bloom import ops as BOPS  # noqa: E402
-from repro_torch.kernels.bloom.ref import bloom_ref  # noqa: E402
+from repro_torch.kernels.bloom.ref import (  # noqa: E402
+    bloom_packed_ref, bloom_ref, pack_bits)
 from repro_torch.configs.base import scaled  # noqa: E402
 from repro_torch.kernels.dedup_deposit import ops as DOPS  # noqa: E402
-from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref  # noqa: E402
+from repro_torch.kernels.dedup_deposit.ref import (  # noqa: E402
+    dedup_deposit_packed_ref, dedup_deposit_ref)
 from repro_torch.kernels.flash_attention import ops as FOPS  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
 from repro_torch.kernels.frontier_select import ops as SOPS  # noqa: E402
@@ -108,6 +110,32 @@ def test_bloom_kernel_matches_plain(cuda, R, M, b, k, dup, prefill,
         assert bool(s1.any())
 
 
+@pytest.mark.parametrize("R,M,b,k,dup,prefill,masked_row", [
+    (2, 256, 12, 4, 0.0, 0, False), (4, 512, 11, 3, 0.0, 0, False),
+    (2, 128, 5, 4, 0.5, 8, False), (3, 300, 7, 4, 0.4, 64, True),
+    (2, 100, 9, 3, 0.6, 16, False), (16, 4096, 24, 4, 0.3, 512, True)])
+def test_bloom_packed_kernel_matches_plain(cuda, R, M, b, k, dup, prefill,
+                                          masked_row):
+    """On int32 words with bit 31 set in many of them; rows of one word (b
+    5), where every URL of a tile collides on it."""
+    bits, urls, mask = batch(R, M, b, seed=R + M + 1, dup=dup,
+                             prefill=prefill, masked_row=masked_row)
+    bits[:, 31::64] = 1
+    w1 = pack_bits(bits).to(cuda)
+    w2 = w1.clone()
+    u = torch.tensor(urls, device=cuda)
+    m = torch.tensor(mask, device=cuda)
+    n0 = BOPS.PACKED.launches
+    s1 = BOPS.probe_insert_packed(w1, u, m, k=k)
+    s2 = bloom_packed_ref(w2, u, m, k=k, url_tile=min(256, M))
+    torch.cuda.synchronize()
+    assert BOPS.PACKED.launches == n0 + 1
+    assert torch.equal(s1, s2) and torch.equal(w1, w2)
+    assert bool((w1 < 0).any())
+    if dup or prefill:
+        assert bool(s1.any())
+
+
 @pytest.mark.parametrize("R,C,k,fill", [(4, 64, 4, 0.6), (2, 128, 8, 1.0),
                                         (3, 37, 5, 0.0), (512, 4096, 1, 0.6)])
 def test_select_harvest_kernel_matches_plain(cuda, R, C, k, fill):
@@ -151,14 +179,12 @@ def test_opic_update_kernel_matches_plain(cuda, B, R, N, tile):
     assert torch.equal(cash, c2) and not torch.equal(cash, cash0)
 
 
-@pytest.mark.parametrize("R,M,C,b,tile,dup", [
-    (1, 64, 32, 10, 32, 0.3), (4, 96, 64, 12, 32, 0.5),
-    (3, 300, 50, 10, 128, 0.5), (2, 100, 40, 9, 256, 0.9),
-    (16, 4096, 4096, 24, 256, 0.3)])
-def test_dedup_deposit_kernel_matches_plain(cuda, R, M, C, b, tile, dup):
+def dedup_case(R, M, C, b, dup, cuda, *, seed):
     """Queued twins (a URL queued twice among them), URLs inserted before
-    and gone, repeats within and across tiles, a masked row."""
-    rng = np.random.default_rng(R + M + C)
+    and gone, repeats within and across tiles, a masked row. Returns the
+    byte-per-bit filter (on the CPU), the arguments after it (on the card)
+    and the url lane as a strided view of a wider array."""
+    rng = np.random.default_rng(seed)
     f_url = rng.integers(1, 1 << 20, (R, C))
     f_url[:, 1] = f_url[:, 2]
     f_valid = rng.random((R, C)) < 0.7
@@ -180,11 +206,22 @@ def test_dedup_deposit_kernel_matches_plain(cuda, R, M, C, b, tile, dup):
     t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
     args = [t(urls), t(mask), t(rng.random((R, M)).astype(np.float32)),
             t(f_url), t(f_valid)]
-    lane = torch.tensor(rng.random((R, C)) * f_valid, dtype=torch.float32)
-    wide = torch.zeros((R, 2 + C))
-    wide[:, 2:] = lane
-    b1, w1 = bits.to(cuda), wide.to(cuda)
-    b2, w2 = b1.clone(), w1.clone()
+    wide = torch.zeros((R, 2 + C), device=cuda)
+    wide[:, 2:] = torch.tensor(rng.random((R, C)) * f_valid,
+                               dtype=torch.float32, device=cuda)
+    return bits, args, wide
+
+
+@pytest.mark.parametrize("R,M,C,b,tile,dup", [
+    (1, 64, 32, 10, 32, 0.3), (4, 96, 64, 12, 32, 0.5),
+    (3, 300, 50, 10, 128, 0.5), (2, 100, 40, 9, 256, 0.9),
+    (16, 4096, 4096, 24, 256, 0.3)])
+def test_dedup_deposit_kernel_matches_plain(cuda, R, M, C, b, tile, dup):
+    """Queued twins (a URL queued twice among them), URLs inserted before
+    and gone, repeats within and across tiles, a masked row."""
+    bits, args, wide = dedup_case(R, M, C, b, dup, cuda, seed=R + M + C)
+    b1, w1 = bits.to(cuda), wide.clone()
+    b2, w2 = b1.clone(), wide.clone()
     n0 = DOPS.KERNEL.launches
     s1, r1 = DOPS.dedup_deposit(b1, *args, w1[:, 2:], k=4, url_tile=tile)
     s2, r2 = dedup_deposit_ref(b2, *args, w2[:, 2:], k=4,
@@ -193,7 +230,43 @@ def test_dedup_deposit_kernel_matches_plain(cuda, R, M, C, b, tile, dup):
     assert DOPS.KERNEL.launches == n0 + 1
     for a, b_ in ((s1, s2), (b1, b2), (w1, w2), (r1, r2)):
         assert torch.equal(a, b_)
-    assert bool(s1.any()) and not torch.equal(w1[:, 2:].cpu(), lane)
+    assert bool(s1.any()) and not torch.equal(w1, wide)
+
+
+@pytest.mark.parametrize("R,M,C,b,tile,dup", [
+    (1, 64, 32, 10, 32, 0.3), (4, 96, 64, 12, 32, 0.5),
+    (3, 300, 50, 10, 128, 0.5), (2, 100, 40, 5, 256, 0.9),
+    (16, 4096, 4096, 24, 256, 0.3)])
+def test_dedup_deposit_packed_kernel_matches_plain(cuda, R, M, C, b, tile,
+                                                  dup):
+    """The packed kernel against its plain version, and the packed entry
+    (``packed=True``: pack, kernel, unpack) against the byte-per-bit kernel,
+    on the same inputs; rows of one word (b 5) among them."""
+    bits, args, wide = dedup_case(R, M, C, b, dup, cuda,
+                                  seed=R + M + C + b)
+    w1 = pack_bits(bits).to(cuda)
+    w2, wide1, wide2 = w1.clone(), wide.clone(), wide.clone()
+    n0 = DOPS.PACKED.launches
+    s1, r1 = DOPS.dedup_deposit_packed(w1, *args, wide1[:, 2:], k=4,
+                                       url_tile=tile)
+    s2, r2 = dedup_deposit_packed_ref(w2, *args, wide2[:, 2:], k=4,
+                                      url_tile=min(tile, M))
+    torch.cuda.synchronize()
+    assert DOPS.PACKED.launches == n0 + 1
+    for a, b_ in ((s1, s2), (w1, w2), (wide1, wide2), (r1, r2)):
+        assert torch.equal(a, b_)
+    assert bool(s1.any()) and not torch.equal(wide1, wide)
+    b3, b4 = bits.to(cuda), bits.clone().to(cuda)
+    wide3, wide4 = wide.clone(), wide.clone()
+    s3, r3 = DOPS.dedup_deposit(b3, *args, wide3[:, 2:], k=4, url_tile=tile,
+                                packed=True)
+    s4, r4 = DOPS.dedup_deposit(b4, *args, wide4[:, 2:], k=4, url_tile=tile)
+    torch.cuda.synchronize()
+    assert DOPS.PACKED.launches == n0 + 2
+    for a, b_ in ((s3, s4), (b3, b4), (wide3, wide4), (r3, r4), (s3, s1),
+                  (wide3, wide1)):
+        assert torch.equal(a, b_)
+    assert torch.equal(pack_bits(b3), w1)
 
 
 @pytest.mark.parametrize("ordering,fused", [("opic", True),

@@ -1,6 +1,7 @@
 """The OPIC slice of the port against the JAX package, piece by piece: the
 ``opic_update``, ``select_harvest`` and ``dedup_deposit`` plain versions
-(the JAX side run as ``ref`` and as ``interpret``), the valued frontier
+(the JAX side run as ``ref`` and as ``interpret``; ``dedup_deposit`` also
+packed, against ``interpret_packed``), the valued frontier
 operations, and the ``opic``/``opic_url`` update stages and scores. Inputs
 are made with numpy from a seed and handed to both packages.
 
@@ -34,7 +35,9 @@ from repro.ordering import policies as JORD  # noqa: E402
 from repro_torch.configs.base import CrawlConfig  # noqa: E402
 from repro_torch.core import frontier as TF  # noqa: E402
 from repro_torch.core import stages as TST  # noqa: E402
-from repro_torch.kernels.dedup_deposit.ops import dedup_deposit  # noqa: E402
+from repro_torch.kernels.bloom.ref import pack_bits  # noqa: E402
+from repro_torch.kernels.dedup_deposit.ops import (  # noqa: E402
+    dedup_deposit, dedup_deposit_packed)
 from repro_torch.kernels.frontier_select.ops import select_harvest  # noqa: E402
 from repro_torch.kernels.frontier_select.ref import NEG  # noqa: E402
 from repro_torch.kernels.opic_update.ops import (  # noqa: E402
@@ -221,18 +224,23 @@ def dedup_inputs(R, M, C, b, *, seed, dyadic=False, queue_fill=0.7):
     return np.asarray(bits), urls, mask, val, f_url, f_valid, table
 
 
-@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("impl", IMPLS + ["interpret_packed"])
 @pytest.mark.parametrize("dyadic", [True, False])
 @pytest.mark.parametrize("R,M,C,b,tile", [(1, 64, 32, 10, 32),
                                           (4, 96, 64, 12, 32),
                                           (3, 300, 50, 10, 128)])
 def test_dedup_deposit_matches_jax(R, M, C, b, tile, dyadic, impl):
+    """``interpret_packed`` is JAX's packed entry (pack, the packed kernel,
+    unpack); the port runs ``dedup_deposit(..., packed=True)`` against it,
+    and ``dedup_deposit_packed`` on the packed filter, which must leave
+    the words JAX's unpacked bits pack to."""
     args = dedup_inputs(R, M, C, b, seed=R * M + C, dyadic=dyadic)
     seen, bits, table, refund = (np.asarray(a) for a in jax_dd(
         *(jnp.asarray(a) for a in args), k=3, impl=impl, url_tile=tile))
+    packed = impl == "interpret_packed"
     tb, tt = T(args[0]), T(args[6])
     tseen, trefund = dedup_deposit(tb, *(T(a) for a in args[1:6]), tt, k=3,
-                                   url_tile=tile)
+                                   url_tile=tile, packed=packed)
     np.testing.assert_array_equal(seen, tseen.numpy())
     np.testing.assert_array_equal(bits, tb.numpy())
     np.testing.assert_array_equal(table, tt.numpy())
@@ -242,6 +250,31 @@ def test_dedup_deposit_matches_jax(R, M, C, b, tile, dyadic, impl):
     else:
         np.testing.assert_array_max_ulp(refund, trefund.numpy(),
                                         maxulp=MAX_ULP)
+    if packed:
+        tw, tt2 = pack_bits(T(args[0])), T(args[6])
+        s2, r2 = dedup_deposit_packed(tw, *(T(a) for a in args[1:6]), tt2,
+                                      k=3, url_tile=tile)
+        assert torch.equal(s2, tseen) and torch.equal(r2, trefund)
+        assert torch.equal(tt2, tt) and torch.equal(tw, pack_bits(tb))
+
+
+@pytest.mark.parametrize("R,M,C,b,tile", [(1, 64, 32, 10, 32),
+                                          (4, 96, 64, 12, 32),
+                                          (3, 300, 50, 10, 128),
+                                          (2, 200, 40, 5, 64),
+                                          (3, 130, 24, 6, 256)])
+def test_dedup_deposit_packed_matches_bytewise(R, M, C, b, tile):
+    """Inside the port, the packed walk equals the byte-per-bit walk bit for
+    bit, on rows of one and two words too (every URL collides)."""
+    args = dedup_inputs(R, M, C, b, seed=R + M + C)
+    rest = [T(a) for a in args[1:6]]
+    tb, t1 = T(args[0]), T(args[6])
+    tw, t2 = pack_bits(tb), T(args[6])
+    s1, r1 = dedup_deposit(tb, *rest, t1, k=3, url_tile=tile)
+    s2, r2 = dedup_deposit_packed(tw, *rest, t2, k=3, url_tile=tile)
+    assert torch.equal(s1, s2) and torch.equal(r1, r2)
+    assert torch.equal(t1, t2) and torch.equal(pack_bits(tb), tw)
+    assert bool(s1.any()) and bool((r1 > 0).any())
 
 
 # ---------------------------------------------------------------------------
