@@ -7,15 +7,18 @@ Phases, one JSON line each (a phase that fails raises, and the script exits
 non-zero):
 
   1. build   — nvcc builds every kernel's library from csrc/, one process
-               per source, all started together (eight kernels, five
+               per source, all started together (nine kernels, six
                sources: select_harvest shares frontier_select.cu,
                bloom_packed bloom.cu, dedup_deposit_packed
-               dedup_deposit.cu).
+               dedup_deposit.cu); flash_attention_tc's SASS must hold
+               HGMMA (cuobjdump).
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
                shapes with ties, duplicates, ragged tiles and masked rows
                (the packed kernels also on rows of one to four words and
-               on words with bit 31 set).
+               on words with bit 31 set; opic_update also on skewed
+               items, one target for all, N past one chunk, R past one
+               range, each case with its longest per-target chain).
   3. main    — three crawls at the full webparf.CONFIG (256 domains, 512
                frontier rows of 4096, 512 Bloom rows of 2^24 bytes), one
                at a time, each session freed before the next is built:
@@ -45,29 +48,39 @@ non-zero):
                (plain versions) for backlink, opic, opic_url fused and
                opic_url unfused (link_pop_bias=1.0, so twins are hit);
                every output and state leaf must match.
-  5. lm      — flash_parity: flash_attention against its plain version on
-               small cases (every head dim, GQA groups 1/3/6, lengths 32,
-               192 and 256, causal on and off, f32 and bf16);
+  5. lm      — flash_parity: both attention kernels against the plain
+               version on small cases (every head dim, GQA groups 1/3/6,
+               lengths 32, 192 and 256, causal on and off, f32 and bf16),
+               each case checked to launch the kernel its route names
+               (bf16 at hd 64/96/128: flash_attention_tc, also held to a
+               plain version that rounds p to bf16 as it does; the rest:
+               flash_attention);
                lm_serve: Qwen2-1.5B at full width (28 layers, d 1536,
                12/2 heads, hd 128, vocab 151936) from a seeded init, bf16,
                prefill of 4 x 2048 prompts and 32 greedy tokens through
-               ``launch.serve.serve``, one flash_attention launch per layer
-               (counts zeroed just before, read just after), no non-finite
+               ``launch.serve.serve``, one flash_attention_tc launch per
+               layer and no flash_attention launch (counts zeroed just
+               before, read just after), no non-finite
                logits, and a profile of one prefill and of four decode
                steps; lm_long: one serve of a 32768-token prompt (batch
                1) and 8 tokens, counted as lm_serve is;
-               lm_captured_parity: the kernel against its plain version on
-               the q, k, v of layer 0 and layer 27 of the 4 x 2048
-               prefill, in bf16 and cast to f32; lm_cpu: the reduced model in
-               f32 on the card and the CPU, logits within 1e-4 over a
-               prefill and 16 teacher-forced decode steps.
+               lm_captured_parity: the kernels against the plain version
+               on the q, k, v of layer 0 and layer 27 of the 4 x 2048
+               prefill, in bf16 (flash_attention_tc, also against the
+               plain version that rounds p, and flash_attention launched
+               directly) and cast to f32 (flash_attention);
+               lm_cpu: the reduced model in f32 on the card and the CPU,
+               logits within 1e-4 over a prefill and 16 teacher-forced
+               decode steps, its prefill launching flash_attention once a
+               layer (its f32 path).
   6. kernels — each kernel's time (CUDA events) beside its plain version's
                (the packed ones on their words, with the boundary call's
                time beside its bound), a library call's where one
                computes the same function, and
                its bound: the bytes it must move over 3.35 TB/s, or for
-               flash_attention the larger of that and its operations over
-               989 TFLOP/s.
+               the two attention kernels (both timed on layer 0's bf16
+               inputs in the same run) the larger of that and their
+               operations over 989 TFLOP/s.
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -159,14 +172,27 @@ def bloom_batch(rng, R, M, *, dup=0.3, fill=0.8):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """Builds every kernel; fails unless flash_attention_tc's machine code
+    holds the tensor cores' warpgroup products (HGMMA in cuobjdump's
+    SASS)."""
     from repro_torch.kernels import all_kernels, build_all
+    from repro_torch.kernels.build import find_nvcc
+    from repro_torch.kernels.flash_attention.ops import TC_KERNEL
     t0 = time.time()
     secs = build_all(all_kernels())
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln or "spill" in ln]
              for k in all_kernels()}
+    sass = subprocess.run(
+        [str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
+         str(TC_KERNEL.library)], check=True, capture_output=True, text=True,
+        timeout=120).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    if hgmma == 0:
+        raise AssertionError("flash_attention_tc: no HGMMA in its SASS")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
-          "per_kernel_s": secs, "ptxas": ptxas, "card": nvidia_smi()})
+          "per_kernel_s": secs, "ptxas": ptxas,
+          "flash_attention_tc_hgmma_sass_lines": hgmma, "card": nvidia_smi()})
 
 
 def _select_pair(url, pri, valid, k):
@@ -249,16 +275,23 @@ def _harvest_pair(url, pri, valid, k):
     return err
 
 
-def _scatter_pair(B, R, N, tile, rng, *, aligned=False):
+def _scatter_pair(B, R, N, tile, rng, *, aligned=False, skew=None):
     """opic_update and its plain version: duplicate targets, rows that wrap
     or fall out of range, a fully masked batch row. ``aligned``: the url
-    lane's row-aligned cells form (B rows of R cells, strided view)."""
+    lane's row-aligned cells form (B rows of R cells, strided view).
+    ``skew``: "half" sends every other item to one target, "one" every
+    item. Returns (max |diff|, the longest per-target chain)."""
     import torch
     from repro_torch.kernels.opic_update.ops import (scatter_cash,
                                                      scatter_cash_cells)
     from repro_torch.kernels.opic_update.ref import opic_ref
     dev = DEV
-    rows = torch.tensor(rng.integers(-R - 2, R + 2, (B, N)), device=dev)
+    rows = rng.integers(-R - 2, R + 2, (B, N))
+    if skew == "half":
+        rows[:, ::2] = R // 3
+    elif skew == "one":
+        rows[:] = R - 1 if aligned else -1      # -1 wraps to R - 1
+    rows = torch.tensor(rows, device=dev)
     contrib = torch.tensor(rng.random((B, N)) * 10.0 ** rng.integers(
         -6, 3, (B, N)), dtype=torch.float32, device=dev)
     mask = torch.tensor(rng.random((B, N)) < 0.8, device=dev)
@@ -281,9 +314,21 @@ def _scatter_pair(B, R, N, tile, rng, *, aligned=False):
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError(f"opic_update {(B, R, N)} tile={tile} "
-                             f"aligned={aligned}: differs from the plain "
-                             f"version")
-    return float((a.double() - b.double()).abs().max())
+                             f"aligned={aligned} skew={skew}: differs from "
+                             f"the plain version")
+    ok = mask & (rows >= (0 if aligned else -R)) & (rows < R)
+    return (float((a.double() - b.double()).abs().max()),
+            max_items_per_target(a[:, 2:] if aligned else a, rows, ok))
+
+
+def max_items_per_target(cash, rows, live):
+    """The longest per-target chain of a scatter: the most live items that
+    one (batch row, target) receives."""
+    import torch
+    B, R = cash.shape
+    tgt = torch.where(rows < 0, rows + R, rows)
+    flat = (torch.arange(B, device=rows.device)[:, None] * R + tgt)[live]
+    return int(torch.bincount(flat).max()) if flat.numel() else 0
 
 
 def dedup_batch(rng, R, M, C, b, *, dup=0.5, k=4):
@@ -456,16 +501,31 @@ def phase_parity():
     out["dedup_deposit_packed"] = {"max_abs_err": err, "cases": cases}
     # opic_update: the opic spend (1 x 8192 items onto 512 slots), the url
     # lane's cells (512 rows of 4096 cells, 4096 items a row), then small
+    # shapes; then the spend skewed (half the items on one target), every
+    # item on one target, N past one chunk (8192 items), R past one range
+    # (4096 targets) with B = 1 and B > 1, and the strided lane
     err, cases = 0.0, []
-    for B, R, N, tile, aligned in [(1, 512, 8192, 256, False),
-                                   (512, 4096, 4096, 256, True),
-                                   (3, 5, 300, 64, False),
-                                   (2, 64, 77, 256, False),
-                                   (4, 3, 40, 16, False),
-                                   (5, 16, 40, 16, True)]:
-        err = max(err, _scatter_pair(B, R, N, tile, rng, aligned=aligned))
-        cases.append((B, R, N, tile, aligned))
-    out["opic_update"] = {"max_abs_err": err, "cases": cases}
+    for B, R, N, tile, aligned, skew in [
+            (1, 512, 8192, 256, False, None),
+            (512, 4096, 4096, 256, True, None),
+            (3, 5, 300, 64, False, None), (2, 64, 77, 256, False, None),
+            (4, 3, 40, 16, False, None), (5, 16, 40, 16, True, None),
+            (1, 512, 8192, 256, False, "half"),
+            (1, 512, 8192, 256, False, "one"),
+            (3, 64, 4000, 32, False, "one"),
+            (2, 100, 20000, 1024, False, None),
+            (1, 300, 17000, 256, False, "half"),
+            (1, 10000, 3000, 256, False, None),
+            (3, 9000, 5000, 128, False, None),
+            (4, 5000, 9000, 256, True, "half"),
+            (64, 4096, 4096, 256, True, "one")]:
+        e, chain = _scatter_pair(B, R, N, tile, rng, aligned=aligned,
+                                 skew=skew)
+        err = max(err, e)
+        cases.append((B, R, N, tile, aligned, skew, chain))
+    out["opic_update"] = {"max_abs_err": err, "cases": cases,
+                          "case_fields": ["B", "R", "N", "tile", "aligned",
+                                          "skew", "max_items_per_target"]}
     emit(out)
     return {name: out[name]["max_abs_err"] for name in
             ("frontier_select", "select_harvest", "bloom", "dedup_deposit",
@@ -475,6 +535,65 @@ def phase_parity():
 # flash_attention against its plain version: the reference's tolerances
 # (tests/test_kernels.py), as |got - want| <= tol + tol * |want|
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# flash_attention_tc also against tc_plain, the plain arithmetic that rounds
+# p to bf16 for p.v as the kernel does: |got - want| <= TC_ULPS bf16 ulps of
+# |want| (the output's own rounding, f32 sums in another order) + TC_FLIPS
+# * 2^-7 * max|v| / l. The second term allows TC_FLIPS p's whose f32 value,
+# summed in another order, rounds to the other bf16 neighbour: each moves
+# the output by at most one bf16 ulp of p_j (<= 2^-7 p_j, and p_j <= 1)
+# times |v_j| / l, l the row's softmax sum in units of its largest term.
+TC_ULPS, TC_FLIPS = 2, 2
+
+
+def tc_plain(q, k, v, causal, block=64):
+    """What flash_attention_tc computes, in plain PyTorch, in f32: the
+    online softmax over ``block``-key tiles in order, the scores scaled by
+    1/sqrt(hd) and log2(e) in f32, p = exp2(s - m) with the running max m, l
+    the sum of the f32 p, acc += bf16(p) . v. Returns acc / max(l, 1e-30),
+    (B, Hq, Sq, hd), and l (B, Hq, Sq, 1). The only differences from
+    flash_ref are p's rounding and the exp2 form."""
+    import math
+    import torch
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qf = q.to(f32)
+    kf = k.to(f32).repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.to(f32).repeat_interleave(Hq // Hkv, dim=1)
+    scale2 = (torch.tensor(1 / math.sqrt(hd), dtype=f32)
+              * torch.tensor(1.4426950408889634, dtype=f32)).item()
+    m = torch.full((B, Hq, Sq, 1), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hq, Sq, hd), dtype=f32, device=q.device)
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    for k0 in range(0, Skv, block):
+        kt, vt = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
+        s = (qf @ kt.transpose(-1, -2)) * scale2
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            s = s.masked_fill(rows < cols, -1e30)
+        n = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp2(m - n)
+        p = torch.exp2(s - n)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + p.to(torch.bfloat16).to(f32) @ vt
+        m = n
+    return acc / l.clamp_min(1e-30), l
+
+
+def tc_share(got, q, k, v, causal):
+    """The largest |got - want| / tol over the output, want from tc_plain
+    and tol as TC_ULPS and TC_FLIPS state it: at most 1 passes."""
+    import torch
+    want, l = tc_plain(q, k, v, causal)
+    a = want.abs()
+    _, e = torch.frexp(a)
+    ulp = torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                      torch.zeros_like(a))
+    vmax = v.float().abs().amax(dim=2, keepdim=True).repeat_interleave(
+        q.shape[1] // k.shape[1], dim=1)
+    tol = TC_ULPS * ulp + TC_FLIPS * 2.0 ** -7 * vmax / l
+    return float(((got - want).abs() / tol.clamp_min(1e-30)).max())
 
 
 def flash_inputs(rng, B, Hq, Hkv, S, hd, dtype, *, strided=True):
@@ -492,37 +611,66 @@ def flash_inputs(rng, B, Hq, Hkv, S, hd, dtype, *, strided=True):
     return out
 
 
-def flash_pair(q, k, v, causal, label):
-    """The kernel and its plain version on the same inputs; raises past the
-    dtype's tolerance or on a non-finite output, returns max |diff|."""
+def flash_pair(q, k, v, causal, label, kernel=None):
+    """A kernel and the plain version on the same inputs: the kernel that
+    ``attention`` routes to (checked to be the one that launched, once), or
+    ``kernel`` launched directly. Raises past the dtype's tolerance, on a
+    non-finite output, and for flash_attention_tc past the tolerance from
+    tc_plain (``tc_share`` above 1); returns (kernel name, max |diff| from
+    the plain version, ``tc_share`` or None)."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import _gqa_fold, attention
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.ref import flash_ref
-    got = attention(q, k, v, causal=causal)
-    qg, kf, vf, group = _gqa_fold(q, k, v)
+    if kernel is None:
+        kernel = FA.route(q.device.type, q.dtype, q.shape[3])
+        before = (FA.KERNEL.launches, FA.TC_KERNEL.launches)
+        got = FA.attention(q, k, v, causal=causal)
+        after = (FA.KERNEL.launches, FA.TC_KERNEL.launches)
+        want_after = tuple(c + (kern is kernel) for c, kern in
+                           zip(before, (FA.KERNEL, FA.TC_KERNEL)))
+        if after != want_after:
+            raise AssertionError(f"flash_attention {label}: routed to "
+                                 f"{kernel.name}, but launches went "
+                                 f"{before} -> {after}")
+    else:
+        got = FA.launch(kernel, q, k, v, causal)
+    qg, kf, vf, group = FA._gqa_fold(q, k, v)
     want = flash_ref(qg, kf, vf, causal=causal, group=group
                      ).reshape(q.shape)
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
     if not torch.isfinite(got).all():
-        raise AssertionError(f"flash_attention {label}: non-finite output")
+        raise AssertionError(f"{kernel.name} {label}: non-finite output")
     excess = (got - want).abs() - tol * (1 + want.abs())
     if float(excess.max()) > 0:
-        raise AssertionError(f"flash_attention {label}: differs from the "
+        raise AssertionError(f"{kernel.name} {label}: differs from the "
                              f"plain version beyond {tol}: max |diff| "
                              f"{float((got - want).abs().max())}")
-    return float((got - want).abs().max())
+    share = None
+    if kernel is FA.TC_KERNEL:
+        share = tc_share(got, q, k, v, causal)
+        if share > 1:
+            raise AssertionError(f"{kernel.name} {label}: {share} times "
+                                 f"the tolerance from tc_plain")
+    return kernel.name, float((got - want).abs().max()), share
 
 
 def phase_flash_parity():
-    """flash_attention against its plain version on small cases: every head
-    dim the kernel instantiates, GQA groups 1, 3 and 6, lengths 32, 192
-    (ragged tiles) and 256, causal on and off, f32 and bf16, strided and
-    contiguous layouts."""
+    """Both attention kernels against the plain version on small cases:
+    every head dim, GQA groups 1, 3 and 6, lengths 32, 192 (ragged tiles)
+    and 256, causal on and off, f32 and bf16, strided and contiguous
+    layouts. Each case goes through ``attention``, which must launch the
+    kernel its route names (bf16 at 64/96/128: flash_attention_tc; the
+    rest: flash_attention); the bf16 cases at those head dims also run the
+    CUDA-core kernel, launched directly, so it stays held at every head dim
+    it instantiates."""
+    from repro_torch.kernels.flash_attention import ops as FA
     rng = np.random.default_rng(SEED + 3)
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    n = 0
+    errs = {FA.KERNEL.name: {"float32": 0.0, "bfloat16": 0.0},
+            FA.TC_KERNEL.name: {"bfloat16": 0.0}}
+    tc_max_share = 0.0
+    n, routed = 0, Counter()
     for hd in (8, 16, 32, 64, 96, 128):
         for group in (1, 3, 6):
             for S in (32, 192, 256):
@@ -532,12 +680,24 @@ def phase_flash_parity():
                                                dtype, strided=n % 2 == 0)
                         label = (f"hd={hd} group={group} S={S} "
                                  f"causal={causal} {dtype}")
-                        errs[dtype] = max(errs[dtype],
-                                          flash_pair(q, k, v, causal, label))
+                        name, e, share = flash_pair(q, k, v, causal,
+                                                    label)
+                        routed[name] += 1
+                        errs[name][dtype] = max(errs[name][dtype], e)
+                        if name == FA.TC_KERNEL.name:
+                            tc_max_share = max(tc_max_share, share)
+                            _, e, _ = flash_pair(q, k, v, causal, label,
+                                                 kernel=FA.KERNEL)
+                            errs[FA.KERNEL.name][dtype] = max(
+                                errs[FA.KERNEL.name][dtype], e)
                         n += 1
-    out = {"phase": "flash_parity", "cases": n, "max_abs_err": errs,
+    out = {"phase": "flash_parity", "cases": n, "routed": dict(routed),
+           "max_abs_err": errs,
            "tolerance": "|got - want| <= tol * (1 + |want|), tol "
-                        f"{FLASH_TOL}"}
+                        f"{FLASH_TOL}",
+           "tc_max_share_of_tc_plain_tolerance": tc_max_share,
+           "tc_tolerance": f"|got - tc_plain| <= {TC_ULPS} bf16 ulps of "
+                           f"|want| + {TC_FLIPS} * 2^-7 * max|v| / l"}
     emit(out)
     return out
 
@@ -621,6 +781,16 @@ def profile_device(fn, calls):
                                        for k, v in runtime.items()}}
 
 
+def check_prefill_launches(counts, n_layers, label):
+    """One bf16 prefill at hd 128 launches flash_attention_tc once per
+    layer and the CUDA-core flash_attention never."""
+    if counts["flash_attention_tc"] != n_layers or \
+            counts["flash_attention"] != 0:
+        raise AssertionError(f"{label}: want {n_layers} flash_attention_tc "
+                             f"and 0 flash_attention launches in one "
+                             f"prefill of {n_layers} layers: {counts}")
+
+
 def phase_lm_serve():
     """Qwen2-1.5B at full width (28 layers, d 1536, 12/2 heads, hd 128,
     vocab 151936) from the port's seeded init, bf16 on the card: a first
@@ -628,7 +798,8 @@ def phase_lm_serve():
     short serve warms up, then the counted run: ``serve`` of LM_BATCH x
     LM_PROMPT prompts and LM_GEN tokens, counts zeroed just before it and
     read just after. Fails on non-finite logits (``serve`` raises) and
-    unless prefill launched the kernel once per layer."""
+    unless prefill launched flash_attention_tc once per layer (and the
+    CUDA-core kernel never)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launches
@@ -647,10 +818,7 @@ def phase_lm_serve():
     reset_launches()
     toks, t_pre, t_dec = serve(model, prompts, LM_GEN)
     counts = launch_counts()
-    if counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"lm: flash_attention launched "
-                             f"{counts['flash_attention']} times in one "
-                             f"prefill of {cfg.n_layers} layers: {counts}")
+    check_prefill_launches(counts, cfg.n_layers, "lm")
     if toks.shape != (LM_BATCH, LM_GEN) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"lm: tokens malformed: {tuple(toks.shape)}")
@@ -671,31 +839,44 @@ def phase_lm_serve():
 
 
 def phase_lm_captured(captured):
-    """flash_attention against its plain version on the attention inputs
-    that the full-width prefill itself produced: as captured (bf16), and
-    cast to f32, where both compute the same f32 arithmetic and are held to
-    the f32 tolerance over the whole length of the prefill. Returns the
-    bf16 max |diff| (the path's dtype)."""
+    """Both attention kernels against the plain version on the attention
+    inputs that the full-width prefill itself produced: as captured (bf16,
+    routed to flash_attention_tc, which is also held to tc_plain; and the
+    CUDA-core kernel launched directly on the same inputs), and cast to
+    f32 (routed to the CUDA-core kernel, where both compute the same f32
+    arithmetic, held to the f32 tolerance over the whole length of the
+    prefill). Returns each kernel's
+    max |diff| in bf16, the path's dtype."""
+    from repro_torch.kernels.flash_attention import ops as FA
     out = {"phase": "lm_captured_parity", "tolerance": FLASH_TOL}
-    err = 0.0
+    errs = {FA.TC_KERNEL.name: 0.0, FA.KERNEL.name: 0.0}
     for layer, (q, k, v) in sorted(captured.items()):
-        e = flash_pair(q, k, v, True, f"layer {layer} {tuple(q.shape)} "
-                                      f"{q.dtype}")
-        e32 = flash_pair(q.float(), k.float(), v.float(), True,
-                         f"layer {layer} {tuple(q.shape)} as float32")
+        shape = f"layer {layer} {tuple(q.shape)}"
+        name, e, share = flash_pair(q, k, v, True, f"{shape} {q.dtype}")
+        if name != FA.TC_KERNEL.name:
+            raise AssertionError(f"{shape}: bf16 routed to {name}")
+        _, e_core, _ = flash_pair(q, k, v, True, f"{shape} {q.dtype}",
+                                  kernel=FA.KERNEL)
+        name32, e32, _ = flash_pair(q.float(), k.float(), v.float(), True,
+                                    f"{shape} as float32")
+        if name32 != FA.KERNEL.name:
+            raise AssertionError(f"{shape}: f32 routed to {name32}")
         out[f"layer_{layer}"] = {"shape_q": list(q.shape),
                                  "shape_kv": list(k.shape),
                                  "dtype": str(q.dtype), "max_abs_err": e,
+                                 "share_of_tc_plain_tolerance": share,
+                                 "max_abs_err_cuda_core_bf16": e_core,
                                  "max_abs_err_float32": e32}
-        err = max(err, e)
+        errs[FA.TC_KERNEL.name] = max(errs[FA.TC_KERNEL.name], e)
+        errs[FA.KERNEL.name] = max(errs[FA.KERNEL.name], e_core)
     emit(out)
-    return err
+    return errs
 
 
 def phase_lm_long(model):
     """One ``serve`` at prefill_32k's prompt length (LM_LONG_PROMPT) with
     the batch cut to 1: counts zeroed just before it and read just after,
-    one flash_attention launch per layer, finite logits."""
+    one flash_attention_tc launch per layer, finite logits."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
@@ -706,10 +887,7 @@ def phase_lm_long(model):
     reset_launches()
     toks, t_pre, t_dec = serve(model, prompts, LM_LONG_GEN)
     counts = launch_counts()
-    if counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"lm_long: flash_attention launched "
-                             f"{counts['flash_attention']} times in one "
-                             f"prefill of {cfg.n_layers} layers: {counts}")
+    check_prefill_launches(counts, cfg.n_layers, "lm_long")
     if toks.shape != (1, LM_LONG_GEN):
         raise AssertionError(f"lm_long: tokens malformed: "
                              f"{tuple(toks.shape)}")
@@ -726,10 +904,13 @@ def phase_lm_cpu(steps=16):
     """The reduced qwen2-1.5b in f32 with the same weights on the card and
     on the CPU: a 32-token prefill, then ``steps`` teacher-forced decode
     steps; every step's logits must agree within LM_CPU_TOL. TF32 is off:
-    it would round the products to 10 bits."""
+    it would round the products to 10 bits. This f32 path is the CUDA-core
+    flash_attention's: counts are zeroed just before the card's run and
+    read just after, one launch per layer of its prefill. Returns them."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.configs.base import scaled
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -739,15 +920,22 @@ def phase_lm_cpu(steps=16):
     P = 32
     toks = torch.tensor(np.random.default_rng(SEED + 4).integers(
         0, cfg.vocab_size, (LM_BATCH, P + steps)))
-    logits = {}
+    logits, counts = {}, None
     for name, m in (("cuda", card), ("cpu", cpu)):
         t = toks.to(m.device)
+        reset_launches()
         lg, cache = T.prefill_step(m, t[:, :P], max_len=P + steps)
         out = [lg]
         for i in range(P, P + steps):
             lg, cache = T.decode_step(m, t[:, i:i + 1], cache)
             out.append(lg)
         logits[name] = torch.cat(out, 1).cpu()
+        counts = launch_counts() if counts is None else counts
+    if counts["flash_attention"] != cfg.n_layers or \
+            counts["flash_attention_tc"] != 0:
+        raise AssertionError(f"lm_cpu: want {cfg.n_layers} flash_attention "
+                             f"and 0 flash_attention_tc launches in the f32 "
+                             f"prefill: {counts}")
     a, b = logits["cuda"], logits["cpu"]
     err = float((a - b).abs().max())
     if not torch.isfinite(a).all() or err > LM_CPU_TOL:
@@ -756,22 +944,27 @@ def phase_lm_cpu(steps=16):
     emit({"phase": "lm_cpu", "config": dataclasses.asdict(cfg),
           "prefill": P, "decode_steps": steps, "max_abs_err": err,
           "tolerance": LM_CPU_TOL, "argmax_equal": bool(torch.equal(
-              a.argmax(-1), b.argmax(-1)))})
+              a.argmax(-1), b.argmax(-1))), "launches": counts})
+    return counts
 
 
-def kernels_lm(captured, counts, err):
-    """flash_attention at layer 0's captured inputs: the kernel, its plain
+def kernels_lm(captured, counts, errs, counts_f32):
+    """Both attention kernels at layer 0's captured bf16 inputs, in one
+    run: flash_attention_tc (the bf16 prefill's route) and the CUDA-core
+    flash_attention launched directly on the same inputs, beside the plain
     version and the library's fused attention (a yardstick only), and the
     bound: the larger of the operations the causal products need over the
-    bf16 tensor-core peak and the bytes of q, k, v and o over 3.35 TB/s."""
+    bf16 tensor-core peak and the bytes of q, k, v and o over 3.35 TB/s.
+    The CUDA-core kernel's launches are those of the f32 path (lm_cpu)."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import _gqa_fold, attention
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.ref import flash_ref
     q, k, v = captured[0]
     B, Hq, S, hd = q.shape
     n = 50
-    ms = cuda_ms(lambda: attention(q, k, v, causal=True), n)
-    qg, kf, vf, group = _gqa_fold(q, k, v)
+    ms = {kern.name: cuda_ms(lambda: FA.launch(kern, q, k, v, True), n)
+          for kern in (FA.TC_KERNEL, FA.KERNEL)}
+    qg, kf, vf, group = FA._gqa_fold(q, k, v)
     plain = cuda_ms(lambda: flash_ref(qg, kf, vf, causal=True, group=group),
                     n)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -780,20 +973,31 @@ def kernels_lm(captured, counts, err):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops, t_bytes = 1e3 * flops / H100_BF16_FLOPS, \
         1e3 * nbytes / HBM_BYTES_PER_S
-    return {"name": "flash_attention", "route": "cuda",
+    common = {"plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "library_ms": lib,
+              "shape": {"q": list(q.shape), "kv": list(k.shape),
+                        "dtype": str(q.dtype), "causal": True},
+              "flops": flops, "bytes": nbytes, "ops_bound_ms": t_ops,
+              "bytes_bound_ms": t_bytes}
+    tc = {"name": FA.TC_KERNEL.name, "route": "cuda",
+          "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+          "replaces": "src/repro/kernels/flash_attention/"
+                      "flash_attention.py:63",
+          "launches": counts[FA.TC_KERNEL.name],
+          "launches_per_prefill": counts[FA.TC_KERNEL.name],
+          "max_abs_err": errs[FA.TC_KERNEL.name], "ms": ms[FA.TC_KERNEL.name],
+          "path": "lm serve (bf16 prefill)", **common}
+    core = {"name": FA.KERNEL.name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:63",
-            "launches": counts["flash_attention"],
-            "launches_per_prefill": counts["flash_attention"],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib, "path": "lm serve (prefill)",
-            "shape": {"q": list(q.shape), "kv": list(k.shape),
-                      "dtype": str(q.dtype), "causal": True},
-            "flops": flops, "bytes": nbytes, "ops_bound_ms": t_ops,
-            "bytes_bound_ms": t_bytes}
+            "launches": counts_f32[FA.KERNEL.name],
+            "launches_bf16_prefill": counts[FA.KERNEL.name],
+            "max_abs_err": errs[FA.KERNEL.name], "ms": ms[FA.KERNEL.name],
+            "path": "lm f32 prefill (lm_cpu); timed on the bf16 inputs",
+            **common}
+    return [tc, core]
 
 
 # each crawl path of the main phase, and the kernels it must launch
@@ -1097,10 +1301,40 @@ def scatter_bytes(cash, rows, mask):
     return mask.numel() + 12 * int(live.sum()) + 8 * touched
 
 
+def graph_ms(fn, n):
+    """Milliseconds a call of ``fn()`` takes on the card with the host out
+    of the way: n calls captured in one CUDA graph, replayed, timed by
+    CUDA events. A kernel of a few microseconds launched from Python is
+    timed by ``cuda_ms`` at the host's launch rate, not its own."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_ms(g.replay, 5) / n
+
+
+def device_ms(fn, n):
+    """Mean device milliseconds of ``fn()`` over n calls: the time its
+    kernels ran on the card (torch.profiler), without the host's launch
+    time, which back-to-back CUDA-event timing of a few-microsecond kernel
+    measures instead."""
+    fn()
+    return profile_device(lambda: [fn() for _ in range(n)],
+                          n)["device_busy_ms_per_call"]
+
+
 def time_scatter(args, n):
     """opic_update, its plain version and index_add_ (the library call
     that sums the same items into the same targets, in its own order) on
-    captured (cash, rows, contrib, mask)."""
+    captured (cash, rows, contrib, mask); for the kernel and index_add_
+    also the time a call takes in a CUDA graph (``graph_ms``) and the
+    kernel's own time (``device_ms``), both free of the host's launch."""
     import torch
     from repro_torch.kernels.opic_update.ops import scatter_cash
     from repro_torch.kernels.opic_update.ref import opic_ref
@@ -1114,18 +1348,28 @@ def time_scatter(args, n):
     flat = (torch.arange(B, device=rows.device)[:, None] * R + tgt)[live]
     vals = contrib[live]
     lib = cuda_ms(lambda: c3.view(-1).index_add_(0, flat, vals), n)
-    return ms, plain, lib, scatter_bytes(cash, rows, mask)
+    kern = lambda: scatter_cash(c1, rows, contrib, mask)  # noqa: E731
+    libc = lambda: c3.view(-1).index_add_(0, flat, vals)  # noqa: E731
+    dev = {"graph_ms": graph_ms(kern, n), "device_ms": device_ms(kern, n),
+           "library_graph_ms": graph_ms(libc, n),
+           "library_device_ms": device_ms(libc, n)}
+    return (ms, plain, lib, scatter_bytes(cash, rows, mask),
+            max_items_per_target(cash, rows, live), dev)
 
 
 def kernels_opic(sess):
     """opic_update at the opic path's spend: the stage's own (1, 8192)
-    items onto the 512 slot cash entries."""
+    items onto the 512 slot cash entries, with its longest per-target
+    chain."""
     from repro_torch.ordering import opic as OP
     (args, kw), = capture_calls([OP], "scatter_cash", sess.step, 1)
-    ms, plain, lib, nbytes = time_scatter(args, 50)
+    ms, plain, lib, nbytes, chain, dev = time_scatter(args, 50)
     return {"spend_shape": list(args[1].shape), "spend_ms": ms,
             "spend_plain_ms": plain, "spend_library_ms": lib,
-            "spend_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+            "spend_bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "spend_live_items": int(args[3].sum()),
+            "spend_max_items_per_target": chain,
+            **{f"spend_{k}": v for k, v in dev.items()}}
 
 
 def kernels_opic_url(sess, counts, errs, steps):
@@ -1177,7 +1421,8 @@ def kernels_opic_url(sess, counts, errs, steps):
     table, _, cols, vals, fits = args
     # the calls reach scatter_cash as the row-aligned batch
     ok = fits & (cols >= 0) & (cols < C)
-    ms_c, plain_c, lib_c, nb_c = time_scatter((table, cols, vals, ok), n)
+    ms_c, plain_c, lib_c, nb_c, chain_c, dev_c = time_scatter(
+        (table, cols, vals, ok), n)
     # dedup_deposit: batches laid out as the next dispatches (their
     # masks), fresh URLs and values, against the live frontier and lane
     masks = [args[2] for args, _ in capture_calls(
@@ -1223,7 +1468,8 @@ def kernels_opic_url(sess, counts, errs, steps):
                    "src/repro/kernels/opic_update/opic_update.py:41",
                    counts, steps, errs, ms_c, plain_c, nb_c, lib_c,
                    path="opic_url", shape=list(cols.shape),
-                   live_items=int(ok.sum())))
+                   live_items=int(ok.sum()), max_items_per_target=chain_c,
+                   **dev_c))
     return out
 
 
@@ -1470,10 +1716,11 @@ def main() -> int:
     phase_lm_long(model)
     del model
     free_card()
-    err_lm = max(max(flash["max_abs_err"].values()),
-                 phase_lm_captured(captured))
-    phase_lm_cpu()
-    rows_["lm"] = [kernels_lm(captured, counts_lm, err_lm)]
+    err_captured = phase_lm_captured(captured)
+    err_lm = {name: max(max(e.values()), err_captured[name])
+              for name, e in flash["max_abs_err"].items()}
+    counts_f32 = phase_lm_cpu()
+    rows_["lm"] = kernels_lm(captured, counts_lm, err_lm, counts_f32)
     del captured
     kernels = (rows_["backlink"] + rows_["opic_url"] + rows_["lm"]
                + rows_["packed"])

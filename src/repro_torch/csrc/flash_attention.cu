@@ -17,11 +17,14 @@
 // (B 4, Hq 12, Hkv 2, S 2048, hd 128, causal) the two products need
 // 4 * B * Hq * hd * S(S+1)/2 = 51.6 GFLOP, 52 us at the tensor cores' bf16
 // rate, against 59 MB of q, k, v and o, 18 us at 3.35 TB/s. This kernel
-// does not reach the tensor cores: the contract keeps q.k and p in f32,
+// does not reach the tensor cores: the f32 contract keeps q.k and p in f32,
 // and mma.sync or wgmma would round p (and the scaled q) to bf16 or tf32.
 // It runs on the CUDA cores' f32 FMAs, whose 67 TFLOP/s put its own floor
-// near 0.77 ms at that shape. Moving to the tensor cores (with p split in
-// two bf16 halves, say) is work for a later change.
+// near 0.77 ms at that shape. That holds for the route it now serves: f32
+// at every head dim, and bf16 at the small head dims (8, 16, 32). bf16 at
+// head dims 64, 96 and 128, the served models' prefill, goes to the tensor
+// cores in csrc/flash_attention_tc.cu, which rounds p to bf16 for p.v as the
+// reference's bf16 LM path does (kernels/flash_attention/ops.py, route).
 //
 // What the design does about it: one block of 128 threads per (head,
 // batch row, 64-row query tile); the 64-key K tile is staged in shared

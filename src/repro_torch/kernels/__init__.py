@@ -2,7 +2,8 @@
 
 Each family (``frontier_select`` with ``select_harvest``, ``bloom`` with
 ``bloom_packed``, ``opic_update``, ``dedup_deposit`` with
-``dedup_deposit_packed``, and the LM's ``flash_attention``) has
+``dedup_deposit_packed``, and the LM's ``flash_attention`` with
+``flash_attention_tc``) has
 ``ops.py`` (the wrappers that dispatch by device and count launches) and
 ``ref.py`` (the plain versions).
 ``all_kernels()`` lists them for builds and launch counts; ``rowsum.py``
@@ -22,11 +23,12 @@ def all_kernels() -> Tuple[Kernel, ...]:
     from repro_torch.kernels.dedup_deposit.ops import \
         PACKED as DEPOSIT_PACKED
     from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
+    from repro_torch.kernels.flash_attention.ops import TC_KERNEL as FLASH_TC
     from repro_torch.kernels.frontier_select.ops import HARVEST
     from repro_torch.kernels.frontier_select.ops import KERNEL as SELECT
     from repro_torch.kernels.opic_update.ops import KERNEL as OPIC
     return (SELECT, HARVEST, BLOOM, DEPOSIT, OPIC, FLASH, BLOOM_PACKED,
-            DEPOSIT_PACKED)
+            DEPOSIT_PACKED, FLASH_TC)
 
 
 def reset_launches() -> None:

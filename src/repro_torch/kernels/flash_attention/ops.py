@@ -1,24 +1,37 @@
 """The ``flash_attention`` wrapper: GQA-aware causal attention.
 
 Counterpart of ``repro/kernels/flash_attention/ops.py`` (``attention``).
-Dispatch is by device: a CUDA tensor launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises; a CPU tensor takes the plain
-version (``ref.flash_ref``). There is no fallback between the two.
+Dispatch is by device, and on the card by dtype and head dim, as
+:func:`route` states it:
+
+- a CPU tensor takes the plain version (``ref.flash_ref``);
+- a CUDA bf16 tensor whose head dim is in ``TC_HEAD_DIMS`` (64, 96, 128)
+  launches ``flash_attention_tc`` (``csrc/flash_attention_tc.cu``): both
+  products on the tensor cores, ``p`` rounded to bf16 for p·v as the
+  reference's bf16 LM path rounds it;
+- every other CUDA tensor (f32, and bf16 at head dims 8, 16 and 32)
+  launches ``flash_attention`` (``csrc/flash_attention.cu``): f32 CUDA-core
+  FMAs with ``p`` kept in f32, the TPU kernel's contract.
+
+This is a route, not a fallback: each kernel counts its own launches, and a
+launch either kernel refuses raises. The bf16 route meets the reference's
+bf16 tolerance (2e-2); the f32 contract (2e-5) stays on the CUDA-core
+kernel.
 
 GQA is folded as ``_gqa_fold`` folds it: the query heads of batch row b are
 grouped by KV head, so query head h reads KV head ``h // group``. The plain
-version gets the folded tensors; the kernel gets the unfolded ones with
-their strides and does the same fold by index, so q, k and v may be
-strided views such as those ``layers._project_qkv`` makes (``(B, S, H, hd)``
+version gets the folded tensors; the kernels get the unfolded ones with
+their strides and do the same fold by index, so q, k and v may be strided
+views such as those ``layers._project_qkv`` makes (``(B, S, H, hd)``
 transposed to ``(B, H, S, hd)``). On the prefill path only v arrives so and
 is read without a copy; RoPE has already made q and k new contiguous
-tensors. The kernel's output is laid out ``(B, Sq, Hq, hd)`` in memory and
+tensors. The kernels' output is laid out ``(B, Sq, Hq, hd)`` in memory and
 returned as its ``(B, Hq, Sq, hd)`` view, so the attention block's
 transpose back is free.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,6 +42,10 @@ from repro_torch.kernels.flash_attention.ref import flash_ref
 #   causal, q strides (b, h, s), k strides, v strides, o strides, stream)
 KERNEL = Kernel("flash_attention", n_ptr=4, n_int=20)
 HEAD_DIMS = (8, 16, 32, 64, 96, 128)       # the kernel's instantiations
+# flash_attention_tc_launch(q, k, v, o, B, Hq, Hkv, Sq, Skv, hd, causal,
+#   q strides (b, h, s), k strides, v strides, o strides, stream)
+TC_KERNEL = Kernel("flash_attention_tc", n_ptr=4, n_int=19)
+TC_HEAD_DIMS = (64, 96, 128)               # bf16 only
 DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
@@ -63,26 +80,29 @@ def _check(q, k, v, block_q, block_k):
         raise ValueError(f"flash_attention: blocks {block_q}, {block_k} < 1")
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, block_q: int = 128,
-              block_k: int = 128) -> torch.Tensor:
-    """q (B, Hq, Sq, hd); k, v (B, Hkv, Skv, hd). Returns (B, Hq, Sq, hd) in
-    q.dtype. ``block_k`` is the plain version's KV tile; the kernel's
-    tiles are fixed (64 x 64), and the results agree up to f32 rounding.
-    ``block_q`` changes no result (query rows are independent) and stays
-    for the reference's signature."""
-    _check(q, k, v, block_q, block_k)
-    B, Hq, Sq, hd = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    if q.device.type == "cpu":
-        qg, kf, vf, group = _gqa_fold(q, k, v)
-        out = flash_ref(qg, kf, vf, causal=causal, group=group,
-                        block_k=max(1, min(block_k, Skv)))
-        return out.reshape(B, Hq, Sq, hd)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+def route(device_type: str, dtype: torch.dtype, hd: int
+          ) -> Optional[Kernel]:
+    """The kernel that ``attention`` launches for a device type, a dtype
+    and a head dim: ``None`` on the CPU (the plain version), ``TC_KERNEL``
+    for bf16 at ``TC_HEAD_DIMS`` on the card, ``KERNEL`` for the rest of the
+    card's cases. Raises for a device or head dim no kernel takes."""
+    if device_type == "cpu":
+        return None
+    if device_type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {device_type}")
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return TC_KERNEL
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    return KERNEL
+
+
+def launch(kernel: Kernel, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """One launch of ``kernel`` (``KERNEL`` or ``TC_KERNEL``) on CUDA
+    tensors checked by ``_check``; returns (B, Hq, Sq, hd) in q.dtype."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B == 0 or Sq == 0:
@@ -95,7 +115,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         strides += [t.stride(0), t.stride(1), t.stride(2)]
     if max(strides) > _INT_MAX or max(B, Hq, Sq, Skv) > _INT_MAX:
         raise ValueError("flash_attention: a stride or size beyond int32")
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, Hq, Hkv, Sq, Skv, hd, int(q.dtype == torch.bfloat16),
-                  int(causal), *strides)
+    if kernel is TC_KERNEL:
+        if any(t.data_ptr() % 16 for t in (q, k, v)) \
+                or any(st % 8 for st in strides):
+            raise ValueError("flash_attention_tc: q, k and v rows must "
+                             "start 16-byte aligned (strides multiples of "
+                             "8 elements)")
+        args = (int(causal),)
+    else:
+        args = (int(q.dtype == torch.bfloat16), int(causal))
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, Hq, Hkv, Sq, Skv, hd, *args, *strides)
     return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, block_q: int = 128,
+              block_k: int = 128) -> torch.Tensor:
+    """q (B, Hq, Sq, hd); k, v (B, Hkv, Skv, hd). Returns (B, Hq, Sq, hd) in
+    q.dtype, from the kernel :func:`route` names. ``block_k`` is the plain
+    version's KV tile; the kernels' tiles are fixed, and the results agree
+    up to f32 rounding (and, on the bf16 tensor-core route, p's rounding to
+    bf16). ``block_q`` changes no result (query rows are independent) and
+    stays for the reference's signature."""
+    _check(q, k, v, block_q, block_k)
+    B, Hq, Sq, hd = q.shape
+    Skv = k.shape[2]
+    kernel = route(q.device.type, q.dtype, hd)
+    if kernel is None:
+        qg, kf, vf, group = _gqa_fold(q, k, v)
+        out = flash_ref(qg, kf, vf, causal=causal, group=group,
+                        block_k=max(1, min(block_k, Skv)))
+        return out.reshape(B, Hq, Sq, hd)
+    return launch(kernel, q, k, v, causal)

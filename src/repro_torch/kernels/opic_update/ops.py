@@ -4,8 +4,10 @@ Dispatch is by device: a CUDA tensor launches the hand-written kernel
 (``csrc/opic_update.cu``) or raises; a CPU tensor takes the plain version
 (``ref.opic_ref``). There is no fallback between the two. Both update the
 cash IN PLACE and add each target's contributions in item order, so the
-result does not depend on the device. A ragged last tile is masked, not
-padded by a copy.
+result depends neither on the device nor on ``tile``: the kernel sorts the
+live items by target (stably) and walks each target's items in order,
+ignoring the tile, which stays in the signature (and its 1..1024 check)
+for parity with the plain version and the JAX package.
 """
 from __future__ import annotations
 

@@ -10,9 +10,13 @@ Weights keep the reference's layout (``x @ w`` with ``w`` of shape
 nothing and are dropped. MoE layers are not ported yet (``moe_block``
 raises).
 
-Prefill attention keeps ``p`` and the scaled q in f32, as the TPU kernel
-does; the reference's ``chunked_attention`` rounds both to bf16 in a bf16
-model, so bf16 results differ from it by that rounding (ROADMAP Queue 3).
+Prefill attention on the CPU, in f32 and at the small bf16 head dims keeps
+``p`` and the scaled q in f32, as the TPU kernel does; the reference's
+``chunked_attention`` rounds both to bf16 in a bf16 model, so bf16 results
+differ from it by that rounding (ROADMAP Queue 3). On the card's bf16 route
+(head dims 64, 96, 128: ``flash_attention_tc``) ``p`` is rounded to bf16 for
+p·v, as the reference's ``chunked_attention`` rounds it; q is not rounded
+after scaling (the scale is applied to the f32 scores).
 """
 from __future__ import annotations
 

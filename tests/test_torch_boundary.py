@@ -13,8 +13,9 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import webparf as tweb  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "tools").glob("*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -92,14 +93,14 @@ def test_init_state_needs_a_card_by_default():
 def test_kernels_build_nothing_at_import():
     """Importing every module of the port neither builds nor needs nvcc."""
     import importlib
-    for p in PORT_FILES[:-1]:
+    for p in PACKAGE_FILES:
         rel = p.relative_to(ROOT / "src").with_suffix("")
         importlib.import_module(".".join(
             rel.parts[:-1] if rel.name == "__init__" else rel.parts))
     from repro_torch.kernels import all_kernels, launch_counts
     names = {"frontier_select", "select_harvest", "bloom", "dedup_deposit",
              "opic_update", "flash_attention", "bloom_packed",
-             "dedup_deposit_packed"}
+             "dedup_deposit_packed", "flash_attention_tc"}
     assert {k.name for k in all_kernels()} == names
     assert all(k.source.exists() for k in all_kernels())
     assert set(launch_counts()) == names

@@ -7,7 +7,11 @@ This file imports no JAX (the machine with the card has none), so that
 runs it there; without a card every test skips. Inputs are made with numpy
 from a seed, and the crawl kernels must equal their plain versions exactly;
 flash_attention must agree with its plain version within the reference's
-tolerances (2e-5 f32, 2e-2 bf16), since the two sum in different orders."""
+tolerances (2e-5 f32, 2e-2 bf16), since the two sum in different orders;
+flash_attention_tc also within a few bf16 ulps of a plain version that
+rounds p to bf16 as it does."""
+import math
+
 import numpy as np
 import pytest
 
@@ -157,14 +161,28 @@ def test_select_harvest_kernel_matches_plain(cuda, R, C, k, fill):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("B,R,N,tile", [(1, 512, 8192, 256), (3, 5, 300, 64),
-                                        (2, 64, 77, 256), (512, 4096, 4096,
-                                                          256)])
-def test_opic_update_kernel_matches_plain(cuda, B, R, N, tile):
-    """Duplicate targets, wrapping and out-of-range rows, a masked row."""
+@pytest.mark.parametrize("B,R,N,tile,skew", [
+    (1, 512, 8192, 256, None), (3, 5, 300, 64, None), (2, 64, 77, 256, None),
+    (512, 4096, 4096, 256, None),
+    (1, 512, 8192, 256, "half"),            # skewed spend
+    (1, 512, 8192, 256, "one"),             # every item on one target
+    (3, 64, 4000, 32, "one"),
+    (2, 100, 20000, 1024, None),            # N past one chunk of 8192
+    (1, 300, 17000, 256, "half"),
+    (1, 10000, 3000, 256, None),            # R past one range of 4096
+    (3, 9000, 5000, 128, None)])
+def test_opic_update_kernel_matches_plain(cuda, B, R, N, tile, skew):
+    """Duplicate targets, wrapping and out-of-range rows, a masked row;
+    skewed items ("half": every other item on one target; "one": every
+    item, through the wrap at -1), several chunks, several ranges."""
     rng = np.random.default_rng(B + R + N)
     cash = torch.tensor(rng.random((B, R)), dtype=torch.float32, device=cuda)
-    rows_ = torch.tensor(rng.integers(-R - 2, R + 2, (B, N)), device=cuda)
+    rows_ = rng.integers(-R - 2, R + 2, (B, N))
+    if skew == "half":
+        rows_[:, ::2] = R // 3
+    elif skew == "one":
+        rows_[:] = -1
+    rows_ = torch.tensor(rows_, device=cuda)
     contrib = torch.tensor(rng.random((B, N)) * 10.0 ** rng.integers(
         -6, 3, (B, N)), dtype=torch.float32, device=cuda)
     mask = torch.tensor(rng.random((B, N)) < 0.8, device=cuda)
@@ -177,6 +195,26 @@ def test_opic_update_kernel_matches_plain(cuda, B, R, N, tile):
     torch.cuda.synchronize()
     assert OOPS.KERNEL.launches == n0 + 1
     assert torch.equal(cash, c2) and not torch.equal(cash, cash0)
+
+
+@pytest.mark.parametrize("R,C,M", [(5, 16, 40), (512, 4096, 4096)])
+def test_opic_update_cells_on_the_strided_lane(cuda, R, C, M):
+    """scatter_cash_cells' row-aligned form on the url lane as the stages
+    hold it (a strided view of a wider array), a few live items a row."""
+    rng = np.random.default_rng(R + C)
+    wide = torch.zeros((R, 2 + C), device=cuda)
+    wide[:, 2:] = torch.tensor(rng.random((R, C)), dtype=torch.float32,
+                               device=cuda)
+    w2 = wide.clone()
+    cols = torch.tensor(rng.integers(-1, C + 1, (R, M)), device=cuda)
+    vals = torch.tensor(rng.random((R, M)), dtype=torch.float32, device=cuda)
+    fits = torch.tensor(rng.random((R, M)) < 0.05, device=cuda)
+    n0 = OOPS.KERNEL.launches
+    OOPS.scatter_cash_cells(wide[:, 2:], None, cols, vals, fits)
+    opic_ref(w2[:, 2:], cols, vals, fits & (cols >= 0) & (cols < C))
+    torch.cuda.synchronize()
+    assert OOPS.KERNEL.launches == n0 + 1
+    assert torch.equal(wide, w2)
 
 
 def dedup_case(R, M, C, b, dup, cuda, *, seed):
@@ -310,32 +348,93 @@ def test_session_on_card_matches_cpu(cuda):
                                       states["cpu"][name], err_msg=name)
 
 
+def tc_plain(q, k, v, causal, block=64):
+    """What flash_attention_tc computes, in plain f32: the online softmax
+    over 64-key tiles in order, scores scaled by 1/sqrt(hd) and log2(e) in
+    f32, p = exp2(s - m) with the running max m, l the sum of the f32 p,
+    acc += bf16(p) . v; returns acc / max(l, 1e-30) and l. Only p's
+    rounding to bf16 (and the exp2 form) sets it apart from flash_ref."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qf = q.to(f32)
+    kf = k.to(f32).repeat_interleave(Hq // Hkv, dim=1)
+    vf = v.to(f32).repeat_interleave(Hq // Hkv, dim=1)
+    scale2 = (torch.tensor(1 / math.sqrt(hd), dtype=f32)
+              * torch.tensor(1.4426950408889634, dtype=f32)).item()
+    m = torch.full((B, Hq, Sq, 1), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hq, Sq, hd), dtype=f32, device=q.device)
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    for k0 in range(0, Skv, block):
+        kt, vt = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
+        s = (qf @ kt.transpose(-1, -2)) * scale2
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            s = s.masked_fill(rows < cols, -1e30)
+        n = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp2(m - n)
+        p = torch.exp2(s - n)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + p.to(torch.bfloat16).to(f32) @ vt
+        m = n
+    return acc / l.clamp_min(1e-30), l
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (0 at 0)."""
+    a = x.abs()
+    _, e = torch.frexp(a)
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                       torch.zeros_like(a))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hd,group,S", [(8, 1, 32), (16, 3, 192),
                                         (32, 6, 256), (64, 1, 192),
                                         (96, 6, 32), (128, 6, 256),
-                                        (128, 3, 100)])
+                                        (128, 3, 100), (128, 1, 100),
+                                        (128, 6, 192), (64, 6, 100),
+                                        (96, 1, 192), (128, 6, 2048)])
 def test_flash_attention_kernel_matches_plain(cuda, hd, group, S, causal,
                                               dtype):
-    """Every head dim the kernel instantiates, GQA groups, ragged tiles;
-    q, k, v as the projections lay them out ((B, S, H, hd) transposed)."""
+    """Every head dim the kernels instantiate, GQA groups, ragged tiles;
+    q, k, v as the projections lay them out ((B, S, H, hd) transposed).
+    Each case launches the kernel its route names, once, and no other.
+    flash_attention_tc is also held to tc_plain, which rounds p to bf16 as
+    it does: within 2 bf16 ulps of |want| (the output's rounding) plus two
+    p's rounded to the other bf16 neighbour, each at most 2^-7 max|v| / l
+    (l the row's softmax sum in units of its largest term)."""
     rng = np.random.default_rng(hd + group + S)
     dt = getattr(torch, dtype)
     q, k, v = (torch.tensor(rng.standard_normal((2, S, H, hd)),
                             dtype=torch.float32).to(cuda, dt).transpose(1, 2)
                for H in (2 * group, 2, 2))
-    n0 = FOPS.KERNEL.launches
+    name = FOPS.route("cuda", dt, hd).name
+    assert name == ("flash_attention_tc" if dtype == "bfloat16" and
+                    hd in (64, 96, 128) else "flash_attention")
+    n0 = (FOPS.KERNEL.launches, FOPS.TC_KERNEL.launches)
     got = FOPS.attention(q, k, v, causal=causal)
     qg, kf, vf, g = FOPS._gqa_fold(q, k, v)
     want = flash_ref(qg, kf, vf, causal=causal, group=g).reshape(q.shape)
     torch.cuda.synchronize()
-    assert FOPS.KERNEL.launches == n0 + 1
+    tc = name == "flash_attention_tc"
+    assert (FOPS.KERNEL.launches, FOPS.TC_KERNEL.launches) == \
+        (n0[0] + (not tc), n0[1] + tc)
     assert got.dtype == dt and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
     tol = 2e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+    if tc:
+        want, l = tc_plain(q, k, v, causal)
+        vmax = v.float().abs().amax(dim=2, keepdim=True).repeat_interleave(
+            group, dim=1)
+        err = (got.float() - want).abs()
+        assert bool((err <= 2 * bf16_ulp(want)
+                     + 2 * 2.0 ** -7 * vmax / l).all()), float(err.max())
 
 
 def test_lm_on_card_matches_cpu(cuda):

@@ -133,3 +133,36 @@ def test_wrapper_rejects_what_it_does_not_take(bad):
         kw = {"block_k": 0}
     with pytest.raises((ValueError, TypeError)):
         FA.attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("device,dtype,hd,want", [
+    ("cpu", "float32", 128, "plain"),
+    ("cpu", "bfloat16", 128, "plain"),
+    ("cuda", "bfloat16", 128, "flash_attention_tc"),
+    ("cuda", "bfloat16", 96, "flash_attention_tc"),
+    ("cuda", "bfloat16", 64, "flash_attention_tc"),
+    ("cuda", "bfloat16", 32, "flash_attention"),
+    ("cuda", "bfloat16", 16, "flash_attention"),
+    ("cuda", "bfloat16", 8, "flash_attention"),
+    ("cuda", "float32", 128, "flash_attention"),
+    ("cuda", "float32", 64, "flash_attention"),
+    ("cuda", "float32", 8, "flash_attention"),
+])
+def test_route_names_the_kernel(device, dtype, hd, want):
+    """The route table: bf16 at the tensor-core head dims goes to
+    flash_attention_tc, the rest of the card's cases to the CUDA-core
+    kernel, the CPU to the plain version (no kernel: None); each kernel
+    counts its own launches."""
+    got = FA.route(device, getattr(torch, dtype), hd)
+    if want == "plain":
+        assert got is None
+    else:
+        assert got in (FA.KERNEL, FA.TC_KERNEL) and got.name == want
+
+
+@pytest.mark.parametrize("device,dtype,hd", [("cuda", "float32", 48),
+                                             ("cuda", "bfloat16", 40),
+                                             ("meta", "float32", 64)])
+def test_route_refuses_what_no_kernel_takes(device, dtype, hd):
+    with pytest.raises(ValueError):
+        FA.route(device, getattr(torch, dtype), hd)

@@ -121,6 +121,45 @@ def test_scatter_cash_matches_jax(B, R, N, tile, impl):
 
 
 @pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("B,R,N,tile,jtile", [(1, 8, 500, 256, 64),
+                                              (3, 5, 300, 16, 128),
+                                              (2, 64, 77, 1024, 32)])
+def test_scatter_cash_ignores_the_tile(B, R, N, tile, jtile, impl):
+    """The port with one tile equals JAX with another: each target's items
+    add in item order whatever the tile, which the kernel relies on (it
+    sorts the items by target and ignores the tile)."""
+    cash, rows, contrib, mask = cash_inputs(B, R, N, seed=B + R + N)
+    want = np.asarray(jax_sc(jnp.asarray(cash), jnp.asarray(rows),
+                             jnp.asarray(contrib), jnp.asarray(mask),
+                             impl=impl, tile=jtile))
+    c = T(cash)
+    scatter_cash(c, T(rows).to(torch.int64), T(contrib), T(mask), tile=tile)
+    np.testing.assert_array_equal(want, c.numpy())
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("skew", ["half", "one"])
+def test_scatter_cash_skewed_matches_jax(skew, impl):
+    """One target takes more than half the items ("half": 3 of every 5,
+    some through the wrap at -R), or every item ("one"): the longest
+    per-target chains, in item order."""
+    B, R, N, tile = 2, 16, 400, 64
+    cash, rows, contrib, mask = cash_inputs(B, R, N, seed=N + len(skew))
+    if skew == "half":
+        rows[:, np.arange(N) % 5 < 3] = 7
+        rows[:, ::10] = 7 - R
+    else:
+        rows[:] = R - 1
+    want = np.asarray(jax_sc(jnp.asarray(cash), jnp.asarray(rows),
+                             jnp.asarray(contrib), jnp.asarray(mask),
+                             impl=impl, tile=tile))
+    c = T(cash)
+    scatter_cash(c, T(rows).to(torch.int64), T(contrib), T(mask), tile=tile)
+    np.testing.assert_array_equal(want, c.numpy())
+    assert not np.array_equal(c.numpy(), cash)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
 def test_scatter_cash_cells_matches_jax(impl):
     rng = np.random.default_rng(1)
     R, C = 5, 16
