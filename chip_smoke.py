@@ -15,7 +15,11 @@ non-zero):
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
                shapes with ties, duplicates, ragged tiles and masked rows
-               (the packed kernels also on rows of one to four words and
+               (the pop kernels also on C not a multiple of 4, unaligned
+               views, k = C, rows past register and shared-memory
+               residency, sparse and all-equal rows, the CLI's and the
+               reduced widths, reaching both their vector and scalar
+               path; the packed kernels also on rows of one to four words and
                on words with bit 31 set; opic_update also on skewed
                items, one target for all, N past one chunk, R past one
                range, each case with its longest per-target chain).
@@ -30,7 +34,8 @@ non-zero):
                before each run and read just after it.
      profile — per crawl path (opic_url, backlink): the device's busy time
                over two more intervals (torch.profiler), its idle share,
-               and the host syncs per step.
+               the device time of each launch of the port's crawl
+               kernels by name, and the host syncs per step.
      each path's session also yields its kernels' timing inputs: the
                frontier and Bloom batches (backlink), the spend scatter
                (opic), the harvest, the dispatch batch and the cell scatter
@@ -73,7 +78,9 @@ non-zero):
                logits within 1e-4 over a prefill and 16 teacher-forced
                decode steps, its prefill launching flash_attention once a
                layer (its f32 path).
-  6. kernels — each kernel's time (CUDA events) beside its plain version's
+  6. kernels — each kernel's time (CUDA events; for the crawl kernels also
+               in a CUDA graph, warm and cold, by the profiler, and per
+               launch inside the profiled crawl) beside its plain version's
                (the packed ones on their words, with the boundary call's
                time beside its bound), a library call's where one
                computes the same function, and
@@ -139,9 +146,10 @@ def cuda_ms(fn, n: int) -> float:
 # inputs, made with numpy from a seed
 # ---------------------------------------------------------------------------
 
-def frontier_rows(rng, R, C, *, fill=0.6, ties=False):
+def frontier_rows(rng, R, C, *, fill=0.6, ties=False, equal=False):
     """Frontier-like rows: invalid cells hold NEG; valid priorities are
-    distinct f32 integers, or drawn from 4 values when ``ties``."""
+    distinct f32 integers, or drawn from 4 values when ``ties``; with
+    ``equal`` the last row holds one key in every cell."""
     from repro_torch.kernels.frontier_select.ref import NEG
     url = rng.integers(1, 1 << 30, (R, C)).astype(np.int64)
     valid = rng.random((R, C)) < fill
@@ -151,7 +159,24 @@ def frontier_rows(rng, R, C, *, fill=0.6, ties=False):
     pri = (rng.integers(0, 4, (R, C)) if ties else
            rng.permutation(R * C).reshape(R, C)).astype(np.float32)
     pri = np.where(valid, pri, np.float32(NEG)).astype(np.float32)
+    if equal:
+        pri[-1], valid[-1] = 7.0, True
     return url, pri, valid
+
+
+def pop_tensors(url, pri, valid, unaligned=False):
+    """The pop's (url, pri, valid) on the card; ``unaligned``: pri and
+    valid as contiguous views one element into larger buffers, which the
+    kernel reads by its scalar path."""
+    import torch
+    u = torch.tensor(url, device=DEV)
+    p, v = torch.tensor(pri, device=DEV), torch.tensor(valid, device=DEV)
+    if unaligned:
+        R, C = pri.shape
+        p = torch.empty(R * C + 1, device=DEV)[1:].view(R, C).copy_(p)
+        v = torch.empty(R * C + 1, dtype=torch.bool,
+                        device=DEV)[1:].view(R, C).copy_(v)
+    return u, p, v
 
 
 def bloom_batch(rng, R, M, *, dup=0.3, fill=0.8):
@@ -181,7 +206,8 @@ def phase_build():
     t0 = time.time()
     secs = build_all(all_kernels())
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]
              for k in all_kernels()}
     sass = subprocess.run(
         [str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
@@ -195,15 +221,13 @@ def phase_build():
           "flash_attention_tc_hgmma_sass_lines": hgmma, "card": nvidia_smi()})
 
 
-def _select_pair(url, pri, valid, k):
+def _select_pair(url, pri, valid, k, unaligned=False):
     """Kernel and plain version of frontier_select on the same inputs;
     returns the largest absolute difference over every output."""
     import torch
     from repro_torch.kernels.frontier_select.ops import select
     from repro_torch.kernels.frontier_select.ref import select_ref
-    dev = DEV
-    u = torch.tensor(url, device=dev)
-    p1, v1 = torch.tensor(pri, device=dev), torch.tensor(valid, device=dev)
+    u, p1, v1 = pop_tensors(url, pri, valid, unaligned)
     p2, v2 = p1.clone(), v1.clone()
     got = select(u, p1, v1, k=k, return_idx=True)
     want = select_ref(u, p2, v2, k=k, return_idx=True)
@@ -247,7 +271,7 @@ def _bloom_pair(bits, urls, mask, k, *, packed=False):
                float((b1.long() - b2.long()).abs().max())), int(s1.sum())
 
 
-def _harvest_pair(url, pri, valid, k):
+def _harvest_pair(url, pri, valid, k, unaligned=False):
     """select_harvest and its plain version on the url lane as the stages
     hold it (a strided view of a wider array, 0 cash on invalid cells)."""
     import torch
@@ -258,8 +282,7 @@ def _harvest_pair(url, pri, valid, k):
     lane = np.random.default_rng(R + C).random((R, C)) * valid
     w1 = torch.zeros((R, 2 + C), device=dev)
     w1[:, 2:] = torch.tensor(lane, dtype=torch.float32, device=dev)
-    u = torch.tensor(url, device=dev)
-    p1, v1 = torch.tensor(pri, device=dev), torch.tensor(valid, device=dev)
+    u, p1, v1 = pop_tensors(url, pri, valid, unaligned)
     p2, v2, w2 = p1.clone(), v1.clone(), w1.clone()
     got = select_harvest(u, p1, v1, w1[:, 2:], k=k)
     want = select_harvest_ref(u, p2, v2, w2[:, 2:], k=k)
@@ -410,22 +433,40 @@ def set_bit31(bits):
 def phase_parity():
     rng = np.random.default_rng(SEED)
     out = {"phase": "parity", "tolerance": "exact (max_abs_err 0)"}
-    # frontier_select: the main path's (512, 4096, k=1), then small shapes
-    small = [(4, 64, 1, True), (4, 64, 4, True), (2, 128, 8, True),
-             (3, 37, 4, False), (2, 128, 8, False), (1, 32, 1, True)]
-    err = _select_pair(*frontier_rows(rng, 512, 4096), 1)
-    cases = [(512, 4096, 1, False)]
-    for R, C, k, ties in small:
-        err = max(err, _select_pair(*frontier_rows(rng, R, C, ties=ties), k))
-        cases.append((R, C, k, ties))
-    out["frontier_select"] = {"max_abs_err": err, "cases": cases}
-    # select_harvest: the same shapes
-    err = _harvest_pair(*frontier_rows(rng, 512, 4096), 1)
-    cases = [(512, 4096, 1, False)]
-    for R, C, k, ties in small:
-        err = max(err, _harvest_pair(*frontier_rows(rng, R, C, ties=ties), k))
-        cases.append((R, C, k, ties))
-    out["select_harvest"] = {"max_abs_err": err, "cases": cases}
+    # frontier_select and select_harvest: the main path's (512, 4096, k=1),
+    # then small shapes with ties; C not a multiple of 4 (the scalar path),
+    # k = C, unaligned views (the scalar path at C % 4 == 0), rows past
+    # register residency (C > 8192: keys in shared memory; 70000: a read of
+    # the row a round), fewer valid cells than k ("sparse"), an all-equal
+    # row, the CLI's and the reduced config's widths (several rows a block)
+    from repro_torch.kernels.frontier_select.ops import vector_path
+    pops = [(512, 4096, 1, False, None), (4, 64, 1, True, None),
+            (4, 64, 4, True, None), (2, 128, 8, True, None),
+            (3, 37, 4, False, None), (2, 128, 8, False, None),
+            (1, 32, 1, True, None), (3, 1001, 5, False, None),
+            (2, 37, 37, False, None), (4, 4096, 3, False, "unaligned"),
+            (2, 16384, 4, False, None), (2, 20000, 3, True, None),
+            (2, 70000, 3, False, None), (4, 128, 8, False, "sparse"),
+            (3, 256, 6, True, "equal"), (64, 512, 1, False, None),
+            (16, 64, 1, False, None), (64, 512, 3, True, None),
+            (16, 64, 5, False, None)]
+    for name, pair in (("frontier_select", _select_pair),
+                       ("select_harvest", _harvest_pair)):
+        err, cases = 0.0, []
+        for R, C, k, ties, layout in pops:
+            rows_ = frontier_rows(rng, R, C, ties=ties, equal=layout ==
+                                  "equal",
+                                  fill=0.03 if layout == "sparse" else 0.6)
+            unaligned = layout == "unaligned"
+            err = max(err, pair(*rows_, k, unaligned))
+            vec = vector_path(*pop_tensors(*rows_, unaligned)[1:])
+            cases.append((R, C, k, ties, layout, vec))
+        if {c[-1] for c in cases} != {True, False}:
+            raise AssertionError(f"{name}: the parity cases do not reach "
+                                 f"both the vector and the scalar path")
+        out[name] = {"max_abs_err": err, "cases": cases,
+                     "case_fields": ["R", "C", "k", "ties", "layout",
+                                     "vector_path"]}
     # bloom: the main path's (R, 4096) at b=24, k=4 on a 16-row slice of
     # the filter (pre-filled so seen is often true), then small shapes
     R, M, b, k = 16, 4096, 24, 4
@@ -760,12 +801,16 @@ def profile_device(fn, calls):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    per_name, n, runtime = {}, 0, Counter()
+    per_name, n, runtime, port = {}, 0, Counter(), {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            per_name[e.name] = (per_name.get(e.name, 0.0)
-                                + e.time_range.elapsed_us())
+            us = e.time_range.elapsed_us()
+            per_name[e.name] = per_name.get(e.name, 0.0) + us
             n += 1
+            if any(f in e.name for f in PORT_KERNEL_FNS):
+                c = port.setdefault(e.name[:120], [0, 0.0])
+                c[0] += 1
+                c[1] += us
         elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                         "cudaMemcpyAsync", "cudaLaunchKernel"):
             runtime[e.name] += 1
@@ -778,7 +823,27 @@ def profile_device(fn, calls):
             "top_device_ms_per_call": {k[:80]: v / 1e3 / calls
                                        for k, v in top},
             "runtime_calls_per_call": {k: v / calls
-                                       for k, v in runtime.items()}}
+                                       for k, v in runtime.items()},
+            "port_kernels": {k: {"launches": c, "ms_per_launch": us / 1e3 / c}
+                             for k, (c, us) in port.items()}}
+
+
+# the device functions of the port's crawl kernels, as the profiler names
+# them (each launch wrapper's kernel name, without its template arguments)
+PORT_KERNEL_FNS = {"frontier_select": "frontier_select_kernel",
+                   "select_harvest": "select_harvest_kernel",
+                   "bloom": "bloom_kernel", "dedup_deposit":
+                   "dedup_deposit_kernel", "opic_update": "opic_update_kernel"}
+
+
+def in_crawl_ms(prof, name):
+    """Mean device ms of one launch of kernel ``name`` inside a profiled
+    crawl (``profile_device``'s ``port_kernels``); None if it never ran."""
+    hits = [v for k, v in prof["port_kernels"].items()
+            if PORT_KERNEL_FNS[name] in k]
+    n = sum(v["launches"] for v in hits)
+    return (sum(v["ms_per_launch"] * v["launches"] for v in hits) / n
+            if n else None)
 
 
 def check_prefill_launches(counts, n_layers, label):
@@ -1109,6 +1174,7 @@ def phase_profile(sess, steps):
     emit({"phase": "profile", "ordering": sess.cfg.ordering, "steps": steps,
           **prof, "sync_debug_syncs_per_step": n_sync / steps,
           "sync_debug_lines": sync_lines})
+    return prof
 
 
 TRAJECTORIES = (("backlink", True), ("opic", True), ("opic_url", True),
@@ -1233,8 +1299,24 @@ def row(name, source, replaces, counts, steps, errs, ms, plain, nbytes, lib,
             "library_ms": lib, **extra}
 
 
-def kernels_backlink(sess, counts, errs, steps):
-    """frontier_select and bloom on the backlink path's own inputs."""
+def pop_bytes(valid, k, harvest=False):
+    """What a pop of k cells a row must move: every cell's valid flag and
+    each valid cell's priority read; per row k popped url/pri/mask written
+    (and the cash, for the harvest); per popped cell its url read, pri and
+    valid written (and its cash read and zeroed). Returns (those bytes, the
+    same with every priority read)."""
+    import torch
+    R, C = valid.shape
+    popped = int(torch.clamp(valid.sum(dim=1), max=k).sum())
+    out = R * k * (8 + 4 + 1) + popped * (8 + 4 + 1)
+    if harvest:
+        out += 4 * R * k + 8 * popped
+    return R * C + 4 * int(valid.sum()) + out, 5 * R * C + out
+
+
+def kernels_backlink(sess, counts, errs, steps, prof):
+    """frontier_select and bloom on the backlink path's own inputs; their
+    per-launch device time inside the crawl from its profile ``prof``."""
     import torch
     from repro_torch.kernels.bloom.ops import probe_insert
     from repro_torch.kernels.bloom.ref import bloom_ref
@@ -1248,21 +1330,24 @@ def kernels_backlink(sess, counts, errs, steps):
     R, C = st.f_url.shape
     k = 1
     url = st.f_url
-    p_k, v_k = st.f_pri.clone(), st.f_valid.clone()
-    p_r, v_r = st.f_pri.clone(), st.f_valid.clone()
-    p_l, v_l = st.f_pri.clone(), st.f_valid.clone()
-    # bytes: every cell's priority and valid flag read; per row k popped
-    # url/pri/mask written; per popped cell its url read, pri/valid written
-    popped = int(torch.clamp(v_k.sum(dim=1), max=k).sum())
-    nbytes = R * C * (4 + 1) + R * k * (8 + 4 + 1) + popped * (8 + 4 + 1)
-    ms = cuda_ms(lambda: select(url, p_k, v_k, k=k), n)
+    pri, valid = st.f_pri.clone(), st.f_valid.clone()
+    nbytes, dense = pop_bytes(st.f_valid, k)
+    n_valid = int(st.f_valid.sum())
+    dense = 1e3 * dense / HBM_BYTES_PER_S
+    t = pop_times(lambda p, v: lambda: select(url, p, v, k=k),
+                  (pri, valid))
+    p_r, v_r = pri.clone(), valid.clone()
     plain = cuda_ms(lambda: select_ref(url, p_r, v_r, k=k), n)
-    lib = cuda_ms(lambda: torch.topk(torch.where(v_l, p_l, NEG), k, dim=1), n)
+    lib = pop_times(lambda p, v: lambda: torch.topk(
+        torch.where(v, p, NEG), k, dim=1), (pri, valid))
     out.append(row("frontier_select", "src/repro_torch/csrc/frontier_select.cu",
                    "src/repro/kernels/frontier_select/frontier_select.py:85",
-                   counts, steps, errs, ms, plain, nbytes, lib,
-                   path="backlink"))
-    del p_k, v_k, p_r, v_r, p_l, v_l
+                   counts, steps, errs, t["events_ms"], plain, nbytes,
+                   lib["events_ms"], path="backlink", **t,
+                   valid_cells=n_valid, dense_bound_ms=dense,
+                   in_crawl_device_ms=in_crawl_ms(prof, "frontier_select"),
+                   **{f"library_{key}": v for key, v in lib.items()}))
+    del pri, valid, p_r, v_r
     # bloom on the session's 8 GiB filter, with batches laid out as the
     # next dispatches lay them out (their masks), holding fresh URLs
     kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
@@ -1280,11 +1365,18 @@ def kernels_backlink(sess, counts, errs, steps):
     nbytes = (nbytes + n_new) / len(kern_b)
     it = iter(plain_b)
     plain = cuda_ms(lambda: bloom_ref(st.bloom_bits, *next(it), k=kh), n)
+    run = lambda u, m: probe_insert(st.bloom_bits, u, m, k=kh)  # noqa: E731
+    graph = {"graph_ms": fresh_graph_ms(run, kern_b[:n], cfg.url_space_log2,
+                                        cold=False),
+             "graph_cold_ms": fresh_graph_ms(
+                 run, [(u, m.clone()) for u, m in plain_b[:n]],
+                 cfg.url_space_log2, cold=True)}
     out.append(row("bloom", "src/repro_torch/csrc/bloom.cu",
                    "src/repro/kernels/bloom/bloom.py:61", counts, steps, errs,
                    ms, plain, nbytes, None, path="backlink", shape=[R, M],
                    live_urls=n_live / len(kern_b),
-                   new_bytes=n_new / len(kern_b)))
+                   new_bytes=n_new / len(kern_b), events_ms=ms, **graph,
+                   in_crawl_device_ms=in_crawl_ms(prof, "bloom")))
     return out
 
 
@@ -1327,6 +1419,100 @@ def device_ms(fn, n):
     fn()
     return profile_device(lambda: [fn() for _ in range(n)],
                           n)["device_busy_ms_per_call"]
+
+
+POP_CALLS = 48              # calls a pop's timing graph holds
+WARM_COPIES = 8             # copies of the inputs its warm graph cycles over
+FLUSH_BYTES = 128 << 20     # written to push the 50 MB L2 out
+
+
+def replay_ms(calls, before, reps=5):
+    """Milliseconds a call takes in one CUDA graph that makes each of
+    ``calls`` once, in order: the median over ``reps`` replays, after one
+    that warms up, each preceded by ``before()`` outside the timed span."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for call in calls:
+            call()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    times = []
+    for r in range(reps + 1):
+        before()
+        start.record()
+        g.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        if r:
+            times.append(start.elapsed_time(stop) / len(calls))
+    return float(np.median(times))
+
+
+def pop_times(call_on, inputs, n=POP_CALLS):
+    """A pop kernel's (or its yardstick's) times on copies of ``inputs``,
+    the tensors it updates in place; ``call_on(*copy)`` makes the call.
+    Every copy is restored from ``inputs`` before each timed run, so each
+    call pops from the captured frontier, as the crawl's pop does:
+    ``events_ms``, n calls on one copy by back-to-back CUDA events;
+    ``graph_ms``, n calls cycling over WARM_COPIES copies in one CUDA graph
+    (a copy's second to last calls find it in L2); ``graph_cold_ms``, one
+    call on each of n copies in one graph, the L2 flushed after the
+    restore (each call finds its rows in device memory: n x 2-10 MB);
+    ``device_ms``, the kernels' device time over n calls, one a copy."""
+    import itertools
+    import torch
+    copies = [[x.clone() for x in inputs] for _ in range(n)]
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+
+    def restore(cold=False):
+        for c in copies:
+            for a, b in zip(c, inputs):
+                a.copy_(b)
+        if cold:
+            flush.fill_(0)
+    calls = [call_on(*c) for c in copies]
+    restore()
+    out = {"events_ms": cuda_ms(calls[0], n)}
+    out["graph_ms"] = replay_ms(
+        [calls[i % WARM_COPIES] for i in range(n)], restore)
+    out["graph_cold_ms"] = replay_ms(calls, lambda: restore(cold=True))
+    restore()
+    it = itertools.cycle(calls)
+    out["device_ms"] = device_ms(lambda: next(it)(), n - 1)
+    return out
+
+
+def fresh_graph_ms(run, batches, url_space_log2, *, cold):
+    """Milliseconds a call of ``run(*batch)`` takes in one CUDA graph that
+    makes one call on each of ``batches`` (static inputs). Before each
+    replay, outside the timed span, every batch's live URLs are XORed with
+    a fresh draw, so each call probes and inserts URLs the filter has not
+    seen, as the crawl's dispatches do (a replayed batch would be all seen:
+    no inserts, and for dedup_deposit a twin scan per URL). Warm: that
+    rewrite leaves the live URLs in L2, as the router's packing leaves a
+    dispatch batch. ``cold``: a buffer of FLUSH_BYTES is written next, so
+    the batches (give each its own mask) come from device memory. The
+    filter's probed bytes lie at random in 8 GiB either way."""
+    import torch
+    rng = np.random.default_rng(SEED + 7)
+    flat = [(b[0].view(-1), torch.nonzero(b[1].view(-1))[:, 0])
+            for b in batches]
+    flush = (torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+             if cold else None)
+
+    def refresh():
+        c = int(rng.integers(1, 1 << url_space_log2))
+        for u, live in flat:
+            u[live] = u[live] ^ c
+        if cold:
+            flush.fill_(0)
+    return replay_ms([lambda b=b: run(*b) for b in batches], refresh)
 
 
 def time_scatter(args, n):
@@ -1372,7 +1558,7 @@ def kernels_opic(sess):
             **{f"spend_{k}": v for k, v in dev.items()}}
 
 
-def kernels_opic_url(sess, counts, errs, steps):
+def kernels_opic_url(sess, counts, errs, steps, prof):
     """select_harvest, dedup_deposit and opic_update on the opic_url path's
     own inputs: its frontier and url lane, a dispatch batch laid out as the
     path lays it out, and its largest cell scatter (the dispatch's
@@ -1394,26 +1580,26 @@ def kernels_opic_url(sess, counts, errs, steps):
     k = 1
     url = st.f_url
     lane = url_cash_table(st)
-    tabs = [lane.clone() for _ in range(3)]
-    pv = [(st.f_pri.clone(), st.f_valid.clone()) for _ in range(3)]
-    # bytes: frontier_select's, plus each popped cell's cash read and
-    # zeroed (4 + 4 B) and the (R, k) cash written
-    popped = int(torch.clamp(st.f_valid.sum(dim=1), max=k).sum())
-    nbytes = R * C * (4 + 1) + R * k * (8 + 4 + 1 + 4) \
-        + popped * (8 + 4 + 1 + 4 + 4)
-    ms = cuda_ms(lambda: select_harvest(url, *pv[0], tabs[0], k=k), n)
-    plain = cuda_ms(lambda: select_harvest_ref(url, *pv[1], tabs[1], k=k), n)
-    p_l, v_l = pv[2]
+    pvt = (st.f_pri.clone(), st.f_valid.clone(), lane.clone())
+    nbytes, dense = pop_bytes(st.f_valid, k, harvest=True)
+    n_valid = int(st.f_valid.sum())
+    dense = 1e3 * dense / HBM_BYTES_PER_S
+    t = pop_times(lambda *x: lambda: select_harvest(url, *x, k=k), pvt)
+    plain_in = [x.clone() for x in pvt]
+    plain = cuda_ms(lambda: select_harvest_ref(url, *plain_in, k=k), n)
 
-    def topk_gather():
-        idx = torch.topk(torch.where(v_l, p_l, NEG), k, dim=1).indices
-        return torch.gather(tabs[2], 1, idx)
-    lib = cuda_ms(topk_gather, n)
+    def topk_gather(p, v, tab):
+        idx = torch.topk(torch.where(v, p, NEG), k, dim=1).indices
+        return torch.gather(tab, 1, idx)
+    lib = pop_times(lambda *x: lambda: topk_gather(*x), pvt)
     out.append(row("select_harvest", "src/repro_torch/csrc/frontier_select.cu",
                    "src/repro/kernels/frontier_select/frontier_select.py:116",
-                   counts, steps, errs, ms, plain, nbytes, lib,
-                   path="opic_url"))
-    del tabs, pv
+                   counts, steps, errs, t["events_ms"], plain, nbytes,
+                   lib["events_ms"], path="opic_url", **t,
+                   valid_cells=n_valid, dense_bound_ms=dense,
+                   in_crawl_device_ms=in_crawl_ms(prof, "select_harvest"),
+                   **{f"library_{key}": v for key, v in lib.items()}))
+    del pvt, plain_in
     # opic_update: the dispatch's place_valued cell scatter, captured (the
     # allocate give-backs scatter one item a row)
     (args, kw), = capture_calls([F], "scatter_cash_cells", sess.step, 1,
@@ -1458,12 +1644,21 @@ def kernels_opic_url(sess, counts, errs, steps):
     it = iter(plain_b)
     plain_d = cuda_ms(lambda: dedup_deposit_ref(
         st.bloom_bits, *next(it), st.f_url, st.f_valid, lane, k=kh), n)
+    run = lambda u, m, v: dedup_deposit(  # noqa: E731
+        st.bloom_bits, u, m, v, st.f_url, st.f_valid, lane, k=kh)
+    graph = {"graph_ms": fresh_graph_ms(run, kern_b[:n], cfg.url_space_log2,
+                                        cold=False),
+             "graph_cold_ms": fresh_graph_ms(
+                 run, [(u, m.clone(), v) for u, m, v in plain_b[:n]],
+                 cfg.url_space_log2, cold=True)}
     out.append(row("dedup_deposit", "src/repro_torch/csrc/dedup_deposit.cu",
                    "src/repro/kernels/dedup_deposit/dedup_deposit.py:105",
                    counts, steps, errs, ms_d, plain_d, nbytes, None,
                    path="opic_url", shape=[Rb, M, C],
                    live_urls=n_live / len(kern_b),
-                   new_bytes=n_new / len(kern_b), seen=n_seen))
+                   new_bytes=n_new / len(kern_b), seen=n_seen, events_ms=ms_d,
+                   **graph, in_crawl_device_ms=in_crawl_ms(prof,
+                                                           "dedup_deposit")))
     out.append(row("opic_update", "src/repro_torch/csrc/opic_update.cu",
                    "src/repro/kernels/opic_update/opic_update.py:41",
                    counts, steps, errs, ms_c, plain_c, nb_c, lib_c,
@@ -1694,8 +1889,8 @@ def main() -> int:
     rows_ = {}
     sess, counts = phase_main("opic_url")
     steps = PATHS["opic_url"][0]
-    phase_profile(sess, 2 * sess.cfg.dispatch_interval)
-    rows_["opic_url"] = kernels_opic_url(sess, counts, errs, steps)
+    prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
+    rows_["opic_url"] = kernels_opic_url(sess, counts, errs, steps, prof)
     rows_["packed"] = phase_packed(sess, errs)
     del sess
     free_card()
@@ -1704,9 +1899,9 @@ def main() -> int:
     del sess
     free_card()
     sess, counts_bl = phase_main("backlink")
-    phase_profile(sess, 2 * sess.cfg.dispatch_interval)
+    prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
     rows_["backlink"] = kernels_backlink(sess, counts_bl, errs,
-                                         PATHS["backlink"][0])
+                                         PATHS["backlink"][0], prof)
     del sess
     free_card()
     phase_trajectory()

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -127,3 +127,26 @@ def build_all(kernels: Iterable[Kernel]) -> Dict[str, float]:
     for k in kernels:
         k.build_log = by_library[k.library].build_log
     return {k.name: secs[k.library] for k in kernels}
+
+
+def build_sources(texts: Dict[str, str],
+                  out: Path) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Build each source of ``texts`` ({name: CUDA C++ text}, such as a
+    kernel's design variants) into ``out`` with the kernels' flags, one
+    ``nvcc`` per source, all started together; returns {name: (the loaded
+    library, nvcc's output)}. Raises if one does not build."""
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
+        cu.write_text(text)
+        procs[name] = (so, subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = (ctypes.CDLL(str(so)), log)
+    return libs

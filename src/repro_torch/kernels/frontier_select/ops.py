@@ -5,6 +5,10 @@ Dispatch is by device: a CUDA tensor launches the hand-written kernel
 (``csrc/frontier_select.cu``, which exports both entry points) or raises;
 a CPU tensor takes the plain version (``ref.select_ref``,
 ``ref.select_harvest_ref``). There is no fallback between the two.
+
+The kernel has a vector path (float4 priorities and 32-bit words of four
+flags) and a scalar path (a cell per load); ``vector_path`` picks it from
+the width and the tensors' addresses.
 """
 from __future__ import annotations
 
@@ -15,12 +19,20 @@ from repro_torch.kernels.frontier_select.ref import (select_harvest_ref,
                                                      select_ref)
 
 # frontier_select_launch(url, pri, valid, sel_url, sel_pri, sel_mask,
-#                        sel_idx, R, C, k, stream)
-KERNEL = Kernel("frontier_select", n_ptr=7, n_int=3)
+#                        sel_idx, R, C, k, vec, stream)
+KERNEL = Kernel("frontier_select", n_ptr=7, n_int=4)
 # select_harvest_launch(url, pri, valid, table, sel_url, sel_pri, sel_mask,
-#                       sel_idx, cash, R, C, k, ld_table, stream)
-HARVEST = Kernel("select_harvest", n_ptr=9, n_int=4,
+#                       sel_idx, cash, R, C, k, ld_table, vec, stream)
+HARVEST = Kernel("select_harvest", n_ptr=9, n_int=5,
                  source="frontier_select")
+
+
+def vector_path(pri: torch.Tensor, valid: torch.Tensor) -> bool:
+    """Whether the kernel reads these (contiguous) rows by float4s and
+    32-bit flag words: C a multiple of 4, ``pri`` 16-byte and ``valid``
+    4-byte aligned, so that every row starts aligned as well."""
+    return (pri.shape[1] % 4 == 0 and pri.data_ptr() % 16 == 0
+            and valid.data_ptr() % 4 == 0)
 
 
 def _check(url, pri, valid, k):
@@ -59,7 +71,7 @@ def select(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor, *,
     sel_idx = torch.empty((R, k), dtype=torch.int64, device=url.device)
     KERNEL.launch(url.data_ptr(), pri.data_ptr(), valid.data_ptr(),
                   sel_url.data_ptr(), sel_pri.data_ptr(), sel_mask.data_ptr(),
-                  sel_idx.data_ptr(), R, C, k)
+                  sel_idx.data_ptr(), R, C, k, int(vector_path(pri, valid)))
     if return_idx:
         return sel_url, sel_pri, sel_mask, sel_idx
     return sel_url, sel_pri, sel_mask
@@ -97,5 +109,5 @@ def select_harvest(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor,
     HARVEST.launch(url.data_ptr(), pri.data_ptr(), valid.data_ptr(),
                    table.data_ptr(), sel_url.data_ptr(), sel_pri.data_ptr(),
                    sel_mask.data_ptr(), sel_idx.data_ptr(), cash.data_ptr(),
-                   R, C, k, table.stride(0))
+                   R, C, k, table.stride(0), int(vector_path(pri, valid)))
     return sel_url, sel_pri, sel_mask, sel_idx, cash

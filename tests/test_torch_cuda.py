@@ -56,13 +56,47 @@ def rows(R, C, *, seed, fill=0.6, ties=False):
     return url, np.where(valid, pri, np.float32(NEG)), valid
 
 
+# The pop kernel's cases beyond the first five: C not a multiple of 4 (the
+# scalar path), k = C (whole rows popped), unaligned views (the scalar path
+# at C % 4 == 0), rows past register residency (C > 8192: keys in shared
+# memory; 70000: past shared memory, a read of the row a round), fewer
+# valid cells than k, an all-equal row, and the CLI's and the reduced
+# config's widths (512, 64: several rows a block).
+POP_SHAPES = [(3, 1001, 5), (2, 37, 37), (4, 4096, 3), (2, 16384, 4),
+              (2, 20000, 3), (2, 70000, 3), (4, 128, 8), (3, 256, 6),
+              (64, 512, 1), (16, 64, 1), (64, 512, 3), (16, 64, 5)]
+# (R, C, k) -> the rows' layout where it is not rows()' own: "unaligned"
+# (pri and valid are contiguous views one element into larger buffers),
+# "sparse" (3% of the cells valid), "equal" (the last row holds one key in
+# every cell)
+POP_LAYOUT = {(4, 4096, 3): "unaligned", (4, 128, 8): "sparse",
+              (3, 256, 6): "equal"}
+
+
+def pop_rows(device, R, C, k, *, fill=0.6, ties=False):
+    """(url, pri, valid) on ``device`` laid out as POP_LAYOUT says, and
+    whether the kernel takes its vector path on them."""
+    layout = POP_LAYOUT.get((R, C, k))
+    url, pri, valid = rows(R, C, seed=R + C + k, ties=ties,
+                           fill=0.03 if layout == "sparse" else fill)
+    if layout == "equal":
+        pri[-1], valid[-1] = 7.0, True
+    u = torch.tensor(url, device=device)
+    p, v = torch.tensor(pri, device=device), torch.tensor(valid, device=device)
+    if layout == "unaligned":
+        bp = torch.empty(R * C + 1, dtype=p.dtype, device=device)
+        bv = torch.empty(R * C + 1, dtype=v.dtype, device=device)
+        p = bp[1:].view(R, C).copy_(p)
+        v = bv[1:].view(R, C).copy_(v)
+    return u, p, v, C % 4 == 0 and layout != "unaligned"
+
+
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("R,C,k", [(1, 32, 1), (4, 64, 4), (2, 128, 8),
-                                   (3, 37, 5), (512, 4096, 1)])
+                                   (3, 37, 5), (512, 4096, 1)] + POP_SHAPES)
 def test_select_kernel_matches_plain(cuda, R, C, k, ties):
-    url, pri, valid = rows(R, C, seed=R + C + k, ties=ties)
-    u = torch.tensor(url, device=cuda)
-    p1, v1 = torch.tensor(pri, device=cuda), torch.tensor(valid, device=cuda)
+    u, p1, v1, vec = pop_rows(cuda, R, C, k, ties=ties)
+    assert SOPS.vector_path(p1, v1) == vec
     p2, v2 = p1.clone(), v1.clone()
     n0 = SOPS.KERNEL.launches
     got = SOPS.select(u, p1, v1, k=k, return_idx=True)
@@ -141,16 +175,16 @@ def test_bloom_packed_kernel_matches_plain(cuda, R, M, b, k, dup, prefill,
 
 
 @pytest.mark.parametrize("R,C,k,fill", [(4, 64, 4, 0.6), (2, 128, 8, 1.0),
-                                        (3, 37, 5, 0.0), (512, 4096, 1, 0.6)])
+                                        (3, 37, 5, 0.0), (512, 4096, 1, 0.6)]
+                         + [(*s, 0.6) for s in POP_SHAPES])
 def test_select_harvest_kernel_matches_plain(cuda, R, C, k, fill):
     """On the url lane as the stages hold it: a strided view of a wider
     array, with 0 cash on invalid cells."""
-    url, pri, valid = rows(R, C, seed=R + C + k, fill=fill)
-    lane = np.random.default_rng(R).random((R, C)) * valid
+    u, p1, v1, vec = pop_rows(cuda, R, C, k, fill=fill)
+    assert SOPS.vector_path(p1, v1) == vec
+    lane = np.random.default_rng(R).random((R, C)) * v1.cpu().numpy()
     wide = torch.zeros((R, 2 + C), device=cuda)
     wide[:, 2:] = torch.tensor(lane, dtype=torch.float32, device=cuda)
-    u = torch.tensor(url, device=cuda)
-    p1, v1 = torch.tensor(pri, device=cuda), torch.tensor(valid, device=cuda)
     p2, v2, w2 = p1.clone(), v1.clone(), wide.clone()
     n0 = SOPS.HARVEST.launches
     got = SOPS.select_harvest(u, p1, v1, wide[:, 2:], k=k)

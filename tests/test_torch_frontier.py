@@ -30,22 +30,43 @@ def rows(R, C, *, seed, fill=0.6, ties=False):
     return url, np.where(valid, pri, np.float32(NEG)), valid
 
 
-def port_select(url, pri, valid, k):
+def port_select(url, pri, valid, k, *, unaligned=False):
     p, v = torch.tensor(pri), torch.tensor(valid)
+    if unaligned:           # contiguous views one element into a buffer
+        R, C = pri.shape
+        p = torch.empty(R * C + 1)[1:].view(R, C).copy_(p)
+        v = torch.empty(R * C + 1, dtype=torch.bool)[1:].view(R, C).copy_(v)
     out = SOPS.select(torch.tensor(url.astype(np.int64)), p, v, k=k,
                       return_idx=True)
     return [o.numpy() for o in out] + [p.numpy(), v.numpy()]
 
 
+# The shapes the CUDA kernel's cases add (tests/test_torch_cuda.py), at
+# R <= 3: C not a multiple of 4, k = C, unaligned views, rows past the
+# kernel's register and shared-memory residency, fewer valid cells than k,
+# an all-equal row, the CLI's and the reduced config's widths.
+POP_SHAPES = [(3, 1001, 5), (2, 37, 37), (3, 4096, 3), (2, 16384, 4),
+              (2, 20000, 3), (2, 70000, 3), (3, 128, 8), (3, 256, 6),
+              (3, 512, 1), (3, 64, 1), (3, 512, 3), (3, 64, 5)]
+POP_LAYOUT = {(3, 4096, 3): "unaligned", (3, 128, 8): "sparse",
+              (3, 256, 6): "equal"}
+
+
 @pytest.mark.parametrize("impl", ["ref", "interpret"])
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("R,C,k", [(1, 32, 1), (4, 64, 4), (2, 128, 8)])
+@pytest.mark.parametrize("R,C,k", [(1, 32, 1), (4, 64, 4), (2, 128, 8)]
+                         + POP_SHAPES)
 def test_select_plain_matches_jax(R, C, k, ties, impl):
-    url, pri, valid = rows(R, C, seed=R * C + k, ties=ties)
+    layout = POP_LAYOUT.get((R, C, k))
+    url, pri, valid = rows(R, C, seed=R * C + k, ties=ties,
+                           fill=0.03 if layout == "sparse" else 0.6)
+    if layout == "equal":
+        pri[-1], valid[-1] = 7.0, True
     ju, jp, jm, jpri, jval, jidx = (np.asarray(a) for a in jax_select(
         jnp.asarray(url), jnp.asarray(pri), jnp.asarray(valid), k=k,
         impl=impl, return_idx=True))
-    tu, tp, tm, tidx, tpri, tval = port_select(url, pri, valid, k)
+    tu, tp, tm, tidx, tpri, tval = port_select(
+        url, pri, valid, k, unaligned=layout == "unaligned")
     np.testing.assert_array_equal(jm, tm)
     # masked lanes are unspecified by contract: compare the popped ones
     np.testing.assert_array_equal(np.where(jm, ju, 0), tu)

@@ -39,7 +39,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -73,21 +72,10 @@ def sources(also):
 
 def build(texts):
     """One nvcc per variant, all started together; {name: C entry}."""
-    from repro_torch.kernels.build import NVCC_FLAGS, find_nvcc
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in texts.items():
-        cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    from repro_torch.kernels.build import build_sources
     fns = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).opic_update_launch
+    for name, (lib, _) in build_sources(texts, OUT).items():
+        fn = lib.opic_update_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
