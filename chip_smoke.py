@@ -11,7 +11,7 @@ non-zero):
                sources: select_harvest shares frontier_select.cu,
                bloom_packed bloom.cu, dedup_deposit_packed
                dedup_deposit.cu); flash_attention_tc's SASS must hold
-               HGMMA (cuobjdump).
+               HGMMA, and flash_attention's HGMMA and HMMA (cuobjdump).
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
                shapes with ties, duplicates, ragged tiles and masked rows
@@ -80,14 +80,18 @@ non-zero):
                layer (its f32 path).
   6. kernels — each kernel's time (CUDA events; for the crawl kernels also
                in a CUDA graph, warm and cold, by the profiler, and per
-               launch inside the profiled crawl) beside its plain version's
-               (the packed ones on their words, with the boundary call's
-               time beside its bound), a library call's where one
-               computes the same function, and
-               its bound: the bytes it must move over 3.35 TB/s, or for
-               the two attention kernels (both timed on layer 0's bf16
-               inputs in the same run) the larger of that and their
-               operations over 989 TFLOP/s.
+               launch inside the profiled crawl; dedup_deposit also on the
+               crawl's own next calls, replayed with the state they touch
+               restored, beside the bound their data needs) beside its
+               plain version's (the packed ones on their words, with the
+               boundary call's time beside its bound), a library call's
+               where one computes the same function, and its bound: the
+               bytes it must move over 3.35 TB/s, or for the attention
+               kernels (timed on layer 0's inputs in the same run:
+               flash_attention_tc on the bf16 ones, flash_attention on
+               them cast to f32, its contract) the larger of that and
+               their operations over 989 TFLOP/s (bf16) or, three TF32
+               products per f32 product, 495 TFLOP/s (f32).
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -196,29 +200,43 @@ def bloom_batch(rng, R, M, *, dup=0.3, fill=0.8):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_build():
-    """Builds every kernel; fails unless flash_attention_tc's machine code
-    holds the tensor cores' warpgroup products (HGMMA in cuobjdump's
-    SASS)."""
-    from repro_torch.kernels import all_kernels, build_all
+def sass_lines(kernel, op):
+    """Lines of the kernel's machine code (cuobjdump's SASS) holding op."""
     from repro_torch.kernels.build import find_nvcc
-    from repro_torch.kernels.flash_attention.ops import TC_KERNEL
+    sass = subprocess.run(
+        [str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
+         str(kernel.library)], check=True, capture_output=True, text=True,
+        timeout=120).stdout
+    return sum(op in ln for ln in sass.splitlines())
+
+
+def phase_build():
+    """Builds every kernel; fails unless the attention kernels' machine code
+    holds the tensor cores' products: flash_attention_tc's warpgroup
+    products (HGMMA in cuobjdump's SASS), and flash_attention's TF32
+    warpgroup products (head dims 64-128) and mma.sync (HMMA, the small
+    head dims)."""
+    from repro_torch.kernels import all_kernels, build_all
+    from repro_torch.kernels.flash_attention.ops import KERNEL, TC_KERNEL
     t0 = time.time()
     secs = build_all(all_kernels())
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln]
              for k in all_kernels()}
-    sass = subprocess.run(
-        [str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
-         str(TC_KERNEL.library)], check=True, capture_output=True, text=True,
-        timeout=120).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    hgmma = sass_lines(TC_KERNEL, "HGMMA")
     if hgmma == 0:
         raise AssertionError("flash_attention_tc: no HGMMA in its SASS")
+    hmma = sass_lines(KERNEL, "HMMA")
+    hgmma_f32 = sass_lines(KERNEL, "HGMMA")
+    if hmma == 0 or hgmma_f32 == 0:
+        raise AssertionError(f"flash_attention: {hmma} HMMA and "
+                             f"{hgmma_f32} HGMMA lines in its SASS")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "per_kernel_s": secs, "ptxas": ptxas,
-          "flash_attention_tc_hgmma_sass_lines": hgmma, "card": nvidia_smi()})
+          "flash_attention_tc_hgmma_sass_lines": hgmma,
+          "flash_attention_hgmma_sass_lines": hgmma_f32,
+          "flash_attention_hmma_sass_lines": hmma, "card": nvidia_smi()})
 
 
 def _select_pair(url, pri, valid, k, unaligned=False):
@@ -703,8 +721,8 @@ def phase_flash_parity():
     and 256, causal on and off, f32 and bf16, strided and contiguous
     layouts. Each case goes through ``attention``, which must launch the
     kernel its route names (bf16 at 64/96/128: flash_attention_tc; the
-    rest: flash_attention); the bf16 cases at those head dims also run the
-    CUDA-core kernel, launched directly, so it stays held at every head dim
+    rest: flash_attention); the bf16 cases at those head dims also run
+    flash_attention, launched directly, so it stays held at every head dim
     it instantiates."""
     from repro_torch.kernels.flash_attention import ops as FA
     rng = np.random.default_rng(SEED + 3)
@@ -752,6 +770,9 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 4, 2048, 32
 LM_LONG_PROMPT, LM_LONG_GEN = 32768, 8
 LM_CPU_TOL = 1e-4                   # cuda vs cpu logits, reduced f32 model
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
+H100_TF32_FLOPS = 495e12            # dense tensor-core TF32 peak
+H100_F32_FLOPS = 67e12              # f32 FMAs on the CUDA cores
+SPLIT_TF32_PASSES = 3               # hi.hi + hi.lo + lo.hi per f32 product
 
 
 def capture_flash(model, prompts, layers):
@@ -848,7 +869,7 @@ def in_crawl_ms(prof, name):
 
 def check_prefill_launches(counts, n_layers, label):
     """One bf16 prefill at hd 128 launches flash_attention_tc once per
-    layer and the CUDA-core flash_attention never."""
+    layer and the f32 route's flash_attention never."""
     if counts["flash_attention_tc"] != n_layers or \
             counts["flash_attention"] != 0:
         raise AssertionError(f"{label}: want {n_layers} flash_attention_tc "
@@ -863,8 +884,8 @@ def phase_lm_serve():
     short serve warms up, then the counted run: ``serve`` of LM_BATCH x
     LM_PROMPT prompts and LM_GEN tokens, counts zeroed just before it and
     read just after. Fails on non-finite logits (``serve`` raises) and
-    unless prefill launched flash_attention_tc once per layer (and the
-    CUDA-core kernel never)."""
+    unless prefill launched flash_attention_tc once per layer (and
+    flash_attention never)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launches
@@ -906,9 +927,9 @@ def phase_lm_serve():
 def phase_lm_captured(captured):
     """Both attention kernels against the plain version on the attention
     inputs that the full-width prefill itself produced: as captured (bf16,
-    routed to flash_attention_tc, which is also held to tc_plain; and the
-    CUDA-core kernel launched directly on the same inputs), and cast to
-    f32 (routed to the CUDA-core kernel, where both compute the same f32
+    routed to flash_attention_tc, which is also held to tc_plain; and
+    flash_attention launched directly on the same inputs), and cast to
+    f32 (routed to flash_attention, where both compute the same f32
     arithmetic, held to the f32 tolerance over the whole length of the
     prefill). Returns each kernel's
     max |diff| in bf16, the path's dtype."""
@@ -969,9 +990,10 @@ def phase_lm_cpu(steps=16):
     """The reduced qwen2-1.5b in f32 with the same weights on the card and
     on the CPU: a 32-token prefill, then ``steps`` teacher-forced decode
     steps; every step's logits must agree within LM_CPU_TOL. TF32 is off:
-    it would round the products to 10 bits. This f32 path is the CUDA-core
-    flash_attention's: counts are zeroed just before the card's run and
-    read just after, one launch per layer of its prefill. Returns them."""
+    it would round the products to 10 bits (flash_attention's split TF32
+    is its own, not these flags). This f32 path is flash_attention's:
+    counts are zeroed just before the card's run and read just after, one
+    launch per layer of its prefill. Returns them."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.configs.base import scaled
@@ -1013,38 +1035,90 @@ def phase_lm_cpu(steps=16):
     return counts
 
 
+def attention_flops(q):
+    """The two causal products' operations at q's shape (B, Hq, S, hd)."""
+    B, Hq, S, hd = q.shape
+    return 4 * B * Hq * hd * (S * (S + 1) // 2)
+
+
+def sdpa_backend(fn):
+    """The backend of a library attention call ``fn()``, from the ATen op it
+    dispatched to (torch.profiler's host events): flash, memory-efficient
+    (CUTLASS fmha), cuDNN or math; and the device kernel that took most of
+    the call's time, where the profiler saw one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, dev = set(), Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev[e.name[:120]] += e.time_range.elapsed_us()
+        elif "scaled_dot_product" in e.name or "attention" in e.name:
+            ops.add(e.name)
+    names = " ".join(sorted(ops)).lower()
+    backend = ("flash" if "flash" in names else
+               "memory_efficient" if "efficient" in names else
+               "cudnn" if "cudnn" in names else
+               "math" if "math" in names else None)
+    return backend, (dev.most_common(1)[0][0] if dev else None), sorted(ops)
+
+
 def kernels_lm(captured, counts, errs, counts_f32):
-    """Both attention kernels at layer 0's captured bf16 inputs, in one
-    run: flash_attention_tc (the bf16 prefill's route) and the CUDA-core
-    flash_attention launched directly on the same inputs, beside the plain
-    version and the library's fused attention (a yardstick only), and the
-    bound: the larger of the operations the causal products need over the
-    bf16 tensor-core peak and the bytes of q, k, v and o over 3.35 TB/s.
-    The CUDA-core kernel's launches are those of the f32 path (lm_cpu)."""
+    """Both attention kernels on layer 0's captured inputs, in one run.
+    flash_attention_tc (the bf16 prefill's route) on the bf16 inputs. The
+    f32 route (flash_attention: f32 at every head dim) on the same
+    inputs cast to f32, its contract, beside the plain version and the
+    library's fused attention on the same f32 inputs (a yardstick only; its
+    backend named from the profiler), and its f32 bound: the larger of
+    three TF32 tensor-core passes (split TF32) over 495 TFLOP/s and the
+    f32 bytes of q, k, v and o over 3.35 TB/s; the FMA floor (the
+    operations over the CUDA cores' 67 TFLOP/s) beside it. Its figures on
+    the bf16 inputs stay as secondary keys. The bf16 kernel's bound is the
+    larger of the operations over 989 TFLOP/s and its bytes.
+    flash_attention's launches are those of the f32 path (lm_cpu)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.ref import flash_ref
-    q, k, v = captured[0]
-    B, Hq, S, hd = q.shape
-    n = 50
-    ms = {kern.name: cuda_ms(lambda: FA.launch(kern, q, k, v, True), n)
-          for kern in (FA.TC_KERNEL, FA.KERNEL)}
-    qg, kf, vf, group = FA._gqa_fold(q, k, v)
-    plain = cuda_ms(lambda: flash_ref(qg, kf, vf, causal=True, group=group),
-                    n)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), n)
-    flops = 4 * B * Hq * hd * (S * (S + 1) // 2)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops, t_bytes = 1e3 * flops / H100_BF16_FLOPS, \
-        1e3 * nbytes / HBM_BYTES_PER_S
-    common = {"plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
-              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-              "library_ms": lib,
-              "shape": {"q": list(q.shape), "kv": list(k.shape),
-                        "dtype": str(q.dtype), "causal": True},
-              "flops": flops, "bytes": nbytes, "ops_bound_ms": t_ops,
-              "bytes_bound_ms": t_bytes}
+    q, k, v = captured[0]
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    n = 50
+    flops = attention_flops(q)
+
+    def timed(q, k, v):
+        qg, kf, vf, group = FA._gqa_fold(q, k, v)
+        ms = {kern.name: cuda_ms(lambda: FA.launch(kern, q, k, v, True), n)
+              for kern in (FA.TC_KERNEL, FA.KERNEL)
+              if kern is FA.KERNEL or q.dtype == torch.bfloat16}
+        lib_call = lambda: sdpa(q, k, v, is_causal=True,  # noqa: E731
+                                enable_gqa=True)
+        return (ms, cuda_ms(lambda: flash_ref(qg, kf, vf, causal=True,
+                                              group=group), n),
+                cuda_ms(lib_call, n), sdpa_backend(lib_call),
+                (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+    ms, plain, lib, (backend, lib_kernel, lib_ops), nbytes = timed(q, k, v)
+    ms32, plain32, lib32, (backend32, lib_kernel32, lib_ops32), nbytes32 = \
+        timed(q32, k32, v32)
+    # with GQA the library takes its math path in f32; with K and V repeated
+    # to every query head (a copy the kernel does not make) it may take
+    # another
+    g = q.shape[1] // k.shape[1]
+    k32r, v32r = (x.repeat_interleave(g, dim=1) for x in (k32, v32))
+    rep_call = lambda: sdpa(q32, k32r, v32r, is_causal=True)  # noqa: E731
+    lib32_rep = cuda_ms(rep_call, n)
+    backend32_rep = sdpa_backend(rep_call)
+    del k32r, v32r
+    t_ops = 1e3 * flops / H100_BF16_FLOPS
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_split = 1e3 * SPLIT_TF32_PASSES * flops / H100_TF32_FLOPS
+    t_bytes32 = 1e3 * nbytes32 / HBM_BYTES_PER_S
+    shape = {"q": list(q.shape), "kv": list(k.shape), "causal": True}
     tc = {"name": FA.TC_KERNEL.name, "route": "cuda",
           "source": "src/repro_torch/csrc/flash_attention_tc.cu",
           "replaces": "src/repro/kernels/flash_attention/"
@@ -1052,16 +1126,36 @@ def kernels_lm(captured, counts, errs, counts_f32):
           "launches": counts[FA.TC_KERNEL.name],
           "launches_per_prefill": counts[FA.TC_KERNEL.name],
           "max_abs_err": errs[FA.TC_KERNEL.name], "ms": ms[FA.TC_KERNEL.name],
-          "path": "lm serve (bf16 prefill)", **common}
+          "path": "lm serve (bf16 prefill)", "plain_ms": plain,
+          "bound_ms": max(t_ops, t_bytes),
+          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+          "library_ms": lib, "library_backend": backend,
+          "library_kernel": lib_kernel, "library_ops": lib_ops,
+          "shape": {**shape, "dtype": str(q.dtype)}, "flops": flops,
+          "bytes": nbytes, "ops_bound_ms": t_ops, "bytes_bound_ms": t_bytes}
     core = {"name": FA.KERNEL.name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:63",
             "launches": counts_f32[FA.KERNEL.name],
             "launches_bf16_prefill": counts[FA.KERNEL.name],
-            "max_abs_err": errs[FA.KERNEL.name], "ms": ms[FA.KERNEL.name],
-            "path": "lm f32 prefill (lm_cpu); timed on the bf16 inputs",
-            **common}
+            "max_abs_err": errs[FA.KERNEL.name], "ms": ms32[FA.KERNEL.name],
+            "path": "lm f32 prefill (lm_cpu); timed on layer 0's inputs "
+                    "cast to f32", "plain_ms": plain32,
+            "bound_ms": max(t_split, t_bytes32),
+            "bound_by": "operations" if t_split >= t_bytes32 else "bytes",
+            "library_ms": lib32, "library_backend": backend32,
+            "library_kernel": lib_kernel32, "library_ops": lib_ops32,
+            "library_ms_repeated_kv": lib32_rep,
+            "library_backend_repeated_kv": backend32_rep[0],
+            "library_kernel_repeated_kv": backend32_rep[1],
+            "shape": {**shape, "dtype": str(q32.dtype)}, "flops": flops,
+            "bytes": nbytes32, "split_tf32_bound_ms": t_split,
+            "bytes_bound_ms": t_bytes32,
+            "fma_floor_ms": 1e3 * flops / H100_F32_FLOPS,
+            "ms_bf16_inputs": ms[FA.KERNEL.name],
+            "plain_ms_bf16_inputs": plain, "library_ms_bf16_inputs": lib,
+            "bound_ms_bf16_inputs": max(t_ops, t_bytes)}
     return [tc, core]
 
 
@@ -1488,7 +1582,7 @@ def pop_times(call_on, inputs, n=POP_CALLS):
     return out
 
 
-def fresh_graph_ms(run, batches, url_space_log2, *, cold):
+def fresh_graph_ms(run, batches, url_space_log2, *, cold, seed=SEED + 7):
     """Milliseconds a call of ``run(*batch)`` takes in one CUDA graph that
     makes one call on each of ``batches`` (static inputs). Before each
     replay, outside the timed span, every batch's live URLs are XORed with
@@ -1498,9 +1592,11 @@ def fresh_graph_ms(run, batches, url_space_log2, *, cold):
     rewrite leaves the live URLs in L2, as the router's packing leaves a
     dispatch batch. ``cold``: a buffer of FLUSH_BYTES is written next, so
     the batches (give each its own mask) come from device memory. The
-    filter's probed bytes lie at random in 8 GiB either way."""
+    filter's probed bytes lie at random in 8 GiB either way. Calls on the
+    same batches take distinct seeds: the XORs of one seed, made twice,
+    would bring the first call's URLs back."""
     import torch
-    rng = np.random.default_rng(SEED + 7)
+    rng = np.random.default_rng(seed)
     flat = [(b[0].view(-1), torch.nonzero(b[1].view(-1))[:, 0])
             for b in batches]
     flush = (torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
@@ -1541,6 +1637,171 @@ def time_scatter(args, n):
            "library_device_ms": device_ms(libc, n)}
     return (ms, plain, lib, scatter_bytes(cash, rows, mask),
             max_items_per_target(cash, rows, live), dev)
+
+
+DEDUP_CALLS = 8             # captured crawl calls of dedup_deposit timed
+
+
+def capture_dedup(sess, n):
+    """The next n ``dedup_deposit`` calls of the fused opic_url path, as
+    ``stages.py`` makes them: the batch (urls, mask, val), the frontier
+    (f_url, f_valid) and the url lane, cloned before the call (the lane
+    into a strided view of a wider array, as ``order_state[:, 2:]`` lays it
+    out); the filter bytes the batch probes, with their values before the
+    call; and what the call returned in the crawl. The filter itself (8
+    GiB) is not copied."""
+    import torch
+    from repro_torch.core import stages as ST
+    from repro_torch.kernels.bloom.ref import _bit_indices
+    kh, b = sess.cfg.bloom_hashes, sess.cfg.bloom_bits_log2
+    got = []
+    orig = ST.dedup_deposit
+
+    def spy(bits, urls, mask, val, f_url, f_valid, table, **kw):
+        if len(got) >= n:
+            return orig(bits, urls, mask, val, f_url, f_valid, table, **kw)
+        rows = torch.nonzero(mask)[:, :1]
+        pos = torch.unique(
+            (rows * (1 << b) + _bit_indices(urls, kh, b)[mask]).view(-1))
+        R, C = table.shape
+        lane = torch.empty((R, C + 2), dtype=table.dtype,
+                           device=table.device)[:, 2:]
+        lane.copy_(table)
+        c = {"urls": urls.clone(), "mask": mask.clone(), "val": val.clone(),
+             "f_url": f_url.clone(), "f_valid": f_valid.clone(),
+             "lane": lane, "lane0": lane.clone(), "pos": pos,
+             "bits0": bits.view(-1)[pos].clone()}
+        seen, refund = orig(bits, urls, mask, val, f_url, f_valid, table,
+                            **kw)
+        c["crawl"] = (seen.clone(), refund.clone(), table.clone())
+        got.append(c)
+        return seen, refund
+    ST.dedup_deposit = spy
+    try:
+        while len(got) < n:
+            sess.step()
+    finally:
+        ST.dedup_deposit = orig
+    return got
+
+
+class DedupReplay:
+    """Captured ``dedup_deposit`` calls (``capture_dedup``) replayed on the
+    session's own filter. ``restore()`` puts every filter byte the calls
+    probe back as it was before the first of them (latest call first, so
+    the earliest value wins) and every lane cell a call deposits into back
+    as it was before that call; the calls made in capture order then see
+    exactly what they saw in the crawl. ``call(i, fn)`` makes call i
+    through ``fn`` (``dedup_deposit`` or a variant of the same
+    signature). ``check(fn)`` holds fn's seen, refund, lane and filter
+    bytes to the plain version's with torch.equal, after holding the
+    plain version's to the crawl's own."""
+
+    def __init__(self, bits, caps, k):
+        import torch
+        from repro_torch.kernels.dedup_deposit.ref import (dedup_deposit_ref,
+                                                           first_twin,
+                                                           sorted_queue)
+        self.bits, self.flat, self.caps, self.k = bits, bits.view(-1), caps, k
+        self.cells = [None] * len(caps)
+        self.want = self.run_all(dedup_deposit_ref)
+        for i, (c, w) in enumerate(zip(caps, self.want)):
+            for a, b_, what in zip(w[:3], c["crawl"], ("seen", "refund",
+                                                       "lane")):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"dedup replay {i}: the plain "
+                                         f"version's {what} differs from "
+                                         f"the crawl's call (the restore "
+                                         f"or the kernel is wrong)")
+            changed = torch.nonzero(c["lane"] != c["lane0"])
+            ri, ci = changed[:, 0], changed[:, 1]
+            self.cells[i] = (ri, ci, c["lane0"][ri, ci])
+            c["twins"] = int(first_twin(c["urls"], w[0], sorted_queue(
+                c["f_url"], c["f_valid"]))[0].sum())
+        self.restore()
+
+    def restore(self):
+        for c in reversed(self.caps):
+            self.flat[c["pos"]] = c["bits0"]
+        for c, cell in zip(self.caps, self.cells):
+            if cell is None:
+                c["lane"].copy_(c["lane0"])
+            else:
+                c["lane"][cell[0], cell[1]] = cell[2]
+
+    def call(self, i, fn):
+        c = self.caps[i]
+        return fn(self.bits, c["urls"], c["mask"], c["val"], c["f_url"],
+                  c["f_valid"], c["lane"], k=self.k)
+
+    def run_all(self, fn):
+        """Restore, then every call in order: [(seen, refund, lane after,
+        filter bytes after)]."""
+        self.restore()
+        out = []
+        for i, c in enumerate(self.caps):
+            seen, refund = self.call(i, fn)
+            out.append((seen, refund, c["lane"].clone(),
+                        self.flat[c["pos"]].clone()))
+        return out
+
+    def check(self, fn, label):
+        import torch
+        got = self.run_all(fn)
+        torch.cuda.synchronize()
+        self.restore()
+        for i, (g, w) in enumerate(zip(got, self.want)):
+            for a, b_, what in zip(g, w, ("seen", "refund", "lane",
+                                          "filter")):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"{label}: captured call {i}: "
+                                         f"{what} differs from the plain "
+                                         f"version")
+
+    def counts(self):
+        """Live URLs, seen URLs and twin hits over the calls."""
+        return (sum(int(c["mask"].sum()) for c in self.caps),
+                sum(int(w[0].sum()) for w in self.want),
+                sum(c["twins"] for c in self.caps))
+
+    def nbytes(self, kh):
+        """What the calls must move, each on average, from their data: every
+        lane's mask and seen flag (1 B), the live URLs (32-byte sectors) and
+        values (4 B), k filter bytes a live URL and the bytes it newly sets,
+        the refund; for each row with a seen URL its f_valid bytes and 8 B
+        for each valid cell (the URL it compares); each lane cell deposited
+        into read and written once."""
+        import torch
+        total = 0
+        for c, w, cell in zip(self.caps, self.want, self.cells):
+            R, M = c["mask"].shape
+            live = torch.nonzero(c["mask"].view(-1))[:, 0]
+            total += 2 * R * M + 32 * torch.unique(live // 4).numel() \
+                + (4 + kh) * live.numel() + 4 * R
+            total += int(((c["bits0"] == 0) & (w[3] == 1)).sum())
+            rows = w[0].any(dim=1)
+            total += c["f_valid"].shape[1] * int(rows.sum()) \
+                + 8 * int(c["f_valid"][rows].sum())
+            total += 8 * cell[0].numel()
+        return total / len(self.caps)
+
+    def graph_ms(self, fn, *, cold):
+        """Milliseconds a call takes in one CUDA graph that makes every
+        captured call once, in order, through ``fn``; before each replay
+        the state is restored (outside the timed span) and, ``cold``, the
+        L2 flushed."""
+        import torch
+        flush = (torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                             device=DEV) if cold else None)
+
+        def before():
+            self.restore()
+            if cold:
+                flush.fill_(0)
+        calls = [lambda i=i: self.call(i, fn) for i in range(len(self.caps))]
+        t = replay_ms(calls, before)
+        self.restore()
+        return t
 
 
 def kernels_opic(sess):
@@ -1651,6 +1912,20 @@ def kernels_opic_url(sess, counts, errs, steps, prof):
              "graph_cold_ms": fresh_graph_ms(
                  run, [(u, m.clone(), v) for u, m, v in plain_b[:n]],
                  cfg.url_space_log2, cold=True)}
+    # and on the crawl's own next calls (queued URLs re-sent: seen URLs,
+    # twin deposits, refunds), their state restored before each replay
+    rep = DedupReplay(sess.state.bloom_bits,
+                      capture_dedup(sess, DEDUP_CALLS), kh)
+    rep.check(dedup_deposit, "dedup_deposit")
+    c_live, c_seen, c_twins = rep.counts()
+    n_cap = len(rep.caps)
+    graph.update(
+        captured_calls=n_cap, captured_live_urls=c_live / n_cap,
+        captured_seen=c_seen / n_cap, captured_twins=c_twins / n_cap,
+        captured_graph_ms=rep.graph_ms(dedup_deposit, cold=False),
+        captured_graph_cold_ms=rep.graph_ms(dedup_deposit, cold=True),
+        captured_bound_ms=1e3 * rep.nbytes(kh) / HBM_BYTES_PER_S)
+    del rep
     out.append(row("dedup_deposit", "src/repro_torch/csrc/dedup_deposit.cu",
                    "src/repro/kernels/dedup_deposit/dedup_deposit.py:105",
                    counts, steps, errs, ms_d, plain_d, nbytes, None,

@@ -5,7 +5,7 @@
 // (flash_attention, body _kernel at :26, pallas_call at :85) on the card's
 // bf16 route: the wrapper (kernels/flash_attention/ops.py) sends bf16 at
 // head dims 64, 96 and 128 here, and f32 and the small bf16 head dims to
-// the CUDA-core kernel (csrc/flash_attention.cu). Per query row: s = q.k^T
+// the split-TF32 kernel (csrc/flash_attention.cu). Per query row: s = q.k^T
 // in f32 (bf16 products, f32 sums), then scaled by 1/sqrt(hd) in f32 (q is
 // never rounded after scaling); under `causal` the scores with q_pos < k_pos
 // (both counted from 0) are -1e30; the KV tiles are walked in order from
@@ -22,7 +22,8 @@
 // (B 4, Hq 12, Hkv 2, S 2048, hd 128, causal) the two products need
 // 4 * B * Hq * hd * S(S+1)/2 = 51.6 GFLOP, 52 us at the tensor cores' 989
 // TFLOP/s bf16 rate, against 59 MB of q, k, v and o (18 us at 3.35 TB/s).
-// The CUDA-core kernel's f32 FMAs (67 TFLOP/s) cannot come near it.
+// The f32 kernel's three TF32 products per f32 product cannot come near
+// it.
 //
 // What the design does about it: both products run on wgmma. One block of
 // two warpgroups per (query head, batch row, 128-row query tile); each
@@ -467,7 +468,7 @@ extern "C" int flash_attention_tc_launch(
   a.ksb = ksb; a.ksh = ksh; a.kss = kss;
   a.vsb = vsb; a.vsh = vsh; a.vss = vss;
   a.osb = osb; a.osh = osh; a.oss = oss;
-  // as the CUDA-core kernel: 1/sqrt(hd) in double, rounded once to f32
+  // as the f32 kernel: 1/sqrt(hd) in double, rounded once to f32
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;

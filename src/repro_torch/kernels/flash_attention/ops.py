@@ -10,12 +10,15 @@ Dispatch is by device, and on the card by dtype and head dim, as
   products on the tensor cores, ``p`` rounded to bf16 for p·v as the
   reference's bf16 LM path rounds it;
 - every other CUDA tensor (f32, and bf16 at head dims 8, 16 and 32)
-  launches ``flash_attention`` (``csrc/flash_attention.cu``): f32 CUDA-core
-  FMAs with ``p`` kept in f32, the TPU kernel's contract.
+  launches ``flash_attention`` (``csrc/flash_attention.cu``): both
+  products on the tensor cores in split TF32 (three TF32 products per f32
+  product, each k-step's sum added in f32 rounded to nearest) with ``p``
+  kept in f32, the TPU kernel's contract. PyTorch's TF32 flags play no
+  part: the split is the kernel's own.
 
 This is a route, not a fallback: each kernel counts its own launches, and a
 launch either kernel refuses raises. The bf16 route meets the reference's
-bf16 tolerance (2e-2); the f32 contract (2e-5) stays on the CUDA-core
+bf16 tolerance (2e-2); the f32 contract (2e-5) stays on the split-TF32
 kernel.
 
 GQA is folded as ``_gqa_fold`` folds it: the query heads of batch row b are

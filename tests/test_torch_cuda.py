@@ -35,6 +35,7 @@ from repro_torch.kernels.frontier_select.ref import (  # noqa: E402
 from repro_torch.kernels.opic_update import ops as OOPS  # noqa: E402
 from repro_torch.kernels.opic_update.ref import opic_ref  # noqa: E402
 from repro_torch.ordering.opic import total_cash  # noqa: E402
+from _twin_cases import TWIN_CASES, twin_case  # noqa: E402
 
 
 @pytest.fixture
@@ -500,3 +501,97 @@ def test_lm_on_card_matches_cpu(cuda):
                                    rtol=0, atol=1e-4)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("R,M,C,b,tile,fill", TWIN_CASES)
+def test_dedup_deposit_twins_on_card(cuda, R, M, C, b, tile, fill, packed):
+    """Both layouts on re-sent queued URLs, with values of mixed magnitude
+    (so the order of every deposit and of the refund tree shows in the
+    bits): seen, the filter, the lane (a strided view) and the refund equal
+    the plain version's (torch.equal), with twins hit, refunds made and one
+    refund of -0.0 values among them."""
+    bits, urls, mask, val, f_url, f_valid, table = twin_case(
+        R, M, C, b, seed=R + M + C + tile, queue_fill=fill)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    args = [t(urls), t(mask), t(val), t(f_url), t(f_valid)]
+    filt = torch.tensor(bits)
+    filt = (pack_bits(filt) if packed else filt).to(cuda)
+    wide = torch.zeros((R, 2 + C), device=cuda)
+    wide[:, 2:] = t(table)
+    f1, w1, f2, w2 = filt, wide.clone(), filt.clone(), wide.clone()
+    kern = DOPS.PACKED if packed else DOPS.KERNEL
+    fn = DOPS.dedup_deposit_packed if packed else DOPS.dedup_deposit
+    ref = dedup_deposit_packed_ref if packed else dedup_deposit_ref
+    n0 = kern.launches
+    s1, r1 = fn(f1, *args, w1[:, 2:], k=4, url_tile=tile)
+    s2, r2 = ref(f2, *args, w2[:, 2:], k=4, url_tile=min(tile, M))
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    for a, b_ in ((s1, s2), (f1, f2), (w1, w2), (r1, r2)):
+        assert torch.equal(a, b_)
+    assert bool(s1.any()) and not torch.equal(w1, wide)
+    assert bool((r1 != 0).any())
+
+
+def flash_case(rng, B, Hq, Hkv, Sq, Skv, hd, dtype, device, *, view):
+    """q (B, Hq, Sq, hd), k, v (B, Hkv, Skv, hd): ``view`` "projection"
+    lays them out as (B, S, H, hd) transposed, "contiguous" as they are,
+    "padded" as every other row of a wider array whose rows are not
+    16-byte aligned (the f32 tile loads then go through the threads, not
+    cp.async)."""
+    dt = getattr(torch, dtype)
+    out = []
+    for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)):
+        x = torch.tensor(rng.standard_normal((B, S, H, hd)),
+                         dtype=torch.float32).to(device, dt)
+        if view == "projection":
+            out.append(x.transpose(1, 2))
+        elif view == "contiguous":
+            out.append(x.transpose(1, 2).contiguous())
+        else:
+            wide = torch.zeros((B, H, 2 * S, hd + 1), dtype=dt,
+                               device=device)
+            wide[:, :, ::2, :hd] = x.transpose(1, 2)
+            out.append(wide[:, :, ::2, :hd])
+    return out
+
+
+# (hd, group, Sq, Skv, causal, view, dtype): f32 at every head dim with
+# ragged lengths, Sq != Skv (not causal), GQA groups 1/2/6, strided views,
+# S 2048; bf16 at the small head dims the CUDA-core route takes
+FLASH_CASES = (
+    [(hd, 2, S, S, True, "projection", "float32")
+     for hd in (8, 16, 32, 64, 96, 128) for S in (1, 63, 65, 2047)]
+    + [(hd, g, 70, 200, False, "padded", "float32")
+       for hd in (16, 128) for g in (1, 2, 6)]
+    + [(hd, 6, 130, 65, False, "contiguous", "float32") for hd in (32, 96)]
+    + [(128, 6, 2048, 2048, True, "projection", "float32"),
+       (64, 1, 2048, 2048, False, "padded", "float32")]
+    + [(hd, g, S, S, c, "projection", "bfloat16")
+       for hd in (8, 16, 32) for g, S, c in ((1, 65, True), (6, 200, False))])
+
+
+@pytest.mark.parametrize("hd,group,Sq,Skv,causal,view,dtype", FLASH_CASES)
+def test_flash_attention_split_tf32_cases(cuda, hd, group, Sq, Skv, causal,
+                                          view, dtype):
+    """The CUDA-core route (split TF32 on the tensor cores) against the
+    plain version: within 2e-5 in f32 and 2e-2 in bf16, one launch of
+    flash_attention and none of flash_attention_tc."""
+    rng = np.random.default_rng(hd * 7 + group + Sq + Skv)
+    q, k, v = flash_case(rng, 2, 2 * group, 2, Sq, Skv, hd, dtype, cuda,
+                         view=view)
+    assert FOPS.route("cuda", q.dtype, hd) is FOPS.KERNEL
+    n0 = (FOPS.KERNEL.launches, FOPS.TC_KERNEL.launches)
+    got = FOPS.attention(q, k, v, causal=causal)
+    qg, kf, vf, g = FOPS._gqa_fold(q, k, v)
+    want = flash_ref(qg, kf, vf, causal=causal, group=g).reshape(q.shape)
+    torch.cuda.synchronize()
+    assert (FOPS.KERNEL.launches, FOPS.TC_KERNEL.launches) == \
+        (n0[0] + 1, n0[1])
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
