@@ -11,7 +11,9 @@ non-zero):
                sources: select_harvest shares frontier_select.cu,
                bloom_packed bloom.cu, dedup_deposit_packed
                dedup_deposit.cu); flash_attention_tc's SASS must hold
-               HGMMA, and flash_attention's HGMMA and HMMA (cuobjdump).
+               HGMMA, and flash_attention's HGMMA and HMMA (cuobjdump);
+               then bloom_kernel's registers and shared memory (ptxas),
+               on a line of their own.
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
                shapes with ties, duplicates, ragged tiles and masked rows
@@ -19,10 +21,12 @@ non-zero):
                views, k = C, rows past register and shared-memory
                residency, sparse and all-equal rows, the CLI's and the
                reduced widths, reaching both their vector and scalar
-               path; the packed kernels also on rows of one to four words and
-               on words with bit 31 set; opic_update also on skewed
-               items, one target for all, N past one chunk, R past one
-               range, each case with its longest per-target chain).
+               path; the Bloom kernels also on sparse rows whose live lanes
+               span many tiles; the packed kernels also on rows of one to
+               four words and on words with bit 31 set; opic_update also
+               on skewed items, one target for all, N past one chunk, R
+               past one range, each case with its longest per-target
+               chain).
   3. main    — three crawls at the full webparf.CONFIG (256 domains, 512
                frontier rows of 4096, 512 Bloom rows of 2^24 bytes), one
                at a time, each session freed before the next is built:
@@ -48,7 +52,8 @@ non-zero):
                that seen, twin deposits and refunds are non-zero; every
                output identical; then dedup_deposit(..., packed=True)
                against the byte-per-bit call. Counts zeroed just before,
-               read just after.
+               read just after. bloom_packed and bloom are also timed
+               in a CUDA graph on the same fresh batches.
   4. trajectory — the CLI-sized config runs on the card and on the CPU
                (plain versions) for backlink, opic, opic_url fused and
                opic_url unfused (link_pop_bias=1.0, so twins are hit);
@@ -210,13 +215,32 @@ def sass_lines(kernel, op):
     return sum(op in ln for ln in sass.splitlines())
 
 
+def ptxas_usage(log, fn):
+    """The registers, shared memory and spills ptxas reports (nvcc's
+    ``-Xptxas -v`` output ``log``) for each entry whose name holds
+    ``fn``."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"entry": ln.split("'")[1]} if fn in ln else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur["stack_and_spill"] = ln.strip()
+        elif cur is not None and "registers" in ln:
+            cur["used"] = ln.split(":", 1)[1].strip()
+    return out
+
+
 def phase_build():
     """Builds every kernel; fails unless the attention kernels' machine code
     holds the tensor cores' products: flash_attention_tc's warpgroup
     products (HGMMA in cuobjdump's SASS), and flash_attention's TF32
     warpgroup products (head dims 64-128) and mma.sync (HMMA, the small
-    head dims)."""
+    head dims). Then bloom_kernel's registers and shared memory, on a line
+    of their own."""
     from repro_torch.kernels import all_kernels, build_all
+    from repro_torch.kernels.bloom.ops import KERNEL as BLOOM
     from repro_torch.kernels.flash_attention.ops import KERNEL, TC_KERNEL
     t0 = time.time()
     secs = build_all(all_kernels())
@@ -237,6 +261,10 @@ def phase_build():
           "flash_attention_tc_hgmma_sass_lines": hgmma,
           "flash_attention_hgmma_sass_lines": hgmma_f32,
           "flash_attention_hmma_sass_lines": hmma, "card": nvidia_smi()})
+    usage = ptxas_usage(BLOOM.build_log, "bloom_kernel")
+    if BLOOM.build_log and len(usage) != 2:   # empty: built before this run
+        raise AssertionError(f"bloom_kernel: ptxas reported {usage}")
+    emit({"phase": "build", "ptxas_bloom_kernel": usage})
 
 
 def _select_pair(url, pri, valid, k, unaligned=False):
@@ -507,6 +535,14 @@ def phase_parity():
                                 k)
         err = max(err, e)
         cases.append((R, M, b, k, n_seen))
+    # sparse rows: ~8 live lanes scattered over 16 tiles, each tile walked
+    # after the one before inserted; URLs from a pool of 16, so that later
+    # tiles re-send earlier ones
+    urls, mask = bloom_batch(rng, 64, 4096, fill=0.002)
+    sparse = (urls % 16, mask)
+    e, n_seen = _bloom_pair(np.zeros((64, 1 << 12), np.uint8), *sparse, 4)
+    err = max(err, e)
+    cases.append((64, 4096, 12, 4, n_seen))
     out["bloom"] = {"max_abs_err": err, "cases": cases}
     # bloom_packed: the same main-path slice on its words, then small
     # shapes: rows of 1, 2 and 4 words (every URL of a tile collides),
@@ -526,6 +562,10 @@ def phase_parity():
                                 packed=True)
         err = max(err, e)
         cases.append((R, M, b, k, n_seen))
+    e, n_seen = _bloom_pair(set_bit31(np.zeros((64, 1 << 12), np.uint8)),
+                            *sparse, 4, packed=True)
+    err = max(err, e)
+    cases.append((64, 4096, 12, 4, n_seen))
     out["bloom_packed"] = {"max_abs_err": err, "cases": cases}
     # dedup_deposit: the dispatch's (16 rows of the 512) x M 4096 against
     # queues of C 4096 at b=24, k=4, then small shapes and tiles
@@ -1341,6 +1381,9 @@ def capture_calls(modules, attr, drive, n, pick=lambda args: True):
     return got
 
 
+BLOOM_MASKS = 4             # dispatch masks captured for bloom's timing
+
+
 def capture_dispatch_masks(sess, n):
     """The live-lane masks of the next n dispatches, as dispatch_exchange
     hands its (rows, M) batches to the Bloom dedup: each row's live URLs
@@ -1445,7 +1488,7 @@ def kernels_backlink(sess, counts, errs, steps, prof):
     # bloom on the session's 8 GiB filter, with batches laid out as the
     # next dispatches lay them out (their masks), holding fresh URLs
     kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
-    masks = capture_dispatch_masks(sess, 4)
+    masks = capture_dispatch_masks(sess, BLOOM_MASKS)
     R, M = masks[0].shape
     rng = np.random.default_rng(SEED + 1)
     kern_b, plain_b = fresh_urls(rng, masks, n, cfg), \
@@ -2131,6 +2174,23 @@ def phase_packed(sess, errs, n_mixed=3, n_boundary=4):
         plain = timed(name, plain_b, True, plain=True)
         hit_ms, hit_byte_ms = (timed(name, hit_b, packed)
                                for packed in (True, False))
+        graph = {}
+        if not deposit:
+            # in a CUDA graph, fresh URLs every replay (as kernels_backlink
+            # times bloom), beside the byte-per-bit kernel on the same
+            # batches; each call on its own seed
+            seeds = iter(range(SEED + 200, SEED + 300))
+            for packed, key in ((True, ""), (False, "byte_per_bit_")):
+                filt = words_b if packed else bits_b
+                fn = probe_insert_packed if packed else probe_insert
+                run = (lambda u, m, v, fn=fn, filt=filt:  # noqa: E731
+                       fn(filt, u, m, k=kh))
+                graph[f"{key}graph_ms"] = fresh_graph_ms(
+                    run, kern_b[:n], cfg.url_space_log2, cold=False,
+                    seed=next(seeds))
+                graph[f"{key}graph_cold_ms"] = fresh_graph_ms(
+                    run, [(u, m.clone(), v) for u, m, v in kern_b[:n]],
+                    cfg.url_space_log2, cold=True, seed=next(seeds))
         src, line = (("dedup_deposit", "dedup_deposit/dedup_deposit.py:105")
                      if deposit else ("bloom", "bloom/bloom.py:137"))
         r = row(name, f"src/repro_torch/csrc/{src}.cu",
@@ -2139,7 +2199,8 @@ def phase_packed(sess, errs, n_mixed=3, n_boundary=4):
                 "CONFIG filter)", launches_crawl_path=0,
                 shape=list(masks[0].shape), live_urls=n_live / len(kern_b),
                 new_words=n_new / len(kern_b), byte_per_bit_ms=byte_ms,
-                resending_ms=hit_ms, resending_byte_per_bit_ms=hit_byte_ms)
+                resending_ms=hit_ms, resending_byte_per_bit_ms=hit_byte_ms,
+                **graph)
         if deposit:
             r.update(boundary_ms=ms_boundary,
                      boundary_byte_per_bit_ms=ms_boundary_byte,

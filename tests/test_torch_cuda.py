@@ -108,21 +108,32 @@ def test_select_kernel_matches_plain(cuda, R, C, k, ties):
         assert torch.equal(a, b)
 
 
-def batch(R, M, b, *, seed, dup=0.0, fill=0.7, prefill=0, masked_row=False):
-    """(bits, urls, mask) with repeats within and across tiles; ``prefill``
-    URLs per row inserted before (by the plain version, on the CPU)."""
+def batch(R, M, b, *, seed, dup=0.0, fill=0.7, prefill=0, masked_row=False,
+          k_prefill=3, device="cpu"):
+    """(bits on ``device``, urls, mask) with repeats within and across
+    tiles; the URLs of each row's first ``prefill`` lanes inserted before
+    (by the plain version, with ``k_prefill`` hashes). ``fill`` is the share
+    of live lanes, or one of the crawl's sparse layouts at about 4 live
+    lanes a row: "front" (packed at the row's front, as the dispatch packs
+    them; some rows empty) or "scattered" (anywhere in the row)."""
     rng = np.random.default_rng(seed)
     urls = rng.integers(0, 1 << 30, (R, M)).astype(np.int64)
     rep = rng.random((R, M)) < dup
     urls = np.where(rep, urls[np.arange(R)[:, None],
                               rng.integers(0, M, (R, M))], urls)
-    mask = rng.random((R, M)) < fill
+    if fill == "front":
+        mask = np.arange(M)[None] < rng.poisson(4, R)[:, None]
+    elif fill == "scattered":
+        mask = rng.random((R, M)) < 4 / M
+    else:
+        mask = rng.random((R, M)) < fill
     if masked_row:
         mask[-1] = False
-    bits = torch.zeros((R, 1 << b), dtype=torch.uint8)
+    bits = torch.zeros((R, 1 << b), dtype=torch.uint8, device=device)
     if prefill:
-        bloom_ref(bits, torch.tensor(urls[:, :prefill]),
-                  torch.ones((R, prefill), dtype=torch.bool), k=3)
+        bloom_ref(bits, torch.tensor(urls[:, :prefill], device=device),
+                  torch.ones((R, prefill), dtype=torch.bool, device=device),
+                  k=k_prefill)
     return bits, urls, mask
 
 
@@ -172,6 +183,83 @@ def test_bloom_packed_kernel_matches_plain(cuda, R, M, b, k, dup, prefill,
     assert torch.equal(s1, s2) and torch.equal(w1, w2)
     assert bool((w1 < 0).any())
     if dup or prefill:
+        assert bool(s1.any())
+
+
+# (R, M, b, k, tile, fill, dup, prefill, masked_row): the crawl's (512,
+# 4,096) at b 24 with ~4 live lanes a row, packed at the front and
+# scattered, URLs inserted before re-sent; an all-masked batch; M past the
+# kernel's 4,096-lane window and M not a multiple of the tile; tiles of 1
+# and 1,024 (4 items a thread); dense tiles; k 1, 8, 9 and 33 (past the
+# 32 found bits a thread keeps); small filters
+# (b 5-9), where a later tile is seen through bits that earlier tiles set,
+# some already in the filter. The filter is made on the card, the prefill
+# with the batch's own k.
+LAYOUT_CASES = [
+    (512, 4096, 24, 4, 256, "front", 0.3, 2, False),
+    (512, 4096, 24, 4, 256, "scattered", 0.3, 2048, False),
+    (8, 512, 12, 4, 256, 0.0, 0.0, 64, False),
+    (4, 5000, 14, 4, 256, 0.3, 0.4, 64, False),
+    (2, 10000, 16, 4, 256, 0.05, 0.5, 0, True),
+    (3, 300, 10, 3, 1, 0.7, 0.5, 16, False),
+    (2, 5000, 14, 4, 1024, 0.05, 0.5, 0, False),
+    (4, 1024, 12, 8, 256, 0.95, 0.3, 0, False),
+    (2, 2048, 14, 4, 1024, 0.95, 0.3, 64, False),
+    (3, 700, 8, 1, 128, 0.6, 0.5, 0, False),
+    (2, 600, 10, 8, 128, 0.5, 0.4, 32, False),
+    (2, 600, 10, 9, 128, 0.5, 0.4, 32, False),
+    (2, 600, 14, 33, 128, 0.5, 0.4, 32, False),
+    (3, 512, 5, 2, 32, 0.5, 0.0, 4, False),
+    (3, 512, 7, 3, 64, 0.3, 0.0, 8, False),
+    (2, 1024, 9, 4, 128, 0.2, 0.2, 16, False)]
+
+
+@pytest.mark.parametrize("R,M,b,k,tile,fill,dup,prefill,masked_row",
+                         LAYOUT_CASES)
+def test_bloom_kernel_layouts_match_plain(cuda, R, M, b, k, tile, fill, dup,
+                                          prefill, masked_row):
+    b1, urls, mask = batch(R, M, b, seed=R + M + k + tile, dup=dup,
+                           fill=fill, prefill=prefill, masked_row=masked_row,
+                           k_prefill=k, device=cuda)
+    b2 = b1.clone()
+    u = torch.tensor(urls, device=cuda)
+    m = torch.tensor(mask, device=cuda)
+    n0 = BOPS.KERNEL.launches
+    s1 = BOPS.probe_insert(b1, u, m, k=k, url_tile=tile)
+    s2 = bloom_ref(b2, u, m, k=k, url_tile=min(tile, M))
+    torch.cuda.synchronize()
+    assert BOPS.KERNEL.launches == n0 + 1
+    assert torch.equal(s1, s2) and torch.equal(b1, b2)
+    if prefill and mask.any():
+        assert bool(s1.any())
+
+
+@pytest.mark.parametrize("R,M,b,k,tile,fill,dup,prefill,masked_row",
+                         LAYOUT_CASES + [
+                             (4, 700, 5, 3, 64, 0.6, 0.3, 0, False),
+                             (2, 2048, 5, 8, 1024, 0.9, 0.0, 0, False)])
+def test_bloom_packed_kernel_layouts_match_plain(cuda, R, M, b, k, tile,
+                                                 fill, dup, prefill,
+                                                 masked_row):
+    """As above on int32 words with bit 31 set in many of them; rows of one
+    word (b 5), where every URL of a tile collides on it."""
+    bits, urls, mask = batch(R, M, b, seed=R + M + k + tile + 1, dup=dup,
+                             fill=fill, prefill=prefill,
+                             masked_row=masked_row, k_prefill=k, device=cuda)
+    bits[:, 31::64] = 1
+    w1 = pack_bits(bits)
+    del bits
+    w2 = w1.clone()
+    u = torch.tensor(urls, device=cuda)
+    m = torch.tensor(mask, device=cuda)
+    n0 = BOPS.PACKED.launches
+    s1 = BOPS.probe_insert_packed(w1, u, m, k=k, url_tile=tile)
+    s2 = bloom_packed_ref(w2, u, m, k=k, url_tile=min(tile, M))
+    torch.cuda.synchronize()
+    assert BOPS.PACKED.launches == n0 + 1
+    assert torch.equal(s1, s2) and torch.equal(w1, w2)
+    assert bool((w1 < 0).any())
+    if (dup or prefill) and mask.any():
         assert bool(s1.any())
 
 
