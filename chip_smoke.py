@@ -44,6 +44,22 @@ non-zero):
                frontier and Bloom batches (backlink), the spend scatter
                (opic), the harvest, the dispatch batch and the cell scatter
                (opic_url), captured from the path itself.
+     main_sharded — the opic_url (64 steps) and backlink (32 steps) paths
+               again at webparf.CONFIG with 4 shards batched on the card
+               (128 rows a shard, the per-shard budget of 64 reached every
+               step, exchange buckets of 1,024), counted and profiled as
+               the one-shard path: every shard fetched, cash conserved,
+               and each crawl kernel launched exactly as many times as on
+               the one-shard path (a loop over the shards would launch it
+               4x); a "shards" line puts pages/s, the fetch- and
+               dispatch-step ms, the device events, host syncs and idle
+               share of 1 and 4 shards side by side. sharded_parity: the
+               path's kernels against their plain versions, exact, on the
+               4-shard session's own next calls (the pop; for opic_url
+               a row-sum scatter over the 4 shards' slot cash and a cell
+               scatter; 8 Bloom dispatches, bloom or dedup_deposit,
+               replayed on the filter with what they touch restored,
+               beside the bound their data needs).
      packed  — the packed Bloom family's entry points on the opic_url
                session's filter (512 x 2^24 bits, packed once into 1 GiB
                of int32 words): bloom_packed and dedup_deposit_packed
@@ -56,8 +72,16 @@ non-zero):
                in a CUDA graph on the same fresh batches.
   4. trajectory — the CLI-sized config runs on the card and on the CPU
                (plain versions) for backlink, opic, opic_url fused and
-               opic_url unfused (link_pop_bias=1.0, so twins are hit);
-               every output and state leaf must match.
+               opic_url unfused (link_pop_bias=1.0, so twins are hit), with
+               1 and with 4 shards; every output and state leaf must match.
+     heal    — C4 at the CLI size with 4 shards, backlink and opic_url, on
+               the card and on the CPU: shard 1 fails at a dispatch
+               boundary and is healed at the next; the state before the
+               heal, the heal and the run after it identical on both in
+               every leaf, every URL queued on the card's dead shard
+               queued on a survivor after its heal, and
+               under opic_url the cash balanced across the heal and the
+               run.
   5. lm      — flash_parity: both attention kernels against the plain
                version on small cases (every head dim, GQA groups 1/3/6,
                lengths 32, 192 and 256, causal on and off, f32 and bf16),
@@ -1214,9 +1238,10 @@ def free_card():
     torch.cuda.empty_cache()
 
 
-def phase_main(ordering):
-    """One crawl path at the full config: counts zeroed just before the run
-    and read just after it; the path's kernels must all have launched."""
+def phase_main(ordering, n_shards=1):
+    """One crawl path at the full config over ``n_shards`` shards: counts
+    zeroed just before the run and read just after it; the path's kernels
+    must all have launched, and every shard must have fetched."""
     import torch
     from repro_torch.api import CrawlSession
     from repro_torch.configs import webparf
@@ -1225,8 +1250,9 @@ def phase_main(ordering):
     from repro_torch.ordering.opic import total_cash
     steps, need = PATHS[ordering]
     cfg = scaled(webparf.CONFIG, ordering=ordering)
+    label = f"{ordering} n_shards={n_shards}"
     t0 = time.time()
-    sess = CrawlSession(cfg, device=DEV)
+    sess = CrawlSession(cfg, device=DEV, n_shards=n_shards)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     cash0 = total_cash(sess.state) if ordering != "backlink" else None
@@ -1237,18 +1263,24 @@ def phase_main(ordering):
     counts = launch_counts()
     missing = [n for n in need if counts[n] < 1]
     if missing:
-        raise AssertionError(f"{ordering}: {missing} never launched on the "
+        raise AssertionError(f"{label}: {missing} never launched on the "
                              f"path: {counts}")
     stats = rep.stats
     if rep.steps != steps or rep.fetched != stats["fetched"] or \
             (rep.per_step <= 0).any() or rep.fetched != len(rep.urls):
-        raise AssertionError(f"{ordering}: output malformed: {stats}")
-    out = {"phase": "main", "config": f"webparf.CONFIG ordering={ordering}",
-           "steps": steps}
+        raise AssertionError(f"{label}: output malformed: {stats}")
+    per_shard = rep.stats_per_shard["fetched"]
+    if len(per_shard) != n_shards or (per_shard <= 0).any():
+        raise AssertionError(f"{label}: a shard fetched nothing: "
+                             f"{per_shard}")
+    out = {"phase": "main" if n_shards == 1 else "main_sharded",
+           "config": f"webparf.CONFIG ordering={ordering}",
+           "n_shards": n_shards, "steps": steps,
+           "fetched_per_shard": per_shard.tolist()}
     if cash0 is not None:
         cash = total_cash(sess.state)
         if not np.isfinite(cash) or abs(cash - cash0) > CASH_RTOL * cash0:
-            raise AssertionError(f"{ordering}: total cash {cash} drifted "
+            raise AssertionError(f"{label}: total cash {cash} drifted "
                                  f"from {cash0} beyond rtol {CASH_RTOL}")
         out.update(total_cash_start=cash0, total_cash_end=cash,
                    cash_rel_drift=(cash - cash0) / cash0,
@@ -1274,7 +1306,38 @@ def phase_main(ordering):
                launches_per_step={n: c / steps for n, c in counts.items()},
                stats=stats)
     emit(out)
-    return sess, counts
+    return sess, counts, out
+
+
+SHARDS = 4                  # the partitioned crawl's shards on one card
+
+
+def phase_shards(ordering, one, four):
+    """The 4-shard path against the one-shard path of the same run: each
+    crawl kernel launched as many times in as many steps (the shards are
+    batched, not looped), and the end-to-end numbers side by side. ``one``
+    and ``four`` are (launch counts, main phase line, profile)."""
+    (c1, m1, p1), (c4, m4, p4) = one, four
+    diff = {k: (c1[k], c4[k]) for k in PORT_KERNEL_FNS if c1[k] != c4[k]}
+    if diff:
+        raise AssertionError(f"{ordering}: {SHARDS} shards launch the crawl "
+                             f"kernels other than one shard in "
+                             f"{PATHS[ordering][0]} steps: {diff}")
+
+    def side(m, p):
+        return {"pages_per_s": m["pages_per_s"], "fetched": m["fetched"],
+                "fetch_step_ms": m["fetch_step_ms"],
+                "dispatch_step_ms": m["dispatch_step_ms"],
+                "device_events_per_step": p["device_events_per_call"],
+                "device_busy_ms_per_step": p["device_busy_ms_per_call"],
+                "host_syncs_per_step": p["sync_debug_syncs_per_step"],
+                "stream_syncs_per_step": p["runtime_calls_per_call"].get(
+                    "cudaStreamSynchronize", 0.0),
+                "device_idle_share": p["device_idle_share"]}
+    emit({"phase": "shards", "ordering": ordering, "steps":
+          PATHS[ordering][0], "launches_equal": True,
+          "launches": {k: c4[k] for k in PORT_KERNEL_FNS},
+          "one_shard": side(m1, p1), f"{SHARDS}_shards": side(m4, p4)})
 
 
 def count_syncs(sess, steps):
@@ -1305,8 +1368,9 @@ def phase_profile(sess, steps):
     prof = profile_device(lambda: [sess.step() for _ in range(steps)],
                           steps)
     n_sync, sync_lines = count_syncs(sess, steps)
-    emit({"phase": "profile", "ordering": sess.cfg.ordering, "steps": steps,
-          **prof, "sync_debug_syncs_per_step": n_sync / steps,
+    prof["sync_debug_syncs_per_step"] = n_sync / steps
+    emit({"phase": "profile", "ordering": sess.cfg.ordering,
+          "n_shards": sess.n_shards, "steps": steps, **prof,
           "sync_debug_lines": sync_lines})
     return prof
 
@@ -1315,66 +1379,185 @@ TRAJECTORIES = (("backlink", True), ("opic", True), ("opic_url", True),
                 ("opic_url", False))
 
 
-def phase_trajectory(steps=32):
-    import torch
-    from repro_torch.api import CrawlSession
+def cli_config():
+    """launch/crawl.py's CLI size: 32 domains x 512, Bloom rows of 2^16."""
     from repro_torch.configs import webparf
     from repro_torch.configs.base import scaled
-    from repro_torch.core.stages import state_to_numpy
-    # launch/crawl.py's CLI size: 32 domains x 512, Bloom rows of 2^16
-    base = scaled(webparf.CONFIG, n_domains=32, frontier_capacity=512,
+    return scaled(webparf.CONFIG, n_domains=32, frontier_capacity=512,
                   fetch_batch=32, bloom_bits_log2=16, dispatch_capacity=1024,
                   url_space_log2=24)
+
+
+def diff_runs(reps, states):
+    """The outputs and state leaves in which the cuda and cpu runs
+    differ."""
+    a, b = reps["cuda"], reps["cpu"]
+    diffs = [n for n in ("urls", "per_step")
+             if not np.array_equal(getattr(a, n), getattr(b, n))]
+    diffs += ["stats"] if a.stats != b.stats else []
+    diffs += [n for n in ("fetched", "dispatch_sent", "dispatch_recv")
+              if not np.array_equal(a.stats_per_shard[n],
+                                    b.stats_per_shard[n])]
+    diffs += [n for n in states["cuda"]
+              if not np.array_equal(states["cuda"][n], states["cpu"][n])]
+    return diffs
+
+
+def phase_trajectory(steps=32):
+    """Each ordering at the CLI size, on the card and on the CPU, with one
+    shard and with SHARDS shards: every output and state leaf identical."""
+    import torch
+    from repro_torch.api import CrawlSession
+    from repro_torch.configs.base import scaled
+    from repro_torch.core.stages import state_to_numpy
+    base = cli_config()
     out = {"phase": "trajectory", "config": dataclasses.asdict(base),
            "steps": steps, "runs": []}
-    for ordering, fused in TRAJECTORIES:
-        cfg = scaled(base, ordering=ordering, fused_dispatch=fused,
-                     link_pop_bias=0.0 if ordering == "backlink" else 1.0)
-        reps, states = {}, {}
-        for key, dev in (("cuda", DEV), ("cpu", "cpu")):
-            sess = CrawlSession(cfg, device=dev)
-            reps[key] = sess.run(steps)
-            states[key] = state_to_numpy(sess.state)
-        torch.cuda.synchronize()
-        a, b = reps["cuda"], reps["cpu"]
-        diffs = [n for n in ("urls", "per_step")
-                 if not np.array_equal(getattr(a, n), getattr(b, n))]
-        diffs += ["stats"] if a.stats != b.stats else []
-        diffs += [n for n in states["cuda"]
-                  if not np.array_equal(states["cuda"][n], states["cpu"][n])]
-        label = f"{ordering} fused_dispatch={fused}"
-        if diffs:
-            raise AssertionError(f"{label}: cuda and cpu trajectories "
-                                 f"differ in {diffs}")
-        if a.stats["dedup_bloom"] < 1:
-            raise AssertionError(f"{label}: the trajectory never exercised "
-                                 f"the Bloom dedup")
-        out["runs"].append({"ordering": ordering, "fused_dispatch": fused,
-                            "link_pop_bias": cfg.link_pop_bias,
-                            "identical": True, "fetched": a.fetched,
-                            "dedup_bloom": a.stats["dedup_bloom"]})
+    for n_shards in (1, SHARDS):
+        for ordering, fused in TRAJECTORIES:
+            cfg = scaled(base, ordering=ordering, fused_dispatch=fused,
+                         link_pop_bias=0.0 if ordering == "backlink" else 1.0)
+            reps, states = {}, {}
+            for key, dev in (("cuda", DEV), ("cpu", "cpu")):
+                sess = CrawlSession(cfg, device=dev, n_shards=n_shards)
+                reps[key] = sess.run(steps)
+                states[key] = state_to_numpy(sess.state)
+            torch.cuda.synchronize()
+            a = reps["cuda"]
+            label = f"{ordering} fused_dispatch={fused} n_shards={n_shards}"
+            diffs = diff_runs(reps, states)
+            if diffs:
+                raise AssertionError(f"{label}: cuda and cpu trajectories "
+                                     f"differ in {diffs}")
+            if a.stats["dedup_bloom"] < 1:
+                raise AssertionError(f"{label}: the trajectory never "
+                                     f"exercised the Bloom dedup")
+            out["runs"].append({"ordering": ordering, "fused_dispatch": fused,
+                                "n_shards": n_shards,
+                                "link_pop_bias": cfg.link_pop_bias,
+                                "identical": True, "fetched": a.fetched,
+                                "dedup_bloom": a.stats["dedup_bloom"]})
     emit(out)
 
 
-def capture_calls(modules, attr, drive, n, pick=lambda args: True):
+HEAL_DEAD = 1               # the shard that fails in the heal phase
+
+
+def phase_heal():
+    """C4 at the CLI size over SHARDS shards, on the card and on the CPU:
+    shard HEAL_DEAD fails at one dispatch boundary and is healed at the
+    next. The state before the heal, the heal and the run after it must be
+    identical on both devices in every leaf, every URL queued on the card's
+    dead shard must be queued on a survivor after the card's heal, and
+    under opic_url the cash must balance."""
+    import torch
+    from repro_torch.api import CrawlSession
+    from repro_torch.configs.base import scaled
+    from repro_torch.core.stages import state_to_numpy
+    from repro_torch.ordering.opic import total_cash
+    base = cli_config()
+    iv = base.dispatch_interval
+    out = {"phase": "heal", "n_shards": SHARDS, "dead_shard": HEAL_DEAD,
+           "runs": []}
+    for ordering in ("backlink", "opic_url"):
+        cfg = scaled(base, ordering=ordering,
+                     link_pop_bias=0.0 if ordering == "backlink" else 1.0)
+        reps, states, before, healed, cash = {}, {}, {}, {}, {}
+        for key, dev in (("cuda", DEV), ("cpu", "cpu")):
+            sess = CrawlSession(cfg, device=dev, n_shards=SHARDS)
+            cash0 = total_cash(sess.state)
+            sess.run(2 * iv)
+            sess.inject_failure(HEAL_DEAD)
+            sess.run(iv)
+            before[key] = state_to_numpy(sess.state)
+            cash_before = total_cash(sess.state)
+            sess.heal()
+            healed[key] = state_to_numpy(sess.state)
+            cash_healed = total_cash(sess.state)
+            reps[key] = sess.run(2 * iv)
+            states[key] = state_to_numpy(sess.state)
+            cash[key] = (cash0, cash_before, cash_healed,
+                         total_cash(sess.state))
+        torch.cuda.synchronize()
+        label = f"heal {ordering}"
+        diffs = diff_runs(reps, states) + [
+            f"{when}.{n}" for when, s in (("before_heal", before),
+                                          ("healed", healed))
+            for n in s["cuda"] if not np.array_equal(s["cuda"][n],
+                                                     s["cpu"][n])]
+        if diffs:
+            raise AssertionError(f"{label}: cuda and cpu differ in {diffs}")
+        per = cfg.n_slots // SHARDS
+        dead = np.zeros(cfg.n_slots, bool)
+        dead[HEAL_DEAD * per:(HEAL_DEAD + 1) * per] = True
+        pre, after = before["cuda"], healed["cuda"]
+        queued = set(pre["f_url"][dead][pre["f_valid"][dead]].tolist())
+        kept = set(after["f_url"][~dead][after["f_valid"][~dead]].tolist())
+        lost = queued - kept
+        if not queued or lost:
+            raise AssertionError(f"{label}: {len(lost)} of {len(queued)} "
+                                 f"URLs queued on the dead shard lost")
+        if reps["cuda"].fetched < 1:
+            raise AssertionError(f"{label}: nothing fetched after the heal")
+        run = {"ordering": ordering, "identical": True,
+               "queued_on_dead_shard": len(queued), "lost": 0,
+               "fetched_after_heal": reps["cuda"].fetched,
+               "fetched_per_shard_whole_run":
+                   reps["cuda"].stats_per_shard["fetched"].tolist()}
+        if ordering == "opic_url":
+            c0, cb, ch, c1 = cash["cuda"]
+            if abs(ch - cb) > CASH_RTOL * cb or abs(c1 - c0) > CASH_RTOL * c0:
+                raise AssertionError(f"{label}: cash {c0} -> {cb} (before "
+                                     f"the heal) -> {ch} (after) -> {c1}")
+            run.update(total_cash_start=c0, total_cash_before_heal=cb,
+                       total_cash_after_heal=ch, total_cash_end=c1,
+                       cash_rtol=CASH_RTOL)
+        out["runs"].append(run)
+    emit(out)
+
+
+def twin(x):
+    """A copy of ``x`` laid out as ``x`` is: the same strides and storage
+    offset, so a strided view of a wider array stays one."""
+    import torch
+    span = 1 + sum((n - 1) * s for n, s in zip(x.shape, x.stride()))
+    buf = torch.empty(x.storage_offset() + span, dtype=x.dtype,
+                      device=x.device)
+    y = buf.as_strided(x.shape, x.stride(), x.storage_offset())
+    y.copy_(x)
+    return y
+
+
+CAPTURE_DRIVES = 256        # drives capture_calls makes before it fails
+
+
+def capture_calls(modules, attr, drive, n, pick=lambda args: True,
+                  layout=False):
     """The arguments of the next ``n`` calls to ``attr`` (patched on every
     module in ``modules``, where the path looks it up) for which
-    ``pick(args)`` holds, cloned as they were passed (strided views stay
-    strided), while ``drive()`` (a session's step, a prefill) runs."""
+    ``pick(args)`` holds, cloned as they were passed (``layout``: with
+    their strides and offsets, ``twin``), while ``drive()`` (a session's
+    step, a prefill) runs, at most CAPTURE_DRIVES times."""
     import torch
     got = []
     origs = [getattr(m, attr) for m in modules]
+    copy = twin if layout else (lambda a: a.clone())
 
     def spy(*args, **kw):
         if len(got) < n and pick(args):
-            got.append(([a.clone() if isinstance(a, torch.Tensor) else a
+            got.append(([copy(a) if isinstance(a, torch.Tensor) else a
                          for a in args], dict(kw)))
         return origs[0](*args, **kw)
     for m in modules:
         setattr(m, attr, spy)
     try:
-        while len(got) < n:
+        for _ in range(CAPTURE_DRIVES):
+            if len(got) >= n:
+                break
             drive()
+        if len(got) < n:
+            raise AssertionError(f"{attr}: {len(got)} of {n} calls in "
+                                 f"{CAPTURE_DRIVES} drives")
     finally:
         for m, o in zip(modules, origs):
             setattr(m, attr, o)
@@ -1847,6 +2030,107 @@ class DedupReplay:
         return t
 
 
+def capture_bloom(sess, n):
+    """The next n ``bloom`` calls of the path's dispatches (``dedup.
+    probe_insert``): the batch (urls, mask) cloned, the filter bytes it
+    probes with their values before the call, and the call's ``seen`` in
+    the crawl."""
+    import torch
+    from repro_torch.core import dedup as DD
+    b = sess.cfg.bloom_bits_log2
+    got = []
+    orig = DD.probe_insert
+
+    def spy(bl, urls, mask, *, k, url_tile=256):
+        if len(got) >= n:
+            return orig(bl, urls, mask, k=k, url_tile=url_tile)
+        rows = torch.nonzero(mask)[:, :1]
+        pos = torch.unique(
+            (rows * (1 << b) + DD._bit_indices(urls, k, b)[mask]).view(-1))
+        c = {"urls": urls.clone(), "mask": mask.clone(), "tile": url_tile,
+             "pos": pos, "bits0": bl.bits.view(-1)[pos].clone()}
+        seen, out = orig(bl, urls, mask, k=k, url_tile=url_tile)
+        c["crawl"] = seen.clone()
+        got.append(c)
+        return seen, out
+    DD.probe_insert = spy
+    try:
+        for _ in range(8 * n * sess.cfg.dispatch_interval):
+            if len(got) >= n:
+                break
+            sess.step()
+    finally:
+        DD.probe_insert = orig
+    if len(got) < n:
+        raise AssertionError(f"bloom: {len(got)} of {n} dispatches captured")
+    return got
+
+
+class BloomReplay:
+    """Captured ``bloom`` calls (``capture_bloom``) replayed on the
+    session's own filter, as ``DedupReplay`` replays dedup_deposit's: each
+    replay first puts every probed byte back as it was before the first
+    call. ``check(fn)`` holds fn's seen and filter bytes to the plain
+    version's with torch.equal, after holding the plain version's seen to
+    the crawl's own."""
+
+    def __init__(self, bits, caps, k):
+        import torch
+        from repro_torch.kernels.bloom.ref import bloom_ref
+        self.bits, self.flat, self.caps, self.k = bits, bits.view(-1), caps, k
+        self.want = self.run_all(bloom_ref)
+        for i, (c, w) in enumerate(zip(caps, self.want)):
+            if not torch.equal(w[0], c["crawl"]):
+                raise AssertionError(f"bloom replay {i}: the plain "
+                                     f"version's seen differs from the "
+                                     f"crawl's call (the restore or the "
+                                     f"kernel is wrong)")
+
+    def restore(self):
+        for c in reversed(self.caps):
+            self.flat[c["pos"]] = c["bits0"]
+
+    def call(self, i, fn):
+        c = self.caps[i]
+        return fn(self.bits, c["urls"], c["mask"], k=self.k,
+                  url_tile=c["tile"])
+
+    def run_all(self, fn):
+        """Restore, then every call in order: [(seen, filter bytes after)];
+        the filter is left as the crawl left it."""
+        self.restore()
+        return [(self.call(i, fn), self.flat[c["pos"]].clone())
+                for i, c in enumerate(self.caps)]
+
+    def check(self, fn, label):
+        import torch
+        got = self.run_all(fn)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, self.want)):
+            for a, b_, what in zip(g, w, ("seen", "filter")):
+                if not torch.equal(a, b_):
+                    raise AssertionError(f"{label}: captured call {i}: "
+                                         f"{what} differs from the plain "
+                                         f"version")
+
+    def nbytes(self, kh, b):
+        """What a call must move, on average (``bloom_bytes``, plus the
+        bytes it newly sets)."""
+        nbytes, _, _ = bloom_bytes([(c["urls"], c["mask"])
+                                    for c in self.caps], kh, b)
+        new = sum(int(((c["bits0"] == 0) & (w[1] == 1)).sum())
+                  for c, w in zip(self.caps, self.want))
+        return (nbytes + new) / len(self.caps)
+
+    def graph_ms(self, fn):
+        """Milliseconds a call takes in one CUDA graph that makes every
+        captured call once, in order, the filter restored before each
+        replay (outside the timed span); the last replay leaves it as the
+        crawl left it."""
+        calls = [lambda i=i: self.call(i, fn) for i in range(len(self.caps))]
+        return replay_ms(calls, self.restore)
+
+
 def kernels_opic(sess):
     """opic_update at the opic path's spend: the stage's own (1, 8192)
     items onto the 512 slot cash entries, with its longest per-target
@@ -2212,6 +2496,127 @@ def phase_packed(sess, errs, n_mixed=3, n_boundary=4):
     return rows_
 
 
+def hold_to_plain(label, kern, plain, args, kw):
+    """``kern`` and ``plain`` on copies (``twin``) of one captured call's
+    arguments: every output and every argument they update in place must
+    be identical. Returns the largest absolute difference, 0."""
+    import torch
+    a = [twin(x) if isinstance(x, torch.Tensor) else x for x in args]
+    b = [twin(x) if isinstance(x, torch.Tensor) else x for x in args]
+    got, want = kern(*a, **kw), plain(*b, **kw)
+    torch.cuda.synchronize()
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+    for i, (x, y) in enumerate(zip(as_tuple(got) + tuple(a),
+                                   as_tuple(want) + tuple(b))):
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            raise AssertionError(f"{label}: output or argument {i} differs "
+                                 f"from the plain version")
+    return 0.0
+
+
+def phase_sharded_parity(sess):
+    """The path's crawl kernels against their plain versions on the
+    SHARDS-shard session's own next calls, whose inputs differ from one
+    shard's (the frontier's content, the row sums into the shards' slot
+    cash as n_shards rows of r_local targets, denser dispatch batches):
+    the pop (frontier_select; select_harvest with its url lane laid out as
+    the path lays it out), for opic_url the first row-sum scatter into the
+    slot cash and the first cell scatter (both opic_update), and the Bloom
+    dedup (bloom; dedup_deposit) over DEDUP_CALLS dispatches, replayed on
+    the 8 GiB filter with what they touch restored. Every output and
+    every argument updated in place must be identical. Returns per kernel
+    what was checked, with the Bloom dedup's bound and CUDA-graph time at
+    this density."""
+    import torch
+    from repro_torch.core import frontier as F
+    from repro_torch.core import stages as ST
+    from repro_torch.kernels.bloom.ops import probe_insert
+    from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
+    from repro_torch.kernels.frontier_select.ops import select, select_harvest
+    from repro_torch.kernels.frontier_select.ref import (select_harvest_ref,
+                                                         select_ref)
+    from repro_torch.kernels.opic_update import ops as OPS
+    from repro_torch.kernels.opic_update.ref import opic_ref
+    cfg = sess.cfg
+    kh, b = cfg.bloom_hashes, cfg.bloom_bits_log2
+    label = f"{cfg.ordering} n_shards={sess.n_shards}"
+    out = {}
+
+    def pop(name, attr, kern, plain):
+        (args, kw), = capture_calls([F], attr, sess.step, 1, layout=True)
+        out[name] = {"max_abs_err": hold_to_plain(f"{label} {name}", kern,
+                                                  plain, args, kw),
+                     "shape": list(args[0].shape), "k": kw["k"],
+                     "valid_cells": int(args[2].sum())}
+
+    def scatter(what, module, pick):
+        (args, kw), = capture_calls([module], "scatter_cash", sess.step, 1,
+                                    pick=lambda a: pick(a) and
+                                    bool(a[3].any()), layout=True)
+        cash, rows, _, mask = args
+        R = cash.shape[1]
+        live = mask & (rows >= -R) & (rows < R)
+        return {f"{what}_max_abs_err": hold_to_plain(
+                    f"{label} opic_update ({what})", OPS.scatter_cash,
+                    opic_ref, args, kw),
+                f"{what}_shape": [*cash.shape, rows.shape[1]],
+                f"{what}_live_items": int(live.sum()),
+                f"{what}_max_items_per_target": max_items_per_target(
+                    cash, rows, live)}
+
+    def replayed(name, rep, kern, extra):
+        rep.check(kern, f"{label} {name}")
+        out[name] = {"max_abs_err": 0.0, "captured_calls": len(rep.caps),
+                     "shape": list(rep.caps[0]["mask"].shape), **extra}
+
+    if cfg.ordering == "opic_url":
+        pop("select_harvest", "_kernel_harvest", select_harvest,
+            select_harvest_ref)
+        out["opic_update"] = {
+            **scatter("row_sum", ST, lambda a: a[0].shape[0] ==
+                      sess.n_shards),
+            **scatter("cells", OPS, lambda a: a[1].shape[1] > 1)}
+        rep = DedupReplay(sess.state.bloom_bits,
+                          capture_dedup(sess, DEDUP_CALLS), kh)
+        live, seen, twins = rep.counts()
+        n = len(rep.caps)
+        replayed("dedup_deposit", rep, dedup_deposit, {
+            "live_urls": live / n, "seen": seen / n, "twins": twins / n,
+            "graph_ms": rep.graph_ms(dedup_deposit, cold=False),
+            "graph_cold_ms": rep.graph_ms(dedup_deposit, cold=True),
+            "bound_ms": 1e3 * rep.nbytes(kh) / HBM_BYTES_PER_S})
+    else:
+        pop("frontier_select", "_kernel_select", select, select_ref)
+        rep = BloomReplay(sess.state.bloom_bits,
+                          capture_bloom(sess, DEDUP_CALLS), kh)
+        n = len(rep.caps)
+        replayed("bloom", rep, probe_insert, {
+            "live_urls": sum(int(c["mask"].sum()) for c in rep.caps) / n,
+            "seen": sum(int(w[0].sum()) for w in rep.want) / n,
+            "graph_ms": rep.graph_ms(probe_insert),
+            "bound_ms": 1e3 * rep.nbytes(kh, b) / HBM_BYTES_PER_S})
+    torch.cuda.synchronize()
+    emit({"phase": "sharded_parity", "ordering": cfg.ordering,
+          "n_shards": sess.n_shards, "tolerance": "exact (torch.equal)",
+          "kernels": out})
+    return out
+
+
+def main_sharded(ordering, one):
+    """The path over SHARDS shards at the full config, profiled as the
+    one-shard path ``one`` was, held against it (``phase_shards``), and its
+    kernels held against their plain versions on its own calls
+    (``phase_sharded_parity``). Returns its launch counts and what that
+    parity check found."""
+    sess, counts, line = phase_main(ordering, n_shards=SHARDS)
+    prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
+    checked = phase_sharded_parity(sess)
+    del sess
+    free_card()
+    phase_shards(ordering, one, (counts, line, prof))
+    return counts, checked
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2222,25 +2627,31 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     errs = phase_parity()
-    rows_ = {}
-    sess, counts = phase_main("opic_url")
+    rows_, sharded, checked = {}, {}, {}
+    sess, counts, main1 = phase_main("opic_url")
     steps = PATHS["opic_url"][0]
     prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
     rows_["opic_url"] = kernels_opic_url(sess, counts, errs, steps, prof)
     rows_["packed"] = phase_packed(sess, errs)
     del sess
     free_card()
-    sess, counts_opic = phase_main("opic")
+    sharded["opic_url"], checked["opic_url"] = main_sharded(
+        "opic_url", (counts, main1, prof))
+    sess, counts_opic, _ = phase_main("opic")
     spend = kernels_opic(sess)
     del sess
     free_card()
-    sess, counts_bl = phase_main("backlink")
+    sess, counts_bl, main1 = phase_main("backlink")
     prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
     rows_["backlink"] = kernels_backlink(sess, counts_bl, errs,
                                          PATHS["backlink"][0], prof)
     del sess
     free_card()
+    sharded["backlink"], checked["backlink"] = main_sharded(
+        "backlink", (counts_bl, main1, prof))
     phase_trajectory()
+    free_card()
+    phase_heal()
     free_card()
     flash = phase_flash_parity()
     model, captured, counts_lm = phase_lm_serve()
@@ -2256,6 +2667,10 @@ def main() -> int:
     kernels = (rows_["backlink"] + rows_["opic_url"] + rows_["lm"]
                + rows_["packed"])
     for r in kernels:
+        if r.get("path") in sharded:
+            r[f"launches_{SHARDS}_shards"] = sharded[r["path"]][r["name"]]
+            r[f"checked_on_{SHARDS}_shard_calls"] = checked[r["path"]][
+                r["name"]]
         if r["name"] == "opic_update":
             r.update(spend, launches_opic_path=counts_opic["opic_update"],
                      launches_per_step_opic_path=(

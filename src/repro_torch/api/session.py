@@ -1,10 +1,14 @@
 """CrawlSession — the entry point of the port. Counterpart of
 ``repro/api/session.py``.
 
-    sess = CrawlSession(cfg)              # state built on the card
+    sess = CrawlSession(cfg, n_shards=4)  # state built on the card
     rep = sess.run(64)                    # N cycles -> typed CrawlReport
-    sess.inject_failure(0)                # C4: a crawl process fails
+    sess.inject_failure(1); sess.heal()   # C4 controls
     sess.checkpoint(d); sess.restore(d)   # the JAX package's .npz format
+
+``n_shards`` is the JAX session's mesh size: the shards are batched along
+the state's leading axis on one device, and a step launches each kernel
+once for all of them.
 
 The JAX session fuses a dispatch interval into one jitted ``lax.scan``
 (``run_chunk``); PyTorch runs eagerly, so here a chunk is a plain loop over
@@ -35,14 +39,16 @@ Events = Dict[int, Callable]   # step index -> state transform, applied
 
 class CrawlSession:
     """Owns the device, the step function, the crawl state and the step
-    counter. One shard: the port does not emulate several yet."""
+    counter of ``n_shards`` crawl processes (any count that divides the
+    config's domains and slots)."""
 
     def __init__(self, cfg: CrawlConfig, device: Optional[Device] = None, *,
+                 n_shards: int = 1,
                  classify_accuracy: float = CLS.DEFAULT_ACCURACY,
                  extra_stages: Sequence = ()):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.n_shards = 1
+        self.n_shards = n_shards
         self._step_fn = CR.make_crawl_step(
             cfg, n_shards=self.n_shards, device=self.device,
             classify_accuracy=classify_accuracy,
@@ -142,6 +148,24 @@ class CrawlSession:
         self.state = CR.mark_dead(self.state, shards)
         return self
 
+    def heal(self, shards: Union[int, Sequence[int], None] = None
+             ) -> "CrawlSession":
+        """Rebalance dead shards' domains onto the survivors (wraps
+        ``train.fault.heal_crawler``). Defaults to every shard dead in
+        ``state.shard_alive``."""
+        from repro_torch.train.fault import heal_crawler
+        if shards is None:
+            shards = [int(s) for s in
+                      np.flatnonzero(~self.state.shard_alive.cpu().numpy())]
+        elif isinstance(shards, int):
+            shards = [shards]
+        else:
+            shards = list(shards)
+        if not shards:
+            raise ValueError("heal: no dead shards in state and none given")
+        self.state = heal_crawler(self.state, self.cfg, shards, self.n_shards)
+        return self
+
     def checkpoint(self, ckpt_dir: str, *, keep: int = 3) -> str:
         """Write the full crawl state atomically in the JAX package's
         checkpoint format; returns the path."""
@@ -152,9 +176,14 @@ class CrawlSession:
     def restore(self, ckpt_dir: str, *, step: Optional[int] = None
                 ) -> "CrawlSession":
         """Restore a state (latest step by default, from either package)
-        and resync the step counter."""
+        and resync the step counter. Its shard count must be the
+        session's."""
         from repro_torch.train import checkpoint as ckpt
-        self.state = state_from_numpy(ckpt.load(ckpt_dir, step=step),
-                                      self.device)
+        arrays = ckpt.load(ckpt_dir, step=step)
+        if arrays["stats"].shape[0] != self.n_shards:
+            raise ValueError(f"restore: the checkpoint holds "
+                             f"{arrays['stats'].shape[0]} shards, the "
+                             f"session {self.n_shards}")
+        self.state = state_from_numpy(arrays, self.device)
         self._t = int(self.state.step)
         return self

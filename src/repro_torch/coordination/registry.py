@@ -28,7 +28,9 @@ class DispatchPlan(NamedTuple):
 class CoordinationPolicy(NamedTuple):
     """One coordination mode. The flags decide what the dispatch stage
     runs; ``plan`` is (ctx, state, shard, u, src, val, dest, staged, valid)
-    -> DispatchPlan."""
+    -> DispatchPlan, for every shard's staged items at once: the item
+    tensors are (n_shards, S) and ``shard`` is each item's sending shard,
+    (n_shards, 1), so that a mode can test ``dest != shard``."""
     name: str
     communicates: bool
     uses_outbox: bool

@@ -3,9 +3,10 @@ Counterpart of ``repro/core/router.py``.
 
 ``position_in_bucket`` assigns each item its slot in its destination's
 bucket (arrival order kept; items past ``capacity`` drop), ``pack_buckets``
-scatters the items into (n_dest, capacity) buckets, and ``exchange`` is the
-all_to_all of the JAX module written over a leading shard axis: a
-transpose, the identity at one shard.
+scatters the items into (n_dest, capacity) buckets, each source shard its
+own when the items carry a leading shard axis, and ``exchange`` is the
+all_to_all of the JAX module written over that leading shard axis: a
+transpose.
 """
 from __future__ import annotations
 
@@ -17,9 +18,11 @@ import torch
 def position_in_bucket(dest: torch.Tensor, n_dest: int, capacity: int, *,
                        valid: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dest (N,) destination per item. Returns (slot (N,), keep (N,)):
-    slot is the item's position within its bucket counted over the valid
-    items before it; keep is False past ``capacity`` or where not valid."""
+    """dest (..., N) destination per item (trailing axis = items; leading
+    axes are independent batches, e.g. source shards). Returns (slot
+    (..., N), keep (..., N)): slot is the item's position within its bucket
+    counted over the valid items before it in its batch; keep is False past
+    ``capacity`` or where not valid."""
     onehot = torch.nn.functional.one_hot(dest.to(torch.int64), n_dest)
     if valid is not None:
         onehot = onehot * valid[..., None].to(onehot.dtype)
@@ -34,21 +37,28 @@ def position_in_bucket(dest: torch.Tensor, n_dest: int, capacity: int, *,
 def pack_buckets(payload: torch.Tensor, dest: torch.Tensor, n_dest: int,
                  capacity: int, *, valid: Optional[torch.Tensor] = None,
                  fill=0, return_keep: bool = False):
-    """Scatter items payload (N, ...) into buckets (n_dest, capacity, ...).
+    """Scatter items payload (..., N, ...) into buckets (..., n_dest,
+    capacity, ...), where ``dest`` is (..., N): each leading batch (a
+    source shard) packs its own buckets, in its own arrival order.
 
-    Returns (buckets, bucket_mask (n_dest, capacity) bool, dropped count)
-    and, with ``return_keep``, the per-item keep mask. Kept items own
-    distinct (dest, slot) cells, so the scatter has no collisions."""
+    Returns (buckets, bucket_mask (..., n_dest, capacity) bool, dropped
+    count per batch) and, with ``return_keep``, the per-item keep mask.
+    Kept items own distinct (batch, dest, slot) cells, so the scatter has
+    no collisions."""
     slot, keep = position_in_bucket(dest, n_dest, capacity, valid=valid)
-    buckets = torch.full((n_dest, capacity) + tuple(payload.shape[1:]), fill,
+    lead = tuple(dest.shape[:-1])
+    buckets = torch.full(lead + (n_dest, capacity)
+                         + tuple(payload.shape[dest.dim():]), fill,
                          dtype=payload.dtype, device=payload.device)
-    d, s = dest.to(torch.int64)[keep], slot[keep]
-    buckets[d, s] = payload[keep]
-    mask = torch.zeros((n_dest, capacity), dtype=torch.bool,
+    mask = torch.zeros(lead + (n_dest, capacity), dtype=torch.bool,
                        device=payload.device)
-    mask[d, s] = True
-    n_valid = valid.sum() if valid is not None else dest.numel()
-    dropped = n_valid - keep.sum()
+    idx = keep.nonzero(as_tuple=True)
+    cell = (*idx[:-1], dest.to(torch.int64)[idx], slot[idx])
+    buckets[cell] = payload[idx]
+    mask[cell] = True
+    n_valid = (valid.sum(-1) if valid is not None
+               else torch.full(lead, dest.shape[-1], device=dest.device))
+    dropped = n_valid - keep.sum(-1)
     if return_keep:
         return buckets, mask, dropped, keep
     return buckets, mask, dropped
@@ -57,5 +67,7 @@ def pack_buckets(payload: torch.Tensor, dest: torch.Tensor, n_dest: int,
 def exchange(buckets: torch.Tensor) -> torch.Tensor:
     """All-to-all over a leading shard axis: ``buckets`` is
     (n_src, n_dest, capacity, ...); shard i's bucket j goes to shard j's
-    row i, i.e. a transpose of the two leading axes."""
+    row i, i.e. a transpose of the two leading axes. Shard j then holds
+    every source's bucket j in source order, as the JAX package's tiled
+    ``all_to_all`` (``concat_axis=0``) leaves it."""
     return buckets.transpose(0, 1).contiguous()

@@ -27,9 +27,20 @@ Scores are computed from the slot columns of ``order_state`` as they were
 when the stage began, as in the JAX stages; a stage that changes slot cash
 works on a copy of column 0 and writes it back at its end.
 
+The shards are batched along the leading axis. The mesh's shard axis of
+the JAX package becomes the state's own layout: row-indexed leaves hold
+every shard's rows (shard s owns rows [s * r, (s + 1) * r)) and
+shard-indexed leaves one row per shard. Every stage runs once for all
+shards: a kernel sees all n_slots rows (the spend scatter all n_shards
+rows) in one launch, per-shard work (the fetch budget, exact dedup,
+staging, the exchange's buckets) runs along a leading shard axis, and
+``lax.axis_index`` becomes the shard vector ``StageContext.shard``. Stat
+deltas are (n_shards,) vectors, or scalars that every shard adds.
+
 This slice of the port covers ``exchange`` coordination, any partitioning
-policy, any ordering, and one shard. ``check_supported`` refuses the rest
-with the ROADMAP item that will port it.
+policy, any ordering, and any shard count that divides the domains and
+slots. ``check_supported`` refuses the rest with the ROADMAP item that
+will port it.
 """
 from __future__ import annotations
 
@@ -132,7 +143,7 @@ class StageContext(NamedTuple):
     """Static per-build inputs every stage shares."""
     cfg: CrawlConfig
     n_shards: int
-    shard: int                   # this shard's index
+    shard: torch.Tensor          # (n_slots,) int64: the shard of each row
     score_fn: Callable           # (urls, cfg, state, val=None) -> [0, 1)
     classify_accuracy: float
     cumw: torch.Tensor           # static Zipf cumulative weights
@@ -147,9 +158,9 @@ class StageContext(NamedTuple):
 
 
 class StepCarry(NamedTuple):
-    """Intra-step dataflow between stages (one shard's view)."""
-    shard: int                   # this shard's index
-    alive: torch.Tensor          # () bool
+    """Intra-step dataflow between stages (every shard's rows)."""
+    shard: torch.Tensor          # (n_slots,) the shard of each row
+    alive: torch.Tensor          # (n_slots,) bool: the row's shard is alive
     urls: torch.Tensor           # (r, k) URLs popped this step (0 if masked)
     sel: torch.Tensor            # (r, k) actually-fetched mask
     true_dom: torch.Tensor       # (r, k) analyzer's domain
@@ -187,10 +198,9 @@ def check_supported(cfg: CrawlConfig, n_shards: int) -> None:
         raise NotImplementedError(
             "rebalance_threshold > 0 is not ported yet (ROADMAP Queue 1: "
             "rebalance/policy.py, after the C4 heal slice)")
-    if n_shards != 1:
-        raise NotImplementedError(
-            "n_shards > 1 is not ported yet (ROADMAP Queue 1, slice 1b: "
-            "multi-shard emulation over a leading shard axis)")
+    if n_shards < 1 or cfg.n_domains % n_shards or cfg.n_slots % n_shards:
+        raise ValueError(f"{cfg.n_domains} domains / {cfg.n_slots} slots do "
+                         f"not split over {n_shards} shards")
     if cfg.kernel_impl != "auto":
         raise ValueError(
             f"kernel_impl={cfg.kernel_impl!r}: the port dispatches by device "
@@ -214,20 +224,30 @@ def with_frontier(s: CrawlState, f: F.Frontier) -> CrawlState:
 
 
 def add_to_rows(slot_cash: torch.Tensor, rows: torch.Tensor,
-                vals: torch.Tensor, mask: torch.Tensor) -> None:
-    """slot_cash (r,) += the masked values at their rows, in item order
-    (the ``opic_update`` kernel); the JAX stages' ``.at[...].add`` with
-    masked items dropped."""
-    scatter_cash(slot_cash[None],
-                 rows.reshape(1, -1).to(torch.int64).contiguous(),
-                 vals.reshape(1, -1).contiguous(),
-                 mask.reshape(1, -1).contiguous())
+                vals: torch.Tensor, mask: torch.Tensor, n_shards: int
+                ) -> None:
+    """slot_cash (n_slots,) += the masked values at their rows, in item
+    order (the ``opic_update`` kernel, one launch for all shards); the JAX
+    stages' ``.at[...].add`` with masked items dropped. rows/vals/mask hold
+    each shard's items along a leading axis (n_shards, ...), and a row is
+    local to its shard, so a shard's items reach only its own rows."""
+    scatter_cash(slot_cash.view(n_shards, -1),
+                 rows.reshape(n_shards, -1).to(torch.int64).contiguous(),
+                 vals.reshape(n_shards, -1).contiguous(),
+                 mask.reshape(n_shards, -1).contiguous())
+
+
+def per_shard(ctx: StageContext, x: torch.Tensor) -> torch.Tensor:
+    """Count a row-indexed mask (n_slots, ...) per shard: (n_shards,)."""
+    return x.reshape(ctx.n_shards, -1).sum(1)
 
 
 def apply_delta(state: CrawlState, delta: StatsDelta) -> CrawlState:
-    """Fold a stage's stat increments into the shard-local stats row."""
+    """Fold a stage's stat increments into the stats rows: an (n_shards,)
+    vector adds per shard, a scalar to every shard."""
     for name, val in delta.items():
-        state.stats[0, SIDX[name]] += torch.as_tensor(val).to(torch.int32)
+        state.stats[:, SIDX[name]] += torch.as_tensor(
+            val, device=state.stats.device).to(torch.int32)
     return state
 
 
@@ -237,9 +257,6 @@ def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
     filters through the ``bloom`` kernel."""
     check_supported(cfg, n_shards)
     dev = resolve_device(device)
-    if cfg.n_domains % n_shards or cfg.n_slots % n_shards:
-        raise ValueError(f"{cfg.n_domains} domains / {cfg.n_slots} slots do "
-                         f"not split over {n_shards} shards")
     f = PT.seed_frontier(cfg, n_shards, dev)
     dm = PT.identity_map(cfg, n_shards, dev)
     bloom = DD.init_bloom(cfg.n_slots, cfg.bloom_bits_log2, dev)
@@ -268,18 +285,21 @@ def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
 
 
 def make_context(cfg: CrawlConfig, *, n_shards: int, device,
-                 shard: int = 0, classify_accuracy: float) -> StageContext:
-    """The static inputs of shard ``shard``'s stages; ``cfg.ordering``
-    names the scorer."""
+                 classify_accuracy: float) -> StageContext:
+    """The static inputs of the stages of all ``n_shards`` shards;
+    ``cfg.ordering`` names the scorer."""
     check_supported(cfg, n_shards)
+    dev = resolve_device(device)
     r_local = cfg.n_slots // n_shards
     S = cfg.dispatch_capacity
     ordering = get_ordering(cfg.ordering)
+    shard = PT.shard_of_slot(torch.arange(cfg.n_slots, device=dev),
+                             cfg.n_slots, n_shards)
     return StageContext(
         cfg=cfg, n_shards=n_shards, shard=shard,
         score_fn=ordering.make_score_fn(cfg, n_shards=n_shards, shard=shard),
         classify_accuracy=classify_accuracy,
-        cumw=W.zipf_cumweights(cfg, resolve_device(device)),
+        cumw=W.zipf_cumweights(cfg, dev),
         k_row=max(1, cfg.fetch_batch // r_local), S=S,
         cap_ex=max(8, -(-S // n_shards) * 2),
         policy=PT.get_policy(cfg.partitioning), ordering=ordering,
@@ -293,12 +313,12 @@ def make_context(cfg: CrawlConfig, *, n_shards: int, device,
 def allocate(ctx: StageContext, state: CrawlState,
              carry: Optional[StepCarry] = None
              ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
-    """URL allocator: pop the top-k of each local domain queue, then enforce
-    the per-process fetch budget; candidates beyond it go back to their
-    queues, and a dead shard gives back all its pops. On the url lane each
-    pop harvests its cell's cash, and a give-back re-deposits it."""
-    cfg = ctx.cfg
-    alive = state.shard_alive[ctx.shard]
+    """URL allocator: pop the top-k of each domain queue, then enforce each
+    shard's fetch budget over its own rows; candidates beyond it go back to
+    their queues, and a dead shard gives back all its pops. On the url lane
+    each pop harvests its cell's cash, and a give-back re-deposits it."""
+    cfg, n = ctx.cfg, ctx.n_shards
+    alive = state.shard_alive[ctx.shard]                 # (n_slots,)
     fr = frontier_view(state)
     url_cash = slot_cash = None
     if ctx.url_lane:
@@ -333,16 +353,18 @@ def allocate(ctx: StageContext, state: CrawlState,
         slot_cash.add_(refund)
         return fr, torch.where(mask, zero, url_cash)
 
-    if urls.shape[0] * ctx.k_row > cfg.fetch_batch:
+    if urls.shape[0] // n * ctx.k_row > cfg.fetch_batch:
+        # each shard's budget over its own r_local * k_row pops
         flat_pri = torch.where(pre_sel, pri,
-                               torch.full_like(pri, F.NEG)).reshape(-1)
-        kth = torch.sort(flat_pri, descending=True).values[cfg.fetch_batch - 1]
-        budget = (flat_pri >= kth).reshape(pre_sel.shape)
+                               torch.full_like(pri, F.NEG)).reshape(n, -1)
+        kth = torch.sort(flat_pri, dim=1,
+                         descending=True).values[:, cfg.fetch_batch - 1]
+        budget = (flat_pri >= kth[:, None]).reshape(pre_sel.shape)
         # ties at the threshold may pass a few URLs over the budget
         fr, url_cash = give_back(fr, url_cash, pre_sel & ~budget)
         pre_sel = pre_sel & budget
-    sel = pre_sel & alive
-    dead_gb = pre_sel & ~alive
+    sel = pre_sel & alive[:, None]
+    dead_gb = pre_sel & ~alive[:, None]
     fr, url_cash = give_back(fr, url_cash, dead_gb)
     if ctx.url_lane:
         state.order_state[:, 0] = slot_cash
@@ -350,7 +372,8 @@ def allocate(ctx: StageContext, state: CrawlState,
         shard=ctx.shard, alive=alive, urls=urls, sel=sel,
         true_dom=torch.zeros(urls.shape, dtype=torch.int64,
                              device=urls.device), url_cash=url_cash)
-    return with_frontier(state, fr), carry, {"revived": dead_gb.sum()}
+    return with_frontier(state, fr), carry, {"revived": per_shard(ctx,
+                                                                 dead_gb)}
 
 
 def fetch_analyze(ctx: StageContext, state: CrawlState, carry: StepCarry
@@ -361,51 +384,54 @@ def fetch_analyze(ctx: StageContext, state: CrawlState, carry: StepCarry
     true_dom = CLS.page_domain(carry.urls, ctx.cfg)
     own, foreign = ctx.policy.split_ownership(ctx.cfg, state, true_dom,
                                               carry.sel)
-    delta = {"fetched": carry.sel.sum(), "fetch_own": own.sum(),
-             "fetch_foreign": foreign.sum()}
+    delta = {"fetched": per_shard(ctx, carry.sel),
+             "fetch_own": per_shard(ctx, own),
+             "fetch_foreign": per_shard(ctx, foreign)}
     return state, carry._replace(true_dom=true_dom), delta
 
 
 def extract_stage(ctx: StageContext, state: CrawlState, carry: StepCarry
                   ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
     """Parser + URL database: extract outlinks, canonicalize (C2),
-    exact-dedup the batch, and append to the staging buffer. On the value
-    channel each link's value is staged beside it, and the value of a link
-    dropped here (batch dedup, staging overflow) refunds to its source
-    row's slot cash."""
-    cfg, S = ctx.cfg, ctx.S
+    exact-dedup each shard's batch, and append it to that shard's staging
+    buffer. On the value channel each link's value is staged beside it,
+    and the value of a link dropped here (batch dedup, staging overflow)
+    refunds to its source row's slot cash."""
+    cfg, S, n = ctx.cfg, ctx.S, ctx.n_shards
     links = (W.outlinks(carry.urls, cfg, ctx.cumw) if carry.links is None
-             else carry.links)                                # (r, k, O)
-    flat_u = links.reshape(-1)
-    lmask = carry.sel[..., None].expand(links.shape).reshape(-1)
-    flat_s = carry.true_dom[..., None].expand(links.shape).reshape(-1)
-    discovered = lmask.sum()
+             else carry.links)                                # (R, k, O)
+    # each shard's links in its rows' order: (n_shards, r_local * k * O)
+    flat_u = links.reshape(n, -1)
+    lmask = carry.sel[..., None].expand(links.shape).reshape(n, -1)
+    flat_s = carry.true_dom[..., None].expand(links.shape).reshape(n, -1)
+    discovered = lmask.sum(1)
 
     if ctx.policy.canonicalize:
         flat_u = W.canonical(flat_u, cfg)
-    flat_m = DD.exact_dedup(flat_u[None], lmask[None])[0]
-    dedup_exact = discovered - flat_m.sum()
+    flat_m = DD.exact_dedup(flat_u, lmask)
+    dedup_exact = discovered - flat_m.sum(1)
 
-    # stage into the URL database (the batched exchange buffer)
-    n0 = state.staging_n[0].to(torch.int64)         # a copy, not a view
-    pos = n0 + torch.cumsum(flat_m.to(torch.int64), dim=0) - 1
+    # stage into each shard's URL database (the batched exchange buffer)
+    n0 = state.staging_n.to(torch.int64)            # a copy, not a view
+    pos = n0[:, None] + torch.cumsum(flat_m.to(torch.int64), dim=1) - 1
     fits = flat_m & (pos < S)
-    p = pos[fits]
-    state.staging_url[0, p] = flat_u[fits]
-    state.staging_src[0, p] = flat_s[fits].to(torch.int32)
+    item = fits.nonzero(as_tuple=True)              # (shard, link) pairs
+    p = (item[0], pos[item])
+    state.staging_url[p] = flat_u[item]
+    state.staging_src[p] = flat_s[item].to(torch.int32)
     if carry.link_cash is not None:
-        flat_v = carry.link_cash.reshape(-1)
-        state.staging_val[0, p] = flat_v[fits]
+        flat_v = carry.link_cash.reshape(n, -1)
+        state.staging_val[p] = flat_v[item]
         # refund what was lost here to the source row's slot cash
-        r = links.shape[0]
-        flat_r = torch.arange(r, device=links.device)[:, None, None].expand(
-            links.shape).reshape(-1)
+        r_local = links.shape[0] // n
+        flat_r = (torch.arange(links.shape[0], device=links.device)
+                  % r_local)[:, None, None].expand(links.shape)
         slot_cash = state.order_state[:, 0].clone()
-        add_to_rows(slot_cash, flat_r, flat_v, lmask & ~fits)
+        add_to_rows(slot_cash, flat_r, flat_v, lmask & ~fits, n)
         state.order_state[:, 0] = slot_cash
-    state.staging_n[0] = n0 + fits.sum().to(torch.int32)
+    state.staging_n.copy_(n0 + fits.sum(1))
     delta = {"discovered": discovered, "dedup_exact": dedup_exact,
-             "staging_drop": (flat_m & ~fits).sum()}
+             "staging_drop": (flat_m & ~fits).sum(1)}
     return state, carry, delta
 
 
@@ -423,59 +449,63 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
                       ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
     """URL dispatcher (C5): predict each staged URL's owner, ship it through
     the exchange, dedup what arrived (exact, then the Bloom filter), and
-    insert the survivors into the local frontier rows. On the value
-    channel every staged value is delivered or refunded: to the receiving
-    row's slot cash (``opic``), or into the cell its URL wins or its queued
-    twin holds (``opic_url``)."""
-    cfg, S, n_shards, shard = ctx.cfg, ctx.S, ctx.n_shards, ctx.shard
+    insert the survivors into the receiving shard's frontier rows. Every
+    source shard packs its own buckets, the exchange transposes them, and
+    every receiving shard buckets its arrivals per row: one (n_slots, M)
+    batch for the Bloom kernels. On the value channel every staged value
+    is delivered or refunded: to the receiving row's slot cash (``opic``),
+    or into the cell its URL wins or its queued twin holds (``opic_url``)."""
+    cfg, S, n = ctx.cfg, ctx.S, ctx.n_shards
     valued = ctx.ordering.stateful
-    u, src, val = state.staging_url[0], state.staging_src[0], \
-        state.staging_val[0]
-    r_slots = state.slot_domain.shape[0]
+    u, src, val = state.staging_url, state.staging_src, state.staging_val
+    r_slots = cfg.n_slots // n                     # rows a shard owns
+    sid = torch.arange(n, device=u.device)[:, None]  # each item's shard
 
-    staged = torch.arange(S, device=u.device) < state.staging_n[0]
+    staged = torch.arange(S, device=u.device)[None] < state.staging_n[:, None]
     # a dead process sends nothing
-    valid = staged & state.shard_alive[shard]
+    valid = staged & state.shard_alive[:, None]
     pred = CLS.predict_domain(u, src, cfg, step=state.step,
                               accuracy=ctx.classify_accuracy)
-    dest = ctx.policy.route(cfg, state, n_shards, u, pred, state.step)
-    plan = ctx.coord.plan(ctx, state, shard, u, src, val, dest, staged,
-                          valid)
-    delta = {"dispatch_sent": plan.ship.sum(),
+    dest = ctx.policy.route(cfg, state, n, u, pred, state.step)
+    plan = ctx.coord.plan(ctx, state, sid, u, src, val, dest, staged, valid)
+    delta = {"dispatch_sent": plan.ship.sum(1),
              "dispatch_rounds": 1,
-             "coord_dropped": plan.drop.sum()}
+             "coord_dropped": plan.drop.sum(1)}
 
     # the payload lanes: url, predicted domain, shipped flag [, the value's
-    # f32 bits]
+    # f32 bits]; buckets (n_src, n_dest, cap_ex, L)
     lanes = [u, pred, plan.ship.to(torch.int64)]
     if valued:
         lanes.append(_f32_bits(val))
     buckets, _, dropped, sent = RT.pack_buckets(
-        torch.stack(lanes, dim=-1), dest, n_shards, ctx.cap_ex,
+        torch.stack(lanes, dim=-1), dest, n, ctx.cap_ex,
         valid=plan.ship, return_keep=True)
     delta["staging_drop"] = dropped
-    recv = RT.exchange(buckets[None])[0]           # (n_shards, cap_ex, L)
-    r_u = recv[..., 0].reshape(-1)
-    r_pred = recv[..., 1].reshape(-1)
-    r_has = recv[..., 2].reshape(-1) > 0
+    # shard j receives every source's bucket j, in source order
+    recv = RT.exchange(buckets).reshape(n, -1, len(lanes))
+    r_u = recv[..., 0]
+    r_pred = recv[..., 1]
+    r_has = recv[..., 2] > 0
 
     if valued:
-        r_val = _from_bits(recv[..., 3].reshape(-1))
+        r_val = _from_bits(recv[..., 3])
         # the sender half: a staged value that was not sent (dead shard,
-        # bucket overflow) refunds to the source page's own row
+        # bucket overflow) refunds to the source page's own row, clamped
+        # into the sending shard's rows
         slot_cash = state.order_state[:, 0].clone()
         own_slot = state.slot_of_domain.to(torch.int64)[
             torch.clamp(src.to(torch.int64), 0, cfg.n_domains - 1)]
-        own_row = torch.clamp(own_slot - shard * r_slots, 0, r_slots - 1)
-        add_to_rows(slot_cash, own_row, val, staged & ~sent & ~plan.keep)
+        own_row = torch.clamp(own_slot - sid * r_slots, 0, r_slots - 1)
+        add_to_rows(slot_cash, own_row, val, staged & ~sent & ~plan.keep, n)
 
-    delta["dispatch_recv"] = r_has.sum()
-    r_m = DD.exact_dedup(r_u[None], r_has[None])[0]
-    delta["dedup_exact"] = delta["dispatch_recv"] - r_m.sum()
+    delta["dispatch_recv"] = r_has.sum(1)
+    r_m = DD.exact_dedup(r_u, r_has)
+    delta["dedup_exact"] = delta["dispatch_recv"] - r_m.sum(1)
 
-    row, ok = ctx.policy.local_row(cfg, state, shard, r_slots, r_u, r_pred)
+    # from here on sid is each received item's (receiving) shard
+    row, ok = ctx.policy.local_row(cfg, state, sid, r_slots, r_u, r_pred)
     r_m = r_m & ok
-    M = min(r_u.shape[0], cfg.frontier_capacity)
+    M = min(r_u.shape[1], cfg.frontier_capacity)
 
     # bucket per local row, Bloom-dedup, insert into the frontier
     if ctx.url_lane:
@@ -485,16 +515,18 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
         rbp, rbmask, rdrop, rkeep = RT.pack_buckets(
             torch.stack([r_u, _f32_bits(r_val)], dim=-1), row, r_slots, M,
             valid=r_m, return_keep=True)
-        rv = _from_bits(rbp[..., 1])
-        add_to_rows(slot_cash, row, r_val, r_has & ~rkeep)
+        rv = _from_bits(rbp[..., 1]).reshape(cfg.n_slots, M)
+        add_to_rows(slot_cash, row, r_val, r_has & ~rkeep, n)
     else:
         if valued:
             # the receiver half: every received value goes to its row
             # before dedup
-            add_to_rows(slot_cash, row, r_val, r_has)
-        rbp, rbmask, rdrop = RT.pack_buckets(r_u[:, None], row, r_slots, M,
+            add_to_rows(slot_cash, row, r_val, r_has, n)
+        rbp, rbmask, rdrop = RT.pack_buckets(r_u[..., None], row, r_slots, M,
                                              valid=r_m)
-    rb = rbp[..., 0].contiguous()                  # (r_slots, M)
+    # (n_dest, r_slots, M) -> one row-aligned (n_slots, M) batch
+    rb = rbp[..., 0].reshape(cfg.n_slots, M).contiguous()
+    rbmask = rbmask.reshape(cfg.n_slots, M)
     delta["frontier_drop"] = rdrop
 
     fr = frontier_view(state)
@@ -527,7 +559,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
                 fr, table, rb, ctx.score_fn(rb, cfg, state, val=rv), fresh,
                 torch.where(fresh, rv, torch.zeros_like(rv)),
                 n_buckets=cfg.n_priority_buckets)
-        delta["dedup_bloom"] = (rbmask & seen).sum()
+        delta["dedup_bloom"] = per_shard(ctx, rbmask & seen)
         slot_cash.add_(dup_refund + ins_refund)
         # re-bucket the whole queue from the cells' current cash
         fr = F.rescore(fr, ctx.score_fn(fr.url, cfg, state, val=table),
@@ -536,7 +568,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
         bloom = DD.Bloom(state.bloom_bits, cfg.bloom_bits_log2)
         seen, _ = DD.probe_insert(bloom, rb, rbmask, k=cfg.bloom_hashes)
         fresh = rbmask & ~seen
-        delta["dedup_bloom"] = (rbmask & seen).sum()
+        delta["dedup_bloom"] = per_shard(ctx, rbmask & seen)
         fr = F.insert(fr, rb, ctx.score_fn(rb, cfg, state), fresh,
                       n_buckets=cfg.n_priority_buckets)
 

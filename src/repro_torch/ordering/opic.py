@@ -35,27 +35,41 @@ def init_opic(cfg: CrawlConfig, n_shards: int, device) -> torch.Tensor:
     return torch.stack([cash, torch.zeros_like(cash)], dim=-1)
 
 
-def local_rows(urls: torch.Tensor, cfg: CrawlConfig, state, shard: int,
+def row_shard(shard, like: torch.Tensor) -> torch.Tensor:
+    """``shard`` (an int, or one shard per row of ``like``) shaped to
+    broadcast against ``like`` (rows first)."""
+    return torch.as_tensor(shard, device=like.device).reshape(
+        (-1,) + (1,) * (like.dim() - 1))
+
+
+def local_rows(urls: torch.Tensor, cfg: CrawlConfig, state, shard,
                r_slots: int):
-    """The local frontier row of each URL's domain slot, clamped into
-    range, and whether that slot lives on this shard."""
+    """The shard-local frontier row of each URL's domain slot, clamped into
+    range, and whether that slot lives on the URL's shard (``shard``
+    broadcasts against ``urls``)."""
     dom = torch.clamp(W.domain_of(urls, cfg), 0, cfg.n_domains - 1)
     row = state.slot_of_domain.to(torch.int64)[dom] - shard * r_slots
     return torch.clamp(row, 0, r_slots - 1), (row >= 0) & (row < r_slots)
 
 
-def slot_importance(state) -> torch.Tensor:
-    """cash + history of every local slot, relative to the largest."""
-    imp = state.order_state[:, 0] + state.order_state[:, 1]
-    return imp / torch.clamp(imp.max(), min=1e-6)
+def slot_importance(state, n_shards: int) -> torch.Tensor:
+    """cash + history of every slot, relative to the largest of its own
+    shard (the JAX package's ``imp.max()`` over a shard's local rows)."""
+    imp = (state.order_state[:, 0] + state.order_state[:, 1]).view(
+        n_shards, -1)
+    top = torch.clamp(imp.max(dim=1, keepdim=True).values, min=1e-6)
+    return (imp / top).reshape(-1)
 
 
-def make_opic_score_fn(cfg: CrawlConfig, *, n_shards: int, shard: int = 0):
+def make_opic_score_fn(cfg: CrawlConfig, *, n_shards: int, shard=0):
+    """``shard``: the shard of each row of the URLs to score (rows first),
+    or one int for all."""
     r_slots = cfg.n_slots // n_shards
 
     def score(urls, cfg, state, val=None):
-        row, local = local_rows(urls, cfg, state, shard, r_slots)
-        s_imp = slot_importance(state)[row]
+        sh = row_shard(shard, urls)
+        row, local = local_rows(urls, cfg, state, sh, r_slots)
+        s_imp = slot_importance(state, n_shards)[sh * r_slots + row]
         pop = W.popularity(urls, cfg)
         # URLs whose domain row lives on another shard fall back to the
         # static blend
@@ -69,10 +83,10 @@ def make_opic_score_fn(cfg: CrawlConfig, *, n_shards: int, shard: int = 0):
 def opic_update(ctx, state, carry):
     """The OPIC spend step, a pipeline stage between fetch_analyze and
     extract. Writes the slot columns of ``order_state`` in place."""
-    cfg = ctx.cfg
+    cfg, n = ctx.cfg, ctx.n_shards
     os_ = state.order_state
     cash, hist = os_[:, 0], os_[:, 1]
-    r_slots = cash.shape[0]
+    r_slots = cash.shape[0] // n
 
     # spend: a slot with fetches this step banks its cash into history
     n_f = carry.sel.sum(dim=1)                                    # (r,)
@@ -90,18 +104,20 @@ def opic_update(ctx, state, carry):
     contrib = per_link.expand(links.shape)
     tslot = state.slot_of_domain.to(torch.int64)[
         torch.clamp(W.domain_of(links, cfg), 0, cfg.n_domains - 1)]
-    row = tslot - carry.shard * r_slots
+    row = tslot - row_shard(carry.shard, links) * r_slots
     is_local = (row >= 0) & (row < r_slots) & lmask
 
-    # local targets: the opic_update kernel's scatter-add
-    new_cash = (cash - spend)[None]
-    scatter_cash(new_cash, torch.clamp(row, 0, r_slots - 1).reshape(1, -1),
-                 contrib.reshape(1, -1), is_local.reshape(1, -1))
+    # local targets: the opic_update kernel's scatter-add, one launch over
+    # every shard's r_slots targets (a shard's items hit only its own)
+    new_cash = (cash - spend).view(n, r_slots)
+    scatter_cash(new_cash, torch.clamp(row, 0, r_slots - 1).reshape(n, -1),
+                 contrib.reshape(n, -1).contiguous(),
+                 is_local.reshape(n, -1))
 
     # cross-shard targets ride the conserved value channel
     remote = torch.where(lmask & ~is_local, contrib, torch.zeros_like(contrib))
     os_[:, 1] = hist + spend
-    os_[:, 0] = new_cash[0]
+    os_[:, 0] = new_cash.reshape(-1)
     return state, carry._replace(link_cash=remote, links=links), {}
 
 

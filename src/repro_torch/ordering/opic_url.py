@@ -30,7 +30,7 @@ from repro_torch.core import partitioner as PT
 from repro_torch.core import ranker
 from repro_torch.core import webgraph as W
 from repro_torch.kernels.rowsum import row_sum
-from repro_torch.ordering.opic import local_rows, slot_importance
+from repro_torch.ordering.opic import local_rows, row_shard, slot_importance
 from repro_torch.ordering.policies import (ORD_WIDTH, OrderingPolicy,
                                            register_ordering)
 
@@ -54,13 +54,15 @@ def url_cash_table(state) -> torch.Tensor:
     return state.order_state[:, ORD_WIDTH:]
 
 
-def make_opic_url_score_fn(cfg: CrawlConfig, *, n_shards: int,
-                           shard: int = 0):
+def make_opic_url_score_fn(cfg: CrawlConfig, *, n_shards: int, shard=0):
+    """``shard``: the shard of each row of the URLs to score (rows first),
+    or one int for all."""
     r_slots = cfg.n_slots // n_shards
 
     def score(urls, cfg, state, val=None):
-        row, local = local_rows(urls, cfg, state, shard, r_slots)
-        s_imp = slot_importance(state)[row]
+        sh = row_shard(shard, urls)
+        row, local = local_rows(urls, cfg, state, sh, r_slots)
+        s_imp = slot_importance(state, n_shards)[sh * r_slots + row]
         pop = W.popularity(urls, cfg)
         # within-queue rank: the URL's cash relative to its row's mean
         # delivery (val is row-aligned 2-D at every stage call site)

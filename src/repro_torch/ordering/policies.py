@@ -30,7 +30,8 @@ class OrderingPolicy(NamedTuple):
                        or (n_slots, ORD_WIDTH + C) for a url-lane policy.
       make_score_fn  — (cfg, *, n_shards, shard) -> score_fn(urls, cfg,
                        state, val=None) mapping URLs to [0, 1) queue
-                       scores.
+                       scores; ``shard`` is the shard of each row of the
+                       URLs (rows first), or one int.
       update_stage   — optional pipeline stage run before extract.
       url_lane       — the policy keeps per-URL state in order_state.
     """

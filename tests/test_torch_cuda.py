@@ -471,6 +471,82 @@ def test_session_on_card_matches_cpu(cuda):
                                       states["cpu"][name], err_msg=name)
 
 
+CLI_SIZE = dict(n_domains=32, frontier_capacity=512, fetch_batch=32,
+                bloom_bits_log2=16, dispatch_capacity=1024,
+                url_space_log2=24)             # launch/crawl.py's defaults
+
+
+@pytest.mark.parametrize("ordering,fused", [("backlink", True),
+                                            ("opic", True),
+                                            ("opic_url", True),
+                                            ("opic_url", False)])
+def test_four_shard_crawl_on_card_matches_cpu(cuda, ordering, fused):
+    """A 4-shard CLI-size crawl through the kernels equals the crawl
+    through the plain versions in every output and state leaf."""
+    cfg = scaled(webparf.CONFIG, ordering=ordering, fused_dispatch=fused,
+                 link_pop_bias=0.0 if ordering == "backlink" else 1.0,
+                 **CLI_SIZE)
+    reps, states = {}, {}
+    for dev in (cuda, "cpu"):
+        sess = CrawlSession(cfg, device=dev, n_shards=4)
+        key = torch.device(dev).type
+        reps[key], states[key] = sess.run(32), state_to_numpy(sess.state)
+    np.testing.assert_array_equal(reps["cuda"].urls, reps["cpu"].urls)
+    np.testing.assert_array_equal(reps["cuda"].per_step,
+                                  reps["cpu"].per_step)
+    assert reps["cuda"].stats == reps["cpu"].stats
+    assert (reps["cuda"].stats_per_shard["fetched"] > 0).all()
+    for name in states["cpu"]:
+        np.testing.assert_array_equal(states["cuda"][name],
+                                      states["cpu"][name], err_msg=name)
+
+
+@pytest.mark.parametrize("ordering,fused", [("backlink", True),
+                                            ("opic", True),
+                                            ("opic_url", True),
+                                            ("opic_url", False)])
+def test_four_shard_launches_equal_one_shard(cuda, ordering, fused):
+    """Each kernel launches as many times in 4 shards' steps as in one
+    shard's: the shards are batched, not looped. A fetch batch of 8 makes
+    both paths enforce the fetch budget (at the CLI's 32, 4 shards of 16
+    rows fit it and skip the budget's give-back), so both run the same
+    stages."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    cfg = scaled(webparf.CONFIG, ordering=ordering, fused_dispatch=fused,
+                 link_pop_bias=0.0 if ordering == "backlink" else 1.0,
+                 **{**CLI_SIZE, "fetch_batch": 8})
+    counts = {}
+    for n_shards in (1, 4):
+        sess = CrawlSession(cfg, device=cuda, n_shards=n_shards)
+        reset_launches()
+        sess.run(16)
+        torch.cuda.synchronize()
+        counts[n_shards] = launch_counts()
+    assert counts[4] == counts[1] and sum(counts[4].values()) >= 16
+
+
+def test_four_shard_heal_on_card_matches_cpu(cuda):
+    """Shard 1 fails at a dispatch boundary and is healed at the next: the
+    card and the CPU agree in every leaf, and the cash balances."""
+    cfg = scaled(webparf.CONFIG, ordering="opic_url", link_pop_bias=1.0,
+                 **CLI_SIZE)
+    iv = cfg.dispatch_interval
+    states = {}
+    for dev in (cuda, "cpu"):
+        sess = CrawlSession(cfg, device=dev, n_shards=4)
+        sess.run(iv)
+        sess.inject_failure(1)
+        sess.run(iv)
+        cash = total_cash(sess.state)
+        sess.heal()
+        np.testing.assert_allclose(total_cash(sess.state), cash, rtol=1e-6)
+        sess.run(2 * iv)
+        states[torch.device(dev).type] = state_to_numpy(sess.state)
+    for name in states["cpu"]:
+        np.testing.assert_array_equal(states["cuda"][name],
+                                      states["cpu"][name], err_msg=name)
+
+
 def tc_plain(q, k, v, causal, block=64):
     """What flash_attention_tc computes, in plain f32: the online softmax
     over 64-key tiles in order, scores scaled by 1/sqrt(hd) and log2(e) in
