@@ -1370,6 +1370,7 @@ def phase_profile(sess, steps):
     n_sync, sync_lines = count_syncs(sess, steps)
     prof["sync_debug_syncs_per_step"] = n_sync / steps
     emit({"phase": "profile", "ordering": sess.cfg.ordering,
+          "coordination": sess.cfg.coordination,
           "n_shards": sess.n_shards, "steps": steps, **prof,
           "sync_debug_lines": sync_lines})
     return prof
@@ -1403,9 +1404,36 @@ def diff_runs(reps, states):
     return diffs
 
 
+CLI_QUOTA = 512             # batched at the CLI size: half a shard's
+                            # 1,024 staged URLs
+# the slice-10 paths at the CLI size with SHARDS shards: label ->
+# (config overrides, extra stages)
+MODE_TRAJECTORIES = {
+    **{f"{m}/{o}": (dict(coordination=m, ordering=o,
+                         comm_quota=CLI_QUOTA if m == "batched" else -1),
+                    ())
+       for m in ("firewall", "crossover", "batched")
+       for o in ("opic_url", "backlink")},
+    "politeness/opic_url": (dict(ordering="opic_url"), (("politeness", 1),)),
+    "revisit/backlink": (dict(), (("revisit", 32),)),
+    "telemetry/opic_url": (dict(ordering="opic_url", telemetry=True), ()),
+    "rebalance/opic_url": (dict(ordering="opic_url", telemetry=True,
+                                rebalance_threshold=1.01), ()),
+}
+
+
+def extra_stages(spec):
+    from repro_torch.core import stages as ST
+    return [ST.make_politeness_stage(a) if kind == "politeness"
+            else ST.make_revisit_stage(a) for kind, a in spec]
+
+
 def phase_trajectory(steps=32):
     """Each ordering at the CLI size, on the card and on the CPU, with one
-    shard and with SHARDS shards: every output and state leaf identical."""
+    shard and with SHARDS shards; then each MODE_TRAJECTORIES path with
+    SHARDS shards (every coordination mode, the politeness and revisit
+    stages, telemetry with its ledger rows, a forced rebalance with its
+    events): every output and state leaf identical."""
     import torch
     from repro_torch.api import CrawlSession
     from repro_torch.configs.base import scaled
@@ -1413,30 +1441,49 @@ def phase_trajectory(steps=32):
     base = cli_config()
     out = {"phase": "trajectory", "config": dataclasses.asdict(base),
            "steps": steps, "runs": []}
-    for n_shards in (1, SHARDS):
-        for ordering, fused in TRAJECTORIES:
-            cfg = scaled(base, ordering=ordering, fused_dispatch=fused,
-                         link_pop_bias=0.0 if ordering == "backlink" else 1.0)
-            reps, states = {}, {}
-            for key, dev in (("cuda", DEV), ("cpu", "cpu")):
-                sess = CrawlSession(cfg, device=dev, n_shards=n_shards)
-                reps[key] = sess.run(steps)
-                states[key] = state_to_numpy(sess.state)
-            torch.cuda.synchronize()
-            a = reps["cuda"]
-            label = f"{ordering} fused_dispatch={fused} n_shards={n_shards}"
-            diffs = diff_runs(reps, states)
-            if diffs:
-                raise AssertionError(f"{label}: cuda and cpu trajectories "
-                                     f"differ in {diffs}")
-            if a.stats["dedup_bloom"] < 1:
-                raise AssertionError(f"{label}: the trajectory never "
-                                     f"exercised the Bloom dedup")
-            out["runs"].append({"ordering": ordering, "fused_dispatch": fused,
-                                "n_shards": n_shards,
-                                "link_pop_bias": cfg.link_pop_bias,
-                                "identical": True, "fetched": a.fetched,
-                                "dedup_bloom": a.stats["dedup_bloom"]})
+    runs = [(f"{o} fused_dispatch={f}", n,
+             dict(ordering=o, fused_dispatch=f), ())
+            for n in (1, SHARDS) for o, f in TRAJECTORIES]
+    runs += [(k, SHARDS, over, spec)
+             for k, (over, spec) in MODE_TRAJECTORIES.items()]
+    for label, n_shards, over, spec in runs:
+        cfg = scaled(base, link_pop_bias=0.0 if over.get(
+            "ordering", "backlink") == "backlink" else 1.0, **over)
+        reps, states = {}, {}
+        for key, dev in (("cuda", DEV), ("cpu", "cpu")):
+            sess = CrawlSession(cfg, device=dev, n_shards=n_shards,
+                                extra_stages=extra_stages(spec))
+            reps[key] = sess.run(steps)
+            states[key] = state_to_numpy(sess.state)
+        torch.cuda.synchronize()
+        a, b = reps["cuda"], reps["cpu"]
+        label = f"{label} n_shards={n_shards}"
+        diffs = diff_runs(reps, states)
+        if cfg.telemetry and not np.array_equal(a.telemetry.rows,
+                                                b.telemetry.rows):
+            diffs.append("telemetry rows")
+        if a.rebalances != b.rebalances:
+            diffs.append("rebalances")
+        if diffs:
+            raise AssertionError(f"{label}: cuda and cpu trajectories "
+                                 f"differ in {diffs}")
+        if a.stats["dedup_bloom"] < 1:
+            raise AssertionError(f"{label}: the trajectory never "
+                                 f"exercised the Bloom dedup")
+        if cfg.rebalance_threshold > 0 and not a.rebalances:
+            raise AssertionError(f"{label}: no rebalance fired")
+        run = {"path": label, "n_shards": n_shards,
+               "link_pop_bias": cfg.link_pop_bias, "identical": True,
+               "fetched": a.fetched, "dedup_bloom": a.stats["dedup_bloom"],
+               "comm": a.comm}
+        for k in ("politeness_deferred", "revisit_enqueued"):
+            if a.stats[k]:
+                run[k] = a.stats[k]
+        if cfg.telemetry:
+            run["ledger_records"] = a.telemetry.n_records
+        if a.rebalances:
+            run["rebalances"] = [e.asdict() for e in a.rebalances]
+        out["runs"].append(run)
     emit(out)
 
 
@@ -1446,10 +1493,12 @@ HEAL_DEAD = 1               # the shard that fails in the heal phase
 def phase_heal():
     """C4 at the CLI size over SHARDS shards, on the card and on the CPU:
     shard HEAL_DEAD fails at one dispatch boundary and is healed at the
-    next. The state before the heal, the heal and the run after it must be
-    identical on both devices in every leaf, every URL queued on the card's
-    dead shard must be queued on a survivor after the card's heal, and
-    under opic_url the cash must balance."""
+    next, under backlink, opic_url and the batched mode (opic_url), whose
+    dead shard parks what it stages. The state before the heal, the heal
+    and the run after it must be identical on both devices in every leaf,
+    every URL queued on the card's dead shard must be queued on a survivor
+    after the card's heal, and under opic_url the cash (the outbox's
+    included) must balance."""
     import torch
     from repro_torch.api import CrawlSession
     from repro_torch.configs.base import scaled
@@ -1459,8 +1508,10 @@ def phase_heal():
     iv = base.dispatch_interval
     out = {"phase": "heal", "n_shards": SHARDS, "dead_shard": HEAL_DEAD,
            "runs": []}
-    for ordering in ("backlink", "opic_url"):
-        cfg = scaled(base, ordering=ordering,
+    for ordering, mode in (("backlink", "exchange"), ("opic_url", "exchange"),
+                           ("opic_url", "batched")):
+        cfg = scaled(base, ordering=ordering, coordination=mode,
+                     comm_quota=CLI_QUOTA if mode == "batched" else -1,
                      link_pop_bias=0.0 if ordering == "backlink" else 1.0)
         reps, states, before, healed, cash = {}, {}, {}, {}, {}
         for key, dev in (("cuda", DEV), ("cpu", "cpu")):
@@ -1479,7 +1530,7 @@ def phase_heal():
             cash[key] = (cash0, cash_before, cash_healed,
                          total_cash(sess.state))
         torch.cuda.synchronize()
-        label = f"heal {ordering}"
+        label = f"heal {mode}/{ordering}"
         diffs = diff_runs(reps, states) + [
             f"{when}.{n}" for when, s in (("before_heal", before),
                                           ("healed", healed))
@@ -1499,11 +1550,15 @@ def phase_heal():
                                  f"URLs queued on the dead shard lost")
         if reps["cuda"].fetched < 1:
             raise AssertionError(f"{label}: nothing fetched after the heal")
-        run = {"ordering": ordering, "identical": True,
+        run = {"ordering": ordering, "coordination": mode, "identical": True,
                "queued_on_dead_shard": len(queued), "lost": 0,
+               "parked_on_dead_shard_before_heal": int(
+                   pre["outbox_n"][HEAL_DEAD]),
                "fetched_after_heal": reps["cuda"].fetched,
                "fetched_per_shard_whole_run":
                    reps["cuda"].stats_per_shard["fetched"].tolist()}
+        if mode == "batched" and not pre["outbox_n"][HEAL_DEAD]:
+            raise AssertionError(f"{label}: the dead shard parked nothing")
         if ordering == "opic_url":
             c0, cb, ch, c1 = cash["cuda"]
             if abs(ch - cb) > CASH_RTOL * cb or abs(c1 - c0) > CASH_RTOL * c0:
@@ -2597,6 +2652,7 @@ def phase_sharded_parity(sess):
             "bound_ms": 1e3 * rep.nbytes(kh, b) / HBM_BYTES_PER_S})
     torch.cuda.synchronize()
     emit({"phase": "sharded_parity", "ordering": cfg.ordering,
+          "coordination": cfg.coordination,
           "n_shards": sess.n_shards, "tolerance": "exact (torch.equal)",
           "kernels": out})
     return out
@@ -2607,14 +2663,163 @@ def main_sharded(ordering, one):
     one-shard path ``one`` was, held against it (``phase_shards``), and its
     kernels held against their plain versions on its own calls
     (``phase_sharded_parity``). Returns its launch counts and what that
-    parity check found."""
+    parity check found, and its profile."""
     sess, counts, line = phase_main(ordering, n_shards=SHARDS)
     prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
     checked = phase_sharded_parity(sess)
     del sess
     free_card()
     phase_shards(ordering, one, (counts, line, prof))
-    return counts, checked
+    return counts, checked, prof
+
+
+COORD_STEPS = 32            # steps of each coordination mode's run
+COORD_QUOTA = 1024          # batched: half of a shard's 2,048 staged URLs
+COORD_RUNS = (("exchange", "opic_url"), ("firewall", "opic_url"),
+              ("crossover", "opic_url"), ("batched", "opic_url"),
+              ("firewall", "backlink"), ("crossover", "backlink"))
+
+
+def coord_session(mode, ordering, **over):
+    from repro_torch.api import CrawlSession
+    from repro_torch.configs import webparf
+    from repro_torch.configs.base import scaled
+    cfg = scaled(webparf.CONFIG, ordering=ordering, coordination=mode,
+                 comm_quota=COORD_QUOTA if mode == "batched" else -1,
+                 **over)
+    return CrawlSession(cfg, device=DEV, n_shards=SHARDS)
+
+
+def phase_coordination(exchange_sharded):
+    """Each coordination mode at webparf.CONFIG with SHARDS shards, nothing
+    cut (COORD_RUNS; batched ships at most COORD_QUOTA a shard a dispatch):
+    counts zeroed just before COORD_STEPS steps and read just after, the
+    path's kernels all launched, every shard fetched, cash conserved under
+    opic_url, nothing shipped by firewall and crossover, no shard over its
+    quota under batched; then the path's profile (``phase_profile``) and
+    its kernels held to their plain versions on its own calls
+    (``phase_sharded_parity``). The exchange run's launches a step and host
+    syncs a step must equal the exchange path's in ``main_sharded``
+    (``exchange_sharded``: its counts and profile); a telemetry-on exchange
+    run must follow the same trajectory with the same launches, and its
+    syncs a step are printed beside. Returns {mode/ordering: (launch
+    counts, what the parity check found)}."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.ordering.opic import total_cash
+    out = {}
+    for mode, ordering in COORD_RUNS:
+        label = f"{mode}/{ordering}"
+        steps, need = COORD_STEPS, PATHS[ordering][1]
+        sess = coord_session(mode, ordering)
+        cfg, iv = sess.cfg, sess.cfg.dispatch_interval
+        torch.cuda.synchronize()
+        cash0 = total_cash(sess.state) if ordering != "backlink" else None
+        reset_launches()
+        rep = sess.run(steps)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        missing = [n for n in need if counts[n] < 1]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched: "
+                                 f"{counts}")
+        per = rep.stats_per_shard
+        if (per["fetched"] <= 0).any() or rep.fetched != len(rep.urls):
+            raise AssertionError(f"{label}: output malformed: {rep.stats}")
+        comm = rep.comm
+        if mode in ("firewall", "crossover") and comm["urls_shipped"]:
+            raise AssertionError(f"{label}: shipped {comm['urls_shipped']}")
+        rounds = per["dispatch_rounds"]
+        if mode == "batched" and (per["dispatch_sent"]
+                                  > COORD_QUOTA * rounds).any():
+            raise AssertionError(f"{label}: over quota: {per}")
+        line = {"phase": "coordination", "coordination": mode,
+                "ordering": ordering, "config": "webparf.CONFIG",
+                "n_shards": SHARDS, "steps": steps,
+                "comm_quota": cfg.comm_quota, "seconds": rep.seconds,
+                "pages_per_s": rep.pages_per_sec, "fetched": rep.fetched,
+                "comm": comm, "staging_drop": rep.stats["staging_drop"],
+                "frontier_drop": rep.stats["frontier_drop"],
+                "dedup_bloom": rep.stats["dedup_bloom"],
+                "url_dup": rep.overlap["url_dup"],
+                "content_dup": rep.overlap["content_dup"],
+                "outbox_n": sess.state.outbox_n.tolist(),
+                "launches": counts,
+                "launches_per_step": {n: c / steps
+                                      for n, c in counts.items()}}
+        if cash0 is not None:
+            cash = total_cash(sess.state)
+            if not np.isfinite(cash) or abs(cash - cash0) > CASH_RTOL * cash0:
+                raise AssertionError(f"{label}: total cash {cash0} -> "
+                                     f"{cash}")
+            line["cash_rel_drift"] = (cash - cash0) / cash0
+        prof = phase_profile(sess, 2 * iv)
+        line.update({
+            "device_events_per_step": prof["device_events_per_call"],
+            "device_busy_ms_per_step": prof["device_busy_ms_per_call"],
+            "host_syncs_per_step": prof["sync_debug_syncs_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+            "in_crawl_ms_per_launch": {
+                n: in_crawl_ms(prof, n) for n in PORT_KERNEL_FNS}})
+        if mode == "exchange":
+            c64, p64 = exchange_sharded
+            ref = {n: c64[n] * steps // PATHS[ordering][0]
+                   for n in PORT_KERNEL_FNS}
+            got = {n: counts[n] for n in PORT_KERNEL_FNS}
+            syncs = (prof["sync_debug_syncs_per_step"],
+                     p64["sync_debug_syncs_per_step"])
+            if got != ref or syncs[0] != syncs[1]:
+                raise AssertionError(f"{label}: launches {got} / syncs "
+                                     f"{syncs[0]} a step, the exchange "
+                                     f"path's {ref} / {syncs[1]}")
+            line["equal_to_main_sharded"] = True
+            telemetry = (rep, counts, prof)
+        checked = phase_sharded_parity(sess)
+        emit(line)
+        out[label] = (counts, checked)
+        del sess
+        free_card()
+    emit(phase_telemetry_cost(*telemetry))
+    free_card()
+    return out
+
+
+def phase_telemetry_cost(rep0, counts0, prof0):
+    """The exchange/opic_url run again with telemetry on: the same URLs,
+    stats and crawl kernel launches as with it off (the ledger only reads
+    the state), and the host syncs a step it adds (an eager step copies
+    its ledger row to the host)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    sess = coord_session("exchange", "opic_url", telemetry=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    rep = sess.run(COORD_STEPS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    label = "exchange/opic_url telemetry=True"
+    if not np.array_equal(rep.urls, rep0.urls) or rep.stats != rep0.stats:
+        raise AssertionError(f"{label}: the trajectory differs from the "
+                             f"untraced run")
+    if any(counts[n] != counts0[n] for n in PORT_KERNEL_FNS):
+        raise AssertionError(f"{label}: launches {counts}, off {counts0}")
+    tel = rep.telemetry
+    if tel.n_records != COORD_STEPS or not np.isfinite(tel.rows).all():
+        raise AssertionError(f"{label}: ledger {tel.rows.shape}")
+    iv = sess.cfg.dispatch_interval
+    n_sync, lines = count_syncs(sess, 2 * iv)
+    return {"phase": "telemetry", "config": "webparf.CONFIG",
+            "coordination": "exchange", "ordering": "opic_url",
+            "n_shards": SHARDS, "steps": COORD_STEPS,
+            "same_trajectory_and_launches": True,
+            "pages_per_s": rep.pages_per_sec,
+            "pages_per_s_off": rep0.pages_per_sec,
+            "host_syncs_per_step": n_sync / (2 * iv),
+            "host_syncs_per_step_off": prof0["sync_debug_syncs_per_step"],
+            "added_syncs_per_step": (n_sync / (2 * iv)
+                                     - prof0["sync_debug_syncs_per_step"]),
+            "sync_debug_lines": lines,
+            "ledger_records": tel.n_records, "metrics": tel.metrics()}
 
 
 def main() -> int:
@@ -2627,7 +2832,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     phase_build()
     errs = phase_parity()
-    rows_, sharded, checked = {}, {}, {}
+    rows_, sharded, checked, profs = {}, {}, {}, {}
     sess, counts, main1 = phase_main("opic_url")
     steps = PATHS["opic_url"][0]
     prof = phase_profile(sess, 2 * sess.cfg.dispatch_interval)
@@ -2635,8 +2840,8 @@ def main() -> int:
     rows_["packed"] = phase_packed(sess, errs)
     del sess
     free_card()
-    sharded["opic_url"], checked["opic_url"] = main_sharded(
-        "opic_url", (counts, main1, prof))
+    sharded["opic_url"], checked["opic_url"], profs["opic_url"] = \
+        main_sharded("opic_url", (counts, main1, prof))
     sess, counts_opic, _ = phase_main("opic")
     spend = kernels_opic(sess)
     del sess
@@ -2647,8 +2852,9 @@ def main() -> int:
                                          PATHS["backlink"][0], prof)
     del sess
     free_card()
-    sharded["backlink"], checked["backlink"] = main_sharded(
-        "backlink", (counts_bl, main1, prof))
+    sharded["backlink"], checked["backlink"], profs["backlink"] = \
+        main_sharded("backlink", (counts_bl, main1, prof))
+    modes = phase_coordination((sharded["opic_url"], profs["opic_url"]))
     phase_trajectory()
     free_card()
     phase_heal()
@@ -2671,6 +2877,12 @@ def main() -> int:
             r[f"launches_{SHARDS}_shards"] = sharded[r["path"]][r["name"]]
             r[f"checked_on_{SHARDS}_shard_calls"] = checked[r["path"]][
                 r["name"]]
+        if r["name"] in PORT_KERNEL_FNS:
+            r[f"launches_by_mode_{SHARDS}_shards_{COORD_STEPS}_steps"] = {
+                k: c[r["name"]] for k, (c, _) in modes.items()}
+            r["checked_on_mode_calls"] = {
+                k: chk[r["name"]] for k, (_, chk) in modes.items()
+                if r["name"] in chk}
         if r["name"] == "opic_update":
             r.update(spend, launches_opic_path=counts_opic["opic_update"],
                      launches_per_step_opic_path=(

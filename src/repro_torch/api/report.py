@@ -1,6 +1,6 @@
 """Typed crawl reports and the host-side metric helpers. Counterpart of
-``repro/api/report.py`` (without ``ordering_quality`` and ``comm``, which
-belong to later slices of the port)."""
+``repro/api/report.py`` (``ordering_quality`` belongs to a later slice of
+the port)."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,6 +66,12 @@ class CrawlReport:
     cfg: Any = dataclasses.field(default=None, repr=False, compare=False)
     stats_per_shard: Dict[str, np.ndarray] = dataclasses.field(
         default=None, repr=False, compare=False)
+    telemetry: Any = dataclasses.field(
+        default=None, repr=False, compare=False)   # obs.health.CrawlTelemetry
+                                                   # (None with telemetry off)
+    rebalances: Tuple = dataclasses.field(
+        default=(), repr=False, compare=False)     # RebalanceEvents applied
+                                                   # during this run
 
     @functools.cached_property
     def overlap(self) -> Dict[str, float]:
@@ -73,6 +79,15 @@ class CrawlReport:
         if self.cfg is None:
             return dict(url_dup=0.0, content_dup=0.0, fetched=0)
         return overlap_metrics(self.urls, self.cfg)
+
+    @functools.cached_property
+    def comm(self) -> Dict[str, float]:
+        """The communication ledger (``coordination/metrics.py``): URLs
+        shipped, received, dropped and deferred by the coordination mode,
+        and shipped URLs per fetched page (0 under firewall and
+        crossover)."""
+        from repro_torch.coordination.metrics import comm_ledger
+        return comm_ledger(self.stats, self.fetched)
 
     @property
     def steps(self) -> int:
@@ -92,4 +107,8 @@ class CrawlReport:
         if self.overlap and self.overlap["fetched"]:
             line += (f", url_dup {100 * self.overlap['url_dup']:.2f}%"
                      f", content_dup {100 * self.overlap['content_dup']:.2f}%")
+        if self.rebalances:
+            moved = sum(len(e.moves) for e in self.rebalances)
+            line += (f", {len(self.rebalances)} rebalances "
+                     f"({moved} domains migrated)")
         return line

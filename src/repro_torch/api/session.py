@@ -10,6 +10,17 @@
 the state's leading axis on one device, and a step launches each kernel
 once for all of them.
 
+With telemetry on (``cfg.telemetry`` or ``REPRO_TELEMETRY=1``) every step
+also takes a ledger row of every shard (``obs/ledger.py``): an eager step
+copies its row to the host, a chunk stacks its rows on the device and
+copies them once. Spans, counters and the fail, heal and rebalance
+instants go to ``self.tracer``; ``telemetry_report`` and
+``CrawlReport.telemetry`` give the ledger window. With
+``cfg.rebalance_threshold > 0`` (telemetry required) each dispatch
+boundary checks the windowed load imbalance and may migrate hot domains
+live -> live (``maybe_rebalance``). With telemetry off the step has no
+hook.
+
 The JAX session fuses a dispatch interval into one jitted ``lax.scan``
 (``run_chunk``); PyTorch runs eagerly, so here a chunk is a plain loop over
 the interval and the ``auto``, ``eager`` and ``scan`` modes produce the same
@@ -18,6 +29,7 @@ passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -36,6 +48,8 @@ from repro_torch.device import Device, resolve_device
 Events = Dict[int, Callable]   # step index -> state transform, applied
                                # BEFORE that step executes
 
+_OBS_DIR = "obs"               # ledger checkpoints live beside the state
+
 
 class CrawlSession:
     """Owns the device, the step function, the crawl state and the step
@@ -45,16 +59,34 @@ class CrawlSession:
     def __init__(self, cfg: CrawlConfig, device: Optional[Device] = None, *,
                  n_shards: int = 1,
                  classify_accuracy: float = CLS.DEFAULT_ACCURACY,
-                 extra_stages: Sequence = ()):
+                 extra_stages: Sequence = (), tracer=None):
+        """``extra_stages`` slots scenario stages (``make_politeness_stage``,
+        ``make_revisit_stage``, ...) into the pipeline by their
+        ``placement``; ``tracer`` shares an ``obs.Tracer`` across
+        sessions."""
+        from repro_torch import obs
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_shards = n_shards
+        self.telemetry = obs.telemetry_enabled(cfg)
+        self._rebalance = None
+        if cfg.rebalance_threshold > 0:
+            if not self.telemetry:
+                raise ValueError(
+                    "rebalance_threshold > 0 needs telemetry=True: the "
+                    "trigger signal is the ledger's load-imbalance factor")
+            from repro_torch.rebalance import get_rebalance
+            self._rebalance = get_rebalance(cfg.rebalance)
         self._step_fn = CR.make_crawl_step(
             cfg, n_shards=self.n_shards, device=self.device,
             classify_accuracy=classify_accuracy,
             extra_stages=tuple(extra_stages))
         self.state: CrawlState = init_state(cfg, self.n_shards, self.device)
         self._t = 0
+        self.tracer = tracer if tracer is not None else obs.Tracer()
+        self.ledger = (obs.LedgerBuffer(obs.ledger_metrics(cfg), n_shards)
+                       if self.telemetry else None)
+        self.rebalance_events: list = []
 
     @property
     def t(self) -> int:
@@ -69,26 +101,86 @@ class CrawlSession:
         """Fresh crawl state and step counter 0."""
         self.state = init_state(self.cfg, self.n_shards, self.device)
         self._t = 0
+        self.rebalance_events = []
+        if self.telemetry:
+            self.ledger.clear()
         return self
 
     def step(self) -> FetchReport:
         """Advance ONE cycle; fetch vs dispatch follows the step counter."""
         dispatch = (self._t + 1) % self.cfg.dispatch_interval == 0
-        self.state, rep = self._step_fn(self.state, dispatch=dispatch)
+        if not self.telemetry:
+            self.state, rep = self._step_fn(self.state, dispatch=dispatch)
+            self._t += 1
+            return rep
+        name = "step_dispatch" if dispatch else "step_fetch"
+        with self.tracer.span(name, "stage", t=self._t):
+            self.state, rep = self._step_fn(self.state, dispatch=dispatch)
+            # the copy waits for the step's work on the device
+            row = self._snapshot(dispatch).cpu().numpy()
         self._t += 1
+        self.ledger.append(self._t, row)
+        if dispatch:
+            self._emit_counters()
+            self.maybe_rebalance()
         return rep
 
     def run_chunk(self) -> FetchReport:
         """Advance one dispatch interval and return its stacked FetchReport
         (leading time axis). The step counter must sit on an interval
-        boundary, so that the chunk's last step is the dispatch step."""
+        boundary, so that the chunk's last step is the dispatch step. With
+        telemetry on, the interval's ledger rows are stacked on the device
+        and copied to the host once."""
         iv = self.cfg.dispatch_interval
         if self._t % iv:
             raise ValueError(
                 f"run_chunk: step counter t={self._t} is not aligned to "
                 f"dispatch_interval={iv}; use .step() to reach a boundary")
-        reps = [self.step() for _ in range(iv)]
+        if not self.telemetry:
+            reps = [self.step() for _ in range(iv)]
+            return FetchReport(*(torch.stack(x) for x in zip(*reps)))
+        reps, rows = [], []
+        with self.tracer.span("run_chunk", "stage", t=self._t, interval=iv):
+            for i in range(iv):
+                dispatch = i == iv - 1
+                self.state, rep = self._step_fn(self.state,
+                                                dispatch=dispatch)
+                reps.append(rep)
+                rows.append(self._snapshot(dispatch))
+            rows = torch.stack(rows).cpu().numpy()
+        t0, self._t = self._t, self._t + iv
+        self.ledger.append_block(range(t0 + 1, t0 + iv + 1), rows)
+        self._emit_counters()
+        self.maybe_rebalance()
         return FetchReport(*(torch.stack(x) for x in zip(*reps)))
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _snapshot(self, dispatch: bool) -> torch.Tensor:
+        from repro_torch.obs.ledger import snapshot
+        return snapshot(self.cfg, self.state, dispatch)
+
+    def _emit_counters(self) -> None:
+        """Counter events at each dispatch boundary: the ledger's tail as
+        Chrome ``C`` rows, one series per shard."""
+        tail = self.ledger.tail()
+        for metric in ("frontier_depth", "staging_fill"):
+            if metric in tail:
+                self.tracer.counter(metric, {
+                    f"shard{i}": v for i, v in enumerate(tail[metric])})
+
+    def telemetry_report(self, *, start: int = 0):
+        """The session's :class:`~repro_torch.obs.health.CrawlTelemetry`
+        (the ledger from record ``start`` on, and every span so far); None
+        with telemetry off."""
+        if not self.telemetry:
+            return None
+        from repro_torch.obs.health import CrawlTelemetry
+        steps, rows = self.ledger.arrays()
+        return CrawlTelemetry(steps=steps[start:], rows=rows[start:],
+                              names=self.ledger.names,
+                              interval=self.cfg.dispatch_interval,
+                              spans=tuple(self.tracer.events))
 
     def run(self, steps: int, *, events: Optional[Events] = None,
             collect: str = "urls", mode: str = "auto") -> CrawlReport:
@@ -118,6 +210,8 @@ class CrawlSession:
                     f"events (t={self._t}, steps={steps}, interval={iv})")
 
         url_parts, per_step = [], []
+        led0 = len(self.ledger) if self.telemetry else 0
+        reb0 = len(self.rebalance_events)
         t0 = time.time()
         while self._t < t_end:
             t = self._t
@@ -139,13 +233,18 @@ class CrawlSession:
                            per_step=np.asarray(per_step, np.int64),
                            stats=stats_dict(self.state), seconds=seconds,
                            cfg=self.cfg,
-                           stats_per_shard=stats_per_shard(self.state))
+                           stats_per_shard=stats_per_shard(self.state),
+                           telemetry=self.telemetry_report(start=led0),
+                           rebalances=tuple(self.rebalance_events[reb0:]))
 
     def inject_failure(self, shards: Union[int, Sequence[int]]
                        ) -> "CrawlSession":
         """Mark crawl process(es) dead (wraps ``crawler.mark_dead``)."""
         shards = [shards] if isinstance(shards, int) else list(shards)
         self.state = CR.mark_dead(self.state, shards)
+        if self.telemetry:
+            self.tracer.instant("inject_failure", "fault", t=self._t,
+                                shards=list(shards))
         return self
 
     def heal(self, shards: Union[int, Sequence[int], None] = None
@@ -164,20 +263,103 @@ class CrawlSession:
         if not shards:
             raise ValueError("heal: no dead shards in state and none given")
         self.state = heal_crawler(self.state, self.cfg, shards, self.n_shards)
+        if self.telemetry:
+            self.tracer.instant("heal", "fault", t=self._t,
+                                shards=list(shards))
         return self
+
+    # -- load-driven elastic repartitioning ----------------------------------
+
+    def _windowed_imbalance(self) -> float:
+        """The trigger signal: the mean load-imbalance factor over the last
+        ``cfg.rebalance_window`` dispatch-boundary ledger records."""
+        from repro_torch.obs.health import CrawlTelemetry
+        steps, rows = self.ledger.arrays()
+        tel = CrawlTelemetry(steps=steps, rows=rows, names=self.ledger.names,
+                             interval=self.cfg.dispatch_interval)
+        imb = tel.per_interval().imbalance()
+        if not len(imb):
+            return 1.0
+        w = max(self.cfg.rebalance_window, 1)
+        return float(imb[-w:].mean())
+
+    def maybe_rebalance(self):
+        """The host-side check at every dispatch boundary when
+        ``cfg.rebalance_threshold > 0``: if the windowed load imbalance
+        passes the threshold, the configured rebalance policy plans a
+        live -> live migration from the rows' depth and cash (f64 on the
+        host), and ``crawler.apply_rebalance`` applies it as a heal's is.
+        Returns the recorded :class:`~repro_torch.rebalance.RebalanceEvent`,
+        or None (disabled, under the threshold, or no move pays)."""
+        if self._rebalance is None:
+            return None
+        trigger = self._windowed_imbalance()
+        if trigger <= self.cfg.rebalance_threshold:
+            return None
+        from repro_torch.core import partitioner as PT
+        from repro_torch.ordering.policies import ORD_URL0
+        from repro_torch.rebalance import RebalanceEvent
+        state = self.state
+        row_depth = state.f_valid.sum(dim=1).cpu().numpy().astype(np.float64)
+        os_ = state.order_state.cpu().numpy().astype(np.float64)
+        row_cash = os_[:, 0] + os_[:, ORD_URL0:].sum(axis=1)
+        dm = PT.DomainMap(state.slot_of_domain, state.slot_domain,
+                          state.shard_alive)
+        decision = self._rebalance.plan(self.cfg, dm, row_depth, row_cash)
+        if decision is None:
+            return None
+        with self.tracer.span("rebalance", "rebalance", t=self._t,
+                              n_moves=len(decision.moves)):
+            self.state = CR.apply_rebalance(state, self.cfg,
+                                            decision.new_map)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        event = RebalanceEvent(step=self._t, trigger=trigger,
+                               moves=decision.moves,
+                               imbalance_before=decision.imbalance_before,
+                               imbalance_after=decision.imbalance_after)
+        self.rebalance_events.append(event)
+        self.tracer.instant("rebalance", "rebalance", **event.asdict())
+        return event
 
     def checkpoint(self, ckpt_dir: str, *, keep: int = 3) -> str:
         """Write the full crawl state atomically in the JAX package's
-        checkpoint format; returns the path."""
+        checkpoint format; returns the path. With telemetry on, the ledger
+        is written beside it (an ``obs/`` directory), as the JAX session
+        writes it."""
         from repro_torch.train import checkpoint as ckpt
-        return ckpt.save(ckpt_dir, self._t, state_to_numpy(self.state),
-                         keep=keep)
+        if not self.telemetry:
+            return ckpt.save(ckpt_dir, self._t, state_to_numpy(self.state),
+                             keep=keep)
+        with self.tracer.span("checkpoint", "io", step=self._t):
+            path = ckpt.save(ckpt_dir, self._t, state_to_numpy(self.state),
+                             keep=keep)
+            steps, rows = self.ledger.arrays()
+            ckpt.save(os.path.join(ckpt_dir, _OBS_DIR), self._t,
+                      {"steps": steps, "rows": rows}, keep=keep)
+        return path
 
     def restore(self, ckpt_dir: str, *, step: Optional[int] = None
                 ) -> "CrawlSession":
         """Restore a state (latest step by default, from either package)
         and resync the step counter. Its shard count must be the
-        session's."""
+        session's. With telemetry on, the ledger written beside it is
+        restored too (a checkpoint without one starts a fresh ledger)."""
+        from repro_torch.train import checkpoint as ckpt
+        if not self.telemetry:
+            self._restore_state(ckpt_dir, step)
+            return self
+        with self.tracer.span("restore", "io"):
+            self._restore_state(ckpt_dir, step)
+            obs_dir = os.path.join(ckpt_dir, _OBS_DIR)
+            if self._t in ckpt.all_steps(obs_dir):
+                led = ckpt.load(obs_dir, step=self._t)
+                self.ledger.load(led["steps"], led["rows"])
+            else:
+                self.ledger.clear()
+        return self
+
+    def _restore_state(self, ckpt_dir: str, step: Optional[int]) -> None:
         from repro_torch.train import checkpoint as ckpt
         arrays = ckpt.load(ckpt_dir, step=step)
         if arrays["stats"].shape[0] != self.n_shards:
@@ -186,4 +368,3 @@ class CrawlSession:
                              f"session {self.n_shards}")
         self.state = state_from_numpy(arrays, self.device)
         self._t = int(self.state.step)
-        return self

@@ -150,16 +150,19 @@ class CrawlConfig:
     partitioning: str = "webparf"     # "webparf" | "url_hash" | "random"
     ordering: str = "backlink"        # "fifo" | "backlink" | "learned" |
                                       # "opic" | "opic_url", all ported
-    coordination: str = "exchange"    # only "exchange" is ported
-    comm_quota: int = -1              # "batched" only (not ported)
+    coordination: str = "exchange"    # "exchange" | "firewall" |
+                                      # "crossover" | "batched"
+    comm_quota: int = -1              # "batched": URLs shipped per shard
+                                      # per dispatch (< 0: no bound)
     slot_factor: int = 2              # frontier rows per domain
     kernel_impl: str = "auto"         # the port dispatches by device: a CUDA
                                       # tensor runs the hand-written kernel, a
                                       # CPU tensor its plain version; only
                                       # "auto" is accepted
-    telemetry: bool = False           # not ported
-    rebalance: str = "hot_domain"     # not ported
-    rebalance_threshold: float = 0.0  # > 0 is not ported
+    telemetry: bool = False           # the load ledger and spans (obs/)
+    rebalance: str = "hot_domain"     # rebalance policy (rebalance/)
+    rebalance_threshold: float = 0.0  # > 0: load-driven rebalance (needs
+                                      # telemetry)
     rebalance_window: int = 2
     rebalance_max_domains: int = 4
     fused_dispatch: bool = True       # acts only for url-lane orderings

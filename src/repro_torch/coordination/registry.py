@@ -2,9 +2,12 @@
 ``repro/coordination/registry.py``.
 
 ``CrawlConfig.coordination`` names what a crawl process does with the URLs
-it discovers at dispatch time. The port has the paper's default,
-``exchange`` (ship every staged URL to its predicted owner). ``firewall``,
-``crossover`` and ``batched`` are a later slice of the port and raise.
+it discovers at dispatch time: ``exchange`` ships every staged URL to its
+predicted owner (the paper's default), ``firewall`` keeps its own and drops
+foreign ones, ``crossover`` keeps both without communicating, and
+``batched`` ships a bounded top-k a dispatch and parks the rest in the
+outbox (``coordination/outbox.py``). A third-party mode registers with
+``register_coordination`` and is selected by name like the built-ins.
 """
 from __future__ import annotations
 
@@ -12,12 +15,14 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-NOT_PORTED = ("firewall", "crossover", "batched")
-
 
 class DispatchPlan(NamedTuple):
-    """One dispatch round's fate for every item of the candidate pool;
-    ``ship``, ``keep`` and ``defer`` are disjoint."""
+    """One dispatch round's fate for every item of the candidate pool (the
+    staging batch, after the parked outbox for ``uses_outbox`` modes);
+    ``ship``, ``keep`` and ``defer`` are disjoint. ``ship``/``keep`` pick
+    from the valid (staged and alive) items, ``defer`` from the staged
+    ones. A staged item in none of them, or dropped by the exchange's
+    bucket overflow, refunds its value to its source page's row."""
     ship: torch.Tensor      # (N,) bool — transmit through the exchange
     keep: torch.Tensor      # (N,) bool — process locally
     defer: torch.Tensor     # (N,) bool — park for a later dispatch
@@ -57,10 +62,6 @@ def coordinations() -> Tuple[str, ...]:
 
 def get_coordination(name: str) -> CoordinationPolicy:
     """Resolve a ``cfg.coordination`` string to its registered policy."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"coordination {name!r} is not ported yet (ROADMAP Queue 1: "
-            f"coordination/policies.py firewall, crossover, batched)")
     import repro_torch.coordination.policies  # noqa: F401  (registers)
     if name not in _POLICIES:
         raise KeyError(f"unknown coordination policy {name!r}; "

@@ -11,7 +11,7 @@ the ``opic_url`` ordering's lane — in place.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -88,12 +88,22 @@ def _rebase_fifo(f: Frontier, incoming: torch.Tensor) -> Frontier:
 
 
 def bucket_occupancy(priority: torch.Tensor, valid: torch.Tensor,
-                     n_buckets: int) -> torch.Tensor:
+                     n_buckets: int, *, groups: Optional[int] = None
+                     ) -> torch.Tensor:
     """Valid-URL count per priority bucket, summed over rows ->
-    (n_buckets,) f32."""
+    (n_buckets,) f32; with ``groups``, the rows split into that many equal
+    consecutive groups (a shard's rows) -> (groups, n_buckets). An integer
+    scatter-add with no host sync (invalid cells count in a dropped trash
+    bucket)."""
+    g = 1 if groups is None else groups
     b = torch.ceil(priority / _FIFO_RANGE).to(torch.int64)
-    b = torch.clamp(b, 0, n_buckets - 1)[valid]
-    return torch.bincount(b, minlength=n_buckets).to(torch.float32)
+    b = torch.where(valid, torch.clamp(b, 0, n_buckets - 1),
+                    torch.full_like(b, n_buckets)).reshape(g, -1)
+    occ = torch.zeros((g, n_buckets + 1), dtype=torch.int64,
+                      device=priority.device)
+    occ.scatter_add_(1, b, torch.ones_like(b))
+    occ = occ[:, :n_buckets].to(torch.float32)
+    return occ[0] if groups is None else occ
 
 
 def select_arrays(url: torch.Tensor, priority: torch.Tensor,

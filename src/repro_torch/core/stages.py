@@ -37,10 +37,16 @@ staging, the exchange's buckets) runs along a leading shard axis, and
 ``lax.axis_index`` becomes the shard vector ``StageContext.shard``. Stat
 deltas are (n_shards,) vectors, or scalars that every shard adds.
 
-This slice of the port covers ``exchange`` coordination, any partitioning
-policy, any ordering, and any shard count that divides the domains and
-slots. ``check_supported`` refuses the rest with the ROADMAP item that
-will port it.
+Coordination is the fourth registry (``repro_torch/coordination``):
+``ctx.coord`` decides what ``dispatch_exchange`` does with each staged
+URL — ship it (``exchange``), keep or drop it locally without the
+exchange (``crossover``, ``firewall``), or ship a bounded top-k and park
+the rest in ``CrawlState.outbox_*`` (``batched``). The stage runs only the
+machinery the mode's flags ask for. Scenario stages (politeness, revisit)
+slot into the pipeline by their ``placement``; ``ledger_view`` names what
+the telemetry ledger may read. Any partitioning policy, ordering,
+coordination mode and shard count that divides the domains and slots is
+covered; ``check_supported`` refuses the rest.
 """
 from __future__ import annotations
 
@@ -51,8 +57,10 @@ import torch
 
 from repro_torch.configs.base import CrawlConfig
 from repro_torch.coordination import get_coordination
+from repro_torch.coordination import outbox as OB
 from repro_torch.core import classifier as CLS
 from repro_torch.core import dedup as DD
+from repro_torch.core import freshness as FR
 from repro_torch.core import frontier as F
 from repro_torch.core import partitioner as PT
 from repro_torch.core import router as RT
@@ -187,17 +195,11 @@ Stage = Callable[[StageContext, CrawlState, Optional[StepCarry]],
 
 
 def check_supported(cfg: CrawlConfig, n_shards: int) -> None:
-    """Refuse what this slice of the port does not cover, naming the
-    ROADMAP item that will."""
+    """Refuse what the port cannot run: unknown ordering or coordination
+    names, a shard count that does not divide the domains and slots, and
+    a kernel knob other than ``auto``."""
     get_ordering(cfg.ordering)            # unknown names raise
-    get_coordination(cfg.coordination)    # firewall/crossover/batched raise
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry=True is not ported yet (ROADMAP Queue 1: obs/ledger.py)")
-    if cfg.rebalance_threshold > 0:
-        raise NotImplementedError(
-            "rebalance_threshold > 0 is not ported yet (ROADMAP Queue 1: "
-            "rebalance/policy.py, after the C4 heal slice)")
+    get_coordination(cfg.coordination)
     if n_shards < 1 or cfg.n_domains % n_shards or cfg.n_slots % n_shards:
         raise ValueError(f"{cfg.n_domains} domains / {cfg.n_slots} slots do "
                          f"not split over {n_shards} shards")
@@ -221,6 +223,23 @@ def with_frontier(s: CrawlState, f: F.Frontier) -> CrawlState:
     return s._replace(f_url=f.url, f_pri=f.priority, f_valid=f.valid,
                       f_arrival=f.arrival, f_dropped=f.n_dropped,
                       f_inserted=f.n_inserted, f_rebased=f.n_rebased)
+
+
+def ledger_view(state: CrawlState) -> Dict[str, object]:
+    """What the telemetry ledger (``repro_torch/obs/ledger.py``) may read,
+    named by role: every shard's rows at once, read only. This module owns
+    the CrawlState layout, so a layout change updates this one mapping."""
+    return dict(
+        frontier=frontier_view(state),      # (n_slots, C) every shard's rows
+        stats=state.stats,                  # (n_shards, NSTAT) counters
+        staging_n=state.staging_n,          # (n_shards,) outbound backlog
+        staging_val=state.staging_val,      # (n_shards, S) in-transit cash
+        outbox_n=state.outbox_n,            # (n_shards,) parked backlog
+        outbox_val=state.outbox_val,        # (n_shards, B) parked cash
+        order_state=state.order_state,      # (n_slots, ORD_WIDTH[+C])
+        shard_alive=state.shard_alive,      # (n_shards,)
+        step=state.step,                    # ()
+    )
 
 
 def add_to_rows(slot_cash: torch.Tensor, rows: torch.Tensor,
@@ -261,7 +280,7 @@ def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
     dm = PT.identity_map(cfg, n_shards, dev)
     bloom = DD.init_bloom(cfg.n_slots, cfg.bloom_bits_log2, dev)
     DD.probe_insert(bloom, f.url, f.valid, k=cfg.bloom_hashes)
-    S = B = cfg.dispatch_capacity
+    S = cfg.dispatch_capacity
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -275,10 +294,7 @@ def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
         staging_src=zeros((n_shards, S), torch.int32),
         staging_val=zeros((n_shards, S), torch.float32),
         staging_n=zeros((n_shards,), torch.int32),
-        outbox_url=zeros((n_shards, B), torch.int64),
-        outbox_src=zeros((n_shards, B), torch.int32),
-        outbox_val=zeros((n_shards, B), torch.float32),
-        outbox_n=zeros((n_shards,), torch.int32),
+        **OB.init_outbox(cfg, n_shards, dev),
         stats=zeros((n_shards, NSTAT), torch.int32),
         slot_of_domain=dm.slot_of_domain, shard_alive=dm.shard_alive,
         step=zeros((), torch.int32))
@@ -445,58 +461,108 @@ def _from_bits(lane: torch.Tensor) -> torch.Tensor:
     return lane.to(torch.int32).view(torch.float32)
 
 
+def _entry_scores(ctx: StageContext, state: CrawlState, rb: torch.Tensor,
+                  rbf: Optional[torch.Tensor],
+                  val: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Entry scores of received URLs about to enter the frontier.
+    ``rbf`` marks crossover's kept-foreign URLs, which enter at the lowest
+    priority bucket (fetched once the local queue runs dry)."""
+    scores = (ctx.score_fn(rb, ctx.cfg, state, val=val) if val is not None
+              else ctx.score_fn(rb, ctx.cfg, state))
+    if rbf is not None:
+        scores = torch.where(rbf, torch.zeros_like(scores), scores)
+    return scores
+
+
 def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
                       ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
-    """URL dispatcher (C5): predict each staged URL's owner, ship it through
-    the exchange, dedup what arrived (exact, then the Bloom filter), and
+    """URL dispatcher (C5): predict each staged URL's owner, let the
+    coordination mode (``ctx.coord``) give every candidate a fate — ship
+    it through the exchange, keep it locally, park it in the outbox, or
+    drop it — then dedup what arrived (exact, then the Bloom filter) and
     insert the survivors into the receiving shard's frontier rows. Every
     source shard packs its own buckets, the exchange transposes them, and
     every receiving shard buckets its arrivals per row: one (n_slots, M)
-    batch for the Bloom kernels. On the value channel every staged value
-    is delivered or refunded: to the receiving row's slot cash (``opic``),
-    or into the cell its URL wins or its queued twin holds (``opic_url``)."""
+    batch for the Bloom kernels. A mode that does not communicate skips
+    the exchange: what it keeps is its "received" set, bucketed per row
+    on its own shard. On the value channel every staged value is
+    delivered, parked or refunded: to the receiving row's slot cash
+    (``opic``), or into the cell its URL wins or its queued twin holds
+    (``opic_url``)."""
     cfg, S, n = ctx.cfg, ctx.S, ctx.n_shards
+    coord = ctx.coord
     valued = ctx.ordering.stateful
     u, src, val = state.staging_url, state.staging_src, state.staging_val
     r_slots = cfg.n_slots // n                     # rows a shard owns
     sid = torch.arange(n, device=u.device)[:, None]  # each item's shard
 
+    # the candidate pool: the staging batch, after the parked outbox for
+    # modes that carry one (retries first)
     staged = torch.arange(S, device=u.device)[None] < state.staging_n[:, None]
-    # a dead process sends nothing
+    if coord.uses_outbox:
+        u, src, val, staged, _ = OB.merge_pool(state, u, src, val, staged)
+    # a dead process sends nothing (the batched mode still parks)
     valid = staged & state.shard_alive[:, None]
     pred = CLS.predict_domain(u, src, cfg, step=state.step,
                               accuracy=ctx.classify_accuracy)
+    # outbox retries route through the live domain map
     dest = ctx.policy.route(cfg, state, n, u, pred, state.step)
-    plan = ctx.coord.plan(ctx, state, sid, u, src, val, dest, staged, valid)
+    plan = coord.plan(ctx, state, sid, u, src, val, dest, staged, valid)
     delta = {"dispatch_sent": plan.ship.sum(1),
              "dispatch_rounds": 1,
              "coord_dropped": plan.drop.sum(1)}
 
-    # the payload lanes: url, predicted domain, shipped flag [, the value's
-    # f32 bits]; buckets (n_src, n_dest, cap_ex, L)
-    lanes = [u, pred, plan.ship.to(torch.int64)]
-    if valued:
-        lanes.append(_f32_bits(val))
-    buckets, _, dropped, sent = RT.pack_buckets(
-        torch.stack(lanes, dim=-1), dest, n, ctx.cap_ex,
-        valid=plan.ship, return_keep=True)
-    delta["staging_drop"] = dropped
-    # shard j receives every source's bucket j, in source order
-    recv = RT.exchange(buckets).reshape(n, -1, len(lanes))
-    r_u = recv[..., 0]
-    r_pred = recv[..., 1]
-    r_has = recv[..., 2] > 0
+    outbox = {}
+    if coord.uses_outbox:
+        outbox, parked_ok = OB.park(u, src, val, plan.defer,
+                                    OB.outbox_capacity(cfg))
+        delta["coord_deferred"] = parked_ok.sum(1)
+        delta["coord_dropped"] = (delta["coord_dropped"]
+                                  + (plan.defer & ~parked_ok).sum(1))
+
+    r_foreign = None
+    if coord.communicates:
+        # the payload lanes: url, predicted domain, shipped flag [, the
+        # value's f32 bits]; buckets (n_src, n_dest, cap_ex, L)
+        lanes = [u, pred, plan.ship.to(torch.int64)]
+        if valued:
+            lanes.append(_f32_bits(val))
+        buckets, _, dropped, sent = RT.pack_buckets(
+            torch.stack(lanes, dim=-1), dest, n, ctx.cap_ex,
+            valid=plan.ship, return_keep=True)
+        delta["staging_drop"] = dropped
+        # shard j receives every source's bucket j, in source order
+        recv = RT.exchange(buckets).reshape(n, -1, len(lanes))
+        r_u = recv[..., 0]
+        r_pred = recv[..., 1]
+        r_has = recv[..., 2] > 0
+        if valued:
+            r_val = _from_bits(recv[..., 3])
+    else:
+        # no communication: the "received" set is the kept slice of each
+        # shard's own pool
+        sent = torch.zeros_like(staged)
+        zero = torch.zeros_like(u)
+        r_u = torch.where(plan.keep, u, zero)
+        r_pred = torch.where(plan.keep, pred, zero)
+        r_has = plan.keep
+        if valued:
+            r_val = torch.where(plan.keep, val, torch.zeros_like(val))
+        if coord.keeps_foreign:
+            r_foreign = plan.foreign
 
     if valued:
-        r_val = _from_bits(recv[..., 3])
-        # the sender half: a staged value that was not sent (dead shard,
-        # bucket overflow) refunds to the source page's own row, clamped
-        # into the sending shard's rows
+        # the sender half: a staged value neither sent (dead shard, bucket
+        # overflow), kept nor parked refunds to the source page's own row,
+        # clamped into the sending shard's rows (firewall's drops too)
         slot_cash = state.order_state[:, 0].clone()
         own_slot = state.slot_of_domain.to(torch.int64)[
             torch.clamp(src.to(torch.int64), 0, cfg.n_domains - 1)]
         own_row = torch.clamp(own_slot - sid * r_slots, 0, r_slots - 1)
-        add_to_rows(slot_cash, own_row, val, staged & ~sent & ~plan.keep, n)
+        leftover = staged & ~sent & ~plan.keep
+        if coord.uses_outbox:
+            leftover = leftover & ~parked_ok
+        add_to_rows(slot_cash, own_row, val, leftover, n)
 
     delta["dispatch_recv"] = r_has.sum(1)
     r_m = DD.exact_dedup(r_u, r_has)
@@ -504,17 +570,25 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
 
     # from here on sid is each received item's (receiving) shard
     row, ok = ctx.policy.local_row(cfg, state, sid, r_slots, r_u, r_pred)
+    if r_foreign is not None:
+        # crossover: a kept-foreign URL has no owner row here; it is queued
+        # in a hashed local row instead
+        hrow = W.hash2(r_u, 63) % r_slots
+        row = torch.where(r_foreign & ~ok, hrow, row)
+        ok = ok | (r_foreign & r_has)
     r_m = r_m & ok
     M = min(r_u.shape[1], cfg.frontier_capacity)
 
-    # bucket per local row, Bloom-dedup, insert into the frontier
+    # bucket per local row, Bloom-dedup, insert into the frontier; the
+    # foreign flag rides as a lane of its own
+    extra = [] if r_foreign is None else [r_foreign.to(torch.int64)]
     if ctx.url_lane:
         # the value travels through the per-row bucketing to the cell its
         # URL wins; items that never reach a bucket (exact dup, unowned,
         # overflow) refund to the receiving row here
         rbp, rbmask, rdrop, rkeep = RT.pack_buckets(
-            torch.stack([r_u, _f32_bits(r_val)], dim=-1), row, r_slots, M,
-            valid=r_m, return_keep=True)
+            torch.stack([r_u, _f32_bits(r_val), *extra], dim=-1), row,
+            r_slots, M, valid=r_m, return_keep=True)
         rv = _from_bits(rbp[..., 1]).reshape(cfg.n_slots, M)
         add_to_rows(slot_cash, row, r_val, r_has & ~rkeep, n)
     else:
@@ -522,10 +596,14 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
             # the receiver half: every received value goes to its row
             # before dedup
             add_to_rows(slot_cash, row, r_val, r_has, n)
-        rbp, rbmask, rdrop = RT.pack_buckets(r_u[..., None], row, r_slots, M,
+        payload = (r_u[..., None] if not extra
+                   else torch.stack([r_u, *extra], dim=-1))
+        rbp, rbmask, rdrop = RT.pack_buckets(payload, row, r_slots, M,
                                              valid=r_m)
     # (n_dest, r_slots, M) -> one row-aligned (n_slots, M) batch
     rb = rbp[..., 0].reshape(cfg.n_slots, M).contiguous()
+    rbf = None if r_foreign is None else \
+        (rbp[..., -1] > 0).reshape(cfg.n_slots, M)
     rbmask = rbmask.reshape(cfg.n_slots, M)
     delta["frontier_drop"] = rdrop
 
@@ -536,7 +614,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
             # one dedup_deposit pass: Bloom probe and insert, queued-twin
             # match, twin deposit and no-twin refund; fresh URLs enter at
             # placeholder priorities, and the rescore below is the only
-            # scoring pass
+            # scoring pass (it subsumes crossover's lowest-bucket entry)
             seen, dup_refund = dedup_deposit(
                 state.bloom_bits, rb, rbmask, rv, fr.url, fr.valid, table,
                 k=cfg.bloom_hashes)
@@ -556,8 +634,8 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
             dup_refund = row_sum(torch.where(dupm & ~hit, rv,
                                              torch.zeros_like(rv)))
             fr, _, ins_refund = F.insert_valued(
-                fr, table, rb, ctx.score_fn(rb, cfg, state, val=rv), fresh,
-                torch.where(fresh, rv, torch.zeros_like(rv)),
+                fr, table, rb, _entry_scores(ctx, state, rb, rbf, val=rv),
+                fresh, torch.where(fresh, rv, torch.zeros_like(rv)),
                 n_buckets=cfg.n_priority_buckets)
         delta["dedup_bloom"] = per_shard(ctx, rbmask & seen)
         slot_cash.add_(dup_refund + ins_refund)
@@ -569,7 +647,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
         seen, _ = DD.probe_insert(bloom, rb, rbmask, k=cfg.bloom_hashes)
         fresh = rbmask & ~seen
         delta["dedup_bloom"] = per_shard(ctx, rbmask & seen)
-        fr = F.insert(fr, rb, ctx.score_fn(rb, cfg, state), fresh,
+        fr = F.insert(fr, rb, _entry_scores(ctx, state, rb, rbf), fresh,
                       n_buckets=cfg.n_priority_buckets)
 
     if valued:
@@ -577,18 +655,83 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     for t in (state.staging_url, state.staging_src, state.staging_val,
               state.staging_n):
         t.zero_()
+    for name, leaf in outbox.items():
+        getattr(state, name).copy_(leaf)
     return with_frontier(state, fr), carry, delta
 
 
 def assemble_pipeline(ctx: StageContext,
                       extra_stages: Sequence[Stage] = ()
                       ) -> Tuple[Stage, ...]:
-    """allocate -> fetch_analyze -> [ordering update] -> extract. Scenario
-    stages (politeness, revisit) are not ported yet."""
-    if extra_stages:
-        raise NotImplementedError(
-            "extra_stages are not ported yet (ROADMAP Queue 1: the scenario "
-            "stages make_politeness_stage / make_revisit_stage)")
+    """Compose the step around the core stages:
+
+        allocate -> [post_allocate extras] -> fetch_analyze
+                 -> [post_fetch extras] -> [ordering update] -> extract
+
+    ``extra_stages`` slot in by their ``placement`` attribute
+    (``"post_allocate"`` or the default ``"post_fetch"``) in the given
+    order; the ordering's update stage runs last before extract."""
+    post_alloc = [s for s in extra_stages
+                  if getattr(s, "placement", "post_fetch") == "post_allocate"]
+    post_fetch = [s for s in extra_stages
+                  if getattr(s, "placement", "post_fetch") != "post_allocate"]
     upd = ctx.ordering.update_stage
-    return tuple([allocate, fetch_analyze, *([] if upd is None else [upd]),
-                  extract_stage])
+    return tuple([allocate, *post_alloc, fetch_analyze, *post_fetch,
+                  *([] if upd is None else [upd]), extract_stage])
+
+
+# ---------------------------------------------------------------------------
+# scenario stages — insertable without touching the core four
+# ---------------------------------------------------------------------------
+
+def make_politeness_stage(max_per_row: int) -> Stage:
+    """Per-domain politeness budget: at most ``max_per_row`` fetches per
+    domain queue per step; the overflow re-enters the frontier at its
+    score (a per-host rate limit, placed after ``allocate``). On the url
+    lane a deferred URL takes its cash back into its new cell, and what
+    does not fit refunds to the row's slot cash."""
+
+    def politeness(ctx: StageContext, state: CrawlState, carry: StepCarry
+                   ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
+        order = torch.cumsum(carry.sel.to(torch.int32), dim=1) - 1
+        over = carry.sel & (order >= max_per_row)
+        fr = frontier_view(state)
+        if carry.url_cash is None:
+            fr = F.insert(fr, carry.urls,
+                          ctx.score_fn(carry.urls, ctx.cfg, state), over,
+                          n_buckets=ctx.cfg.n_priority_buckets)
+        else:
+            zero = torch.zeros_like(carry.url_cash)
+            scores = ctx.score_fn(carry.urls, ctx.cfg, state,
+                                  val=carry.url_cash)
+            fr, _, refund = F.insert_valued(
+                fr, state.order_state[:, ORD_URL0:], carry.urls, scores,
+                over, torch.where(over, carry.url_cash, zero),
+                n_buckets=ctx.cfg.n_priority_buckets)
+            state.order_state[:, 0] += refund
+            carry = carry._replace(
+                url_cash=torch.where(over, zero, carry.url_cash))
+        return (with_frontier(state, fr), carry._replace(sel=carry.sel & ~over),
+                {"politeness_deferred": per_shard(ctx, over)})
+
+    politeness.placement = "post_allocate"
+    return politeness
+
+
+def make_revisit_stage(age_steps: int = 32) -> Stage:
+    """Freshness-driven revisits (``core/freshness.py``): fetched URLs
+    re-enter their domain queue at an age-discounted score, so that the
+    allocator interleaves revisits with discovery (placed after
+    ``fetch_analyze``). Revisits bypass the Bloom filter by design."""
+
+    def revisit(ctx: StageContext, state: CrawlState, carry: StepCarry
+                ) -> Tuple[CrawlState, StepCarry, StatsDelta]:
+        age = torch.full(carry.urls.shape, age_steps, dtype=torch.int32,
+                         device=carry.urls.device)
+        fr = FR.reenqueue(frontier_view(state), carry.urls, carry.sel, age,
+                          ctx.cfg)
+        return (with_frontier(state, fr), carry,
+                {"revisit_enqueued": per_shard(ctx, carry.sel)})
+
+    revisit.placement = "post_fetch"
+    return revisit

@@ -1,5 +1,6 @@
 """The port's boundaries: it imports nothing of JAX or of the JAX package,
-its config mirrors the reference's, and what it does not cover yet raises."""
+its config mirrors the reference's, what earlier slices refused now runs,
+and what it does not cover yet raises."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -63,10 +64,20 @@ def test_webparf_configs_mirror_reference():
     dict(coordination="batched"), dict(telemetry=True),
     dict(rebalance_threshold=1.5)])
 def test_unported_features_raise(override):
+    """The crawl features earlier slices refused are ported: each builds
+    and steps. What still raises is the reference's own config error:
+    a rebalance threshold without telemetry."""
+    from repro_torch.api import CrawlSession
     from repro_torch.core.stages import init_state
     cfg = tbase.scaled(tweb.reduced(), **override)
-    with pytest.raises(NotImplementedError):
-        init_state(cfg, 1, "cpu")
+    assert init_state(cfg, 1, "cpu").stats.shape[0] == 1
+    if cfg.rebalance_threshold > 0 and not cfg.telemetry:
+        with pytest.raises(ValueError, match="telemetry"):
+            CrawlSession(cfg, device="cpu")
+        cfg = tbase.scaled(cfg, telemetry=True)
+    rep = CrawlSession(cfg, device="cpu", n_shards=2).run(
+        cfg.dispatch_interval)
+    assert rep.fetched > 0 and (rep.telemetry is not None) == cfg.telemetry
 
 
 def test_unported_shapes_raise():
@@ -76,11 +87,18 @@ def test_unported_shapes_raise():
     assert init_state(tweb.reduced(), 2, "cpu").stats.shape[0] == 2
     with pytest.raises(ValueError, match="split"):
         init_state(tweb.reduced(), 3, "cpu")
-    with pytest.raises(NotImplementedError):
-        CrawlSession(tweb.reduced(), device="cpu",
-                     extra_stages=[lambda ctx, st, c: (st, c, {})])
+    # extra stages are ported: a stage with no effect leaves the crawl as
+    # it was
+    plain = CrawlSession(tweb.reduced(), device="cpu").run(4)
+    extra = CrawlSession(tweb.reduced(), device="cpu",
+                         extra_stages=[lambda ctx, st, c: (st, c, {})]
+                         ).run(4)
+    assert (plain.urls == extra.urls).all()
     with pytest.raises(ValueError, match="auto"):
         init_state(tbase.scaled(tweb.reduced(), kernel_impl="ref"), 1, "cpu")
+    with pytest.raises(KeyError, match="unknown coordination"):
+        init_state(tbase.scaled(tweb.reduced(), coordination="nope"), 1,
+                   "cpu")
 
 
 def test_init_state_needs_a_card_by_default():

@@ -80,8 +80,10 @@ JAX_SCRIPT = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import dataclasses, json, sys
     sys.path.insert(0, "src")
+    import jax
     import jax.numpy as jnp
     import numpy as np
+    from jax.sharding import NamedSharding
     from repro.api import CrawlSession
     from repro.configs import webparf
     from repro.core import crawler as CR
@@ -91,6 +93,12 @@ JAX_SCRIPT = textwrap.dedent("""
     out, cases, TIE = sys.argv[1], json.loads(sys.argv[2]), float(sys.argv[3])
     mesh = make_host_mesh()
     assert mesh.shape["data"] == 4, mesh.shape
+    def commit(sess):
+        # a state placed as the step's outputs are: the step then compiles
+        # once, not once for the fresh state and once for its own outputs
+        sess.state = jax.device_put(sess.state, jax.tree.map(
+            lambda p: NamedSharding(sess.mesh, p), ST.state_specs(sess.axes)))
+
     sessions = {}            # one compiled session per config, reset
     for name, (over, ops) in cases.items():
         key = json.dumps(over, sort_keys=True)
@@ -100,6 +108,7 @@ JAX_SCRIPT = textwrap.dedent("""
             cfg = dataclasses.replace(webparf.reduced(), kernel_impl="ref",
                                       **over)
             sess = sessions[key] = CrawlSession(cfg, mesh)
+        commit(sess)
         rec, events = {}, {}
         for i, op in enumerate(ops):
             if op[0] == "run":
@@ -118,6 +127,7 @@ JAX_SCRIPT = textwrap.dedent("""
                 sess.inject_failure(op[1])
             elif op[0] == "heal":
                 sess.heal()
+                commit(sess)
                 for k, v in zip(ST.CrawlState._fields, sess.state):
                     rec[f"heal{i}.{k}"] = np.asarray(v)
             elif op[0] == "checkpoint":
