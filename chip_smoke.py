@@ -82,6 +82,23 @@ non-zero):
                queued on a survivor after its heal, and
                under opic_url the cash balanced across the heal and the
                run.
+     serve   — the live crawl -> index -> serve path (ServeSession) at
+               webparf.CONFIG, backlink, 4 shards, 64 steps, the serve
+               CLI's load and widths and an index of 65,536 docs, beside
+               the same crawl without serving in this call: latency
+               p50/p95/p99, QPS, freshness lag, recall@10, the index's
+               docs and drops (none), pages/s both ways, the device ms
+               of one query batch and of one index fold (torch.profiler),
+               the host syncs of each, and the crawl kernels' launches,
+               which must equal the crawl's without serving (counts
+               zeroed just before each run, read just after).
+     serve_trajectory — the serve CLI's config with 4 shards, 48 steps,
+               on the card and on the CPU: shard 1 fails at 16, a
+               checkpoint at 24 is restored into a fresh session, the
+               crawl heals at 32; index leaves, answers, lags, arrivals,
+               recall and the crawl identical (scores within 2 ulp); then
+               CrawlSession(score_fn=ranker.score_urls) on the card equal
+               to the default crawl in every leaf.
   5. lm      — flash_parity: both attention kernels against the plain
                version on small cases (every head dim, GQA groups 1/3/6,
                lengths 32, 192 and 256, causal on and off, f32 and bf16),
@@ -144,6 +161,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 SEED = 0
 DEV = "cuda"
+SCORE_ULP = 2                       # served TF-IDF scores, card vs CPU
 CASH_RTOL = 1e-4                    # OPIC cash drift allowed over a run:
                                     # the f32 rounding of the spend split
 
@@ -1341,23 +1359,29 @@ def phase_shards(ordering, one, four):
 
 
 def count_syncs(sess, steps):
-    """Host syncs in ``steps`` steps: torch's sync debug mode warns on
+    """Host syncs in ``steps`` steps (``count_call_syncs``) and the
+    source lines that synced most."""
+    n, where = count_call_syncs(lambda: [sess.step() for _ in range(steps)])
+    return n, dict(Counter(where).most_common(16))
+
+
+def count_call_syncs(fn):
+    """Host syncs of one ``fn()`` call: torch's sync debug mode warns on
     every synchronizing CUDA call (a device-to-host copy, a boolean-mask
-    index, a tensor's truth value). Returns the count and the source lines
-    that synced most."""
+    index, a tensor's truth value). Returns the count and the count by
+    source line."""
     import torch
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for _ in range(steps):
-                sess.step()
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    where = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
-    return len(syncs), dict(where.most_common(16))
+    return len(syncs), dict(Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                    for w in syncs))
 
 
 def phase_profile(sess, steps):
@@ -1569,6 +1593,228 @@ def phase_heal():
                        cash_rtol=CASH_RTOL)
         out["runs"].append(run)
     emit(out)
+
+
+# the serve phase: webparf.CONFIG (backlink) over SHARDS shards, the serve
+# CLI's defaults (launch/serve_search.py) but an index of 65,536 docs,
+# which 64 steps' 16,384 pages do not fill
+SERVE_STEPS = 64
+SERVE_KW = dict(index_capacity=65536, doc_len=64, vocab=4096, top_k=10,
+                n_query_terms=8, query_batch=16, index_every=1)
+SERVE_QPS, SERVE_BURST = 8.0, 6.0
+SERVE_PROFILE_CALLS = 10    # query batches / folds in each profile
+
+
+def serve_session(cfg, dev, **kw):
+    from repro_torch.serve import QueryLoad, ServeSession
+    load = QueryLoad(cfg, qps=SERVE_QPS, seed=SEED, burst_mult=SERVE_BURST)
+    return ServeSession(cfg, dev, n_shards=SHARDS, load=load,
+                        **{**SERVE_KW, **kw})
+
+
+def phase_serve():
+    """The live crawl -> index -> serve path at webparf.CONFIG with SHARDS
+    shards for SERVE_STEPS steps, beside the same crawl without serving in
+    this call: latency percentiles, QPS, freshness lag, recall@k against
+    the full-index oracle, the index's docs and drops (none: the index
+    must not fill), pages/s with and without serving, the device ms of
+    one query batch and of one index fold (torch.profiler), the host syncs
+    of a query batch, and each crawl kernel's launches, which must equal
+    the crawl's without serving (counts zeroed just before each run, read
+    just after). Returns the serve run's launch counts."""
+    import torch
+    from repro_torch.api import CrawlSession
+    from repro_torch.configs import webparf
+    from repro_torch.kernels import launch_counts, reset_launches
+    cfg = webparf.CONFIG
+    sess = CrawlSession(cfg, device=DEV, n_shards=SHARDS)
+    torch.cuda.synchronize()
+    reset_launches()
+    plain = sess.run(SERVE_STEPS, collect="counts")
+    torch.cuda.synchronize()
+    plain_counts = launch_counts()
+    del sess
+    free_card()
+
+    t0 = time.time()
+    srv = serve_session(cfg, DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    reset_launches()
+    rep = srv.run(SERVE_STEPS, recall=True, collect="counts")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    label = f"serve CONFIG n_shards={SHARDS}"
+    diff = {k: (plain_counts[k], counts[k]) for k in PORT_KERNEL_FNS
+            if plain_counts[k] != counts[k]}
+    if diff:
+        raise AssertionError(f"{label}: serving changed the crawl kernels' "
+                             f"launches (without, with): {diff}")
+    if any(counts[k] < 1 for k in PATHS["backlink"][1]):
+        raise AssertionError(f"{label}: a backlink kernel never launched: "
+                             f"{counts}")
+    if rep.crawl.fetched != plain.fetched or \
+            rep.crawl.stats != plain.stats:
+        raise AssertionError(f"{label}: serving changed the crawl: "
+                             f"{rep.crawl.stats} vs {plain.stats}")
+    if rep.index_full or rep.index["index_docs"] != rep.crawl.fetched:
+        raise AssertionError(f"{label}: the index holds "
+                             f"{rep.index} for {rep.crawl.fetched} pages")
+    # the first interval's queries meet an empty index (serve, then fold)
+    later = rep.arrival_step > cfg.dispatch_interval
+    if not rep.n_queries or rep.recall_at_k is None or not later.any() or \
+            not np.isfinite(rep.top_scores[later]).all() or \
+            not (rep.top_urls[later] > 0).all():
+        raise AssertionError(f"{label}: answers malformed: "
+                             f"{rep.n_queries} queries, recall "
+                             f"{rep.recall_at_k}")
+
+    # one query batch and one fold, timed on the device
+    seeds = torch.arange(1, SERVE_KW["query_batch"] + 1, device=DEV)
+    doms = seeds % cfg.n_domains
+    query = lambda: srv._query_fn(srv.index, seeds, doms)  # noqa: E731
+    q_prof = profile_device(
+        lambda: [query() for _ in range(SERVE_PROFILE_CALLS)],
+        SERVE_PROFILE_CALLS)
+    chunk = srv.crawl.run_chunk()
+    fold = lambda: srv._add_fn(srv.index, chunk)  # noqa: E731
+    f_prof = profile_device(
+        lambda: [fold() for _ in range(SERVE_PROFILE_CALLS)],
+        SERVE_PROFILE_CALLS)
+    batch_syncs, batch_lines = count_call_syncs(
+        lambda: [x.cpu() for x in query()])
+    fold_syncs, fold_lines = count_call_syncs(fold)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def brief(p):
+        return {k: p[k] for k in ("wall_ms_per_call",
+                                  "device_busy_ms_per_call",
+                                  "device_events_per_call",
+                                  "device_idle_share",
+                                  "top_device_ms_per_call")}
+    out = {"phase": "serve", "config": "webparf.CONFIG ordering=backlink",
+           "n_shards": SHARDS, "steps": SERVE_STEPS, **SERVE_KW,
+           "qps_per_step": SERVE_QPS, "burst_mult": SERVE_BURST,
+           "init_s": init_s, "n_queries": rep.n_queries,
+           "p50_ms": rep.p50_ms, "p95_ms": rep.p95_ms, "p99_ms": rep.p99_ms,
+           "qps": rep.qps, "freshness_lag_steps": rep.freshness_lag,
+           "max_lag_steps": rep.max_lag, f"recall_at_{rep.k}":
+           rep.recall_at_k, "index_docs": rep.index["index_docs"],
+           "index_dropped": rep.index["index_dropped"],
+           "index_capacity": rep.index["index_capacity"],
+           "fetched": rep.crawl.fetched, "seconds": rep.seconds,
+           "serve_seconds": rep.serve_seconds,
+           "pages_per_s_with_serving": rep.crawl.fetched / rep.seconds,
+           "pages_per_s_crawl_part": rep.crawl.pages_per_sec,
+           "pages_per_s_without_serving": plain.pages_per_sec,
+           "serving_cost_x": plain.pages_per_sec * rep.seconds
+           / rep.crawl.fetched,
+           "query_batch_device": brief(q_prof),
+           "index_fold_device": brief(f_prof),
+           "host_syncs_query_batch_with_copies": batch_syncs,
+           "host_syncs_index_fold": fold_syncs,
+           "sync_lines": {"query_batch": batch_lines, "fold": fold_lines},
+           "launches": {k: counts[k] for k in PORT_KERNEL_FNS},
+           "launches_equal_without_serving": True,
+           "peak_mem_gib": peak}
+    emit(out)
+    return counts
+
+
+SERVE_TRAJ_STEPS = 48
+SERVE_TRAJ_EVENTS = {16: "fail", 24: "checkpoint", 32: "heal"}
+
+
+def phase_serve_trajectory():
+    """The serve CLI's config with SHARDS shards for SERVE_TRAJ_STEPS
+    steps, on the card and on the CPU: shard 1 fails at step 16, a
+    checkpoint at step 24 is restored into a fresh session that goes on,
+    and the crawl heals at step 32. The index leaves, the served URLs,
+    lags, arrivals, recall, index stats and the crawl must be identical on
+    both devices, the scores within SCORE_ULP (the largest difference is
+    reported). Then CrawlSession(cfg, score_fn=ranker.score_urls) on the
+    card must equal the default backlink crawl in every leaf."""
+    import shutil
+    import torch
+    from repro_torch.api import CrawlSession
+    from repro_torch.core import ranker
+    from repro_torch.core.stages import state_to_numpy
+    cfg = cli_config()          # launch/serve_search.py's config too
+    kw = dict(index_capacity=4096, doc_len=64, vocab=4096, top_k=10,
+              query_batch=16, index_every=1)
+    runs, index, states = {}, {}, {}
+    for key, dev in (("cuda", DEV), ("cpu", "cpu")):
+        ckpt = ROOT / "build" / f"serve_ckpt_{key}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        sess = serve_session(cfg, dev, **kw)
+        reps, t = [], 0
+        for nxt in (16, 24, 32, SERVE_TRAJ_STEPS):
+            reps.append(sess.run(nxt - t))
+            t = nxt
+            ev = SERVE_TRAJ_EVENTS.get(t)
+            if ev == "fail":
+                sess.inject_failure(HEAL_DEAD)
+            elif ev == "heal":
+                sess.heal()
+            elif ev == "checkpoint":
+                sess.checkpoint(str(ckpt))
+                sess = serve_session(cfg, dev, **kw).restore(str(ckpt))
+        runs[key] = reps
+        index[key] = [x.cpu().numpy() for x in sess.index]
+        states[key] = state_to_numpy(sess.crawl.state)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    diffs, max_ulp = [], 0
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        for f in ("top_urls", "lag_steps", "arrival_step"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                diffs.append(f"run{i}.{f}")
+        fin = np.isfinite(a.top_scores)
+        if not np.array_equal(fin, np.isfinite(b.top_scores)):
+            diffs.append(f"run{i}.top_scores")
+        elif fin.any():
+            max_ulp = max(max_ulp, int(np.abs(
+                a.top_scores[fin].view(np.int32).astype(np.int64)
+                - b.top_scores[fin].view(np.int32).astype(np.int64)).max()))
+        if (a.recall_at_k, a.index, a.crawl.stats) != \
+                (b.recall_at_k, b.index, b.crawl.stats) or \
+                not np.array_equal(a.crawl.urls, b.crawl.urls):
+            diffs.append(f"run{i}.recall/index/crawl")
+    diffs += [f"index.{i}" for i, (x, y) in enumerate(
+        zip(index["cuda"], index["cpu"])) if not np.array_equal(x, y)]
+    diffs += [n for n in states["cuda"]
+              if not np.array_equal(states["cuda"][n], states["cpu"][n])]
+    if diffs or max_ulp > SCORE_ULP:
+        raise AssertionError(f"serve_trajectory: cuda and cpu differ in "
+                             f"{diffs} (scores by up to {max_ulp} ulp)")
+    card = runs["cuda"]
+    fetched_dead = [r.crawl.stats_per_shard["fetched"][HEAL_DEAD]
+                    for r in card]          # cumulative at each segment end
+    if not all(r.n_queries for r in card) or card[-1].recall_at_k is None \
+            or fetched_dead[1] != fetched_dead[0]:
+        raise AssertionError("serve_trajectory: a segment served nothing, "
+                             "or the dead shard fetched")
+    # score_fn= on the card: the default backlink crawl in every leaf
+    legacy = {}
+    for name, extra in (("default", {}),
+                        ("score_fn", {"score_fn": ranker.score_urls})):
+        sess = CrawlSession(cfg, device=DEV, n_shards=SHARDS, **extra)
+        rep = sess.run(32)
+        legacy[name] = (rep.urls, state_to_numpy(sess.state))
+    (ua, sa), (ub, sb) = legacy["default"], legacy["score_fn"]
+    bad = [n for n in sa if not np.array_equal(sa[n], sb[n])]
+    if bad or not np.array_equal(ua, ub):
+        raise AssertionError(f"score_fn=ranker.score_urls differs from the "
+                             f"default on the card in {bad or ['urls']}")
+    emit({"phase": "serve_trajectory", "config": dataclasses.asdict(cfg),
+          "n_shards": SHARDS, "steps": SERVE_TRAJ_STEPS,
+          "events": SERVE_TRAJ_EVENTS, "dead_shard": HEAL_DEAD, **kw,
+          "identical": True, "max_score_ulp": max_ulp,
+          "score_ulp_bound": SCORE_ULP,
+          "segments": [{"n_queries": r.n_queries, "recall": r.recall_at_k,
+                        "lag": r.freshness_lag, "index": r.index,
+                        "fetched": r.crawl.fetched} for r in card],
+          "score_fn_equals_default": True, "score_fn_fetched": len(ua)})
 
 
 def twin(x):
@@ -2859,6 +3105,10 @@ def main() -> int:
     free_card()
     phase_heal()
     free_card()
+    serve_counts = phase_serve()
+    free_card()
+    phase_serve_trajectory()
+    free_card()
     flash = phase_flash_parity()
     model, captured, counts_lm = phase_lm_serve()
     phase_lm_long(model)
@@ -2878,6 +3128,8 @@ def main() -> int:
             r[f"checked_on_{SHARDS}_shard_calls"] = checked[r["path"]][
                 r["name"]]
         if r["name"] in PORT_KERNEL_FNS:
+            r[f"launches_serve_{SHARDS}_shards_{SERVE_STEPS}_steps"] = \
+                serve_counts[r["name"]]
             r[f"launches_by_mode_{SHARDS}_shards_{COORD_STEPS}_steps"] = {
                 k: c[r["name"]] for k, (c, _) in modes.items()}
             r["checked_on_mode_calls"] = {

@@ -1,6 +1,5 @@
 """Typed crawl reports and the host-side metric helpers. Counterpart of
-``repro/api/report.py`` (``ordering_quality`` belongs to a later slice of
-the port)."""
+``repro/api/report.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -79,6 +78,16 @@ class CrawlReport:
         if self.cfg is None:
             return dict(url_dup=0.0, content_dup=0.0, fetched=0)
         return overlap_metrics(self.urls, self.cfg)
+
+    @functools.cached_property
+    def ordering_quality(self) -> Dict[str, float]:
+        """Ordering-quality metrics (``ordering/quality.py``): importance-
+        weighted coverage of the fetched pages, how front-loaded it was
+        (AUC), and hub-page counts. Computed on first access."""
+        from repro_torch.ordering.quality import ordering_quality
+        if self.cfg is None:
+            return {}
+        return ordering_quality(self.urls, self.per_step, self.cfg)
 
     @functools.cached_property
     def comm(self) -> Dict[str, float]:

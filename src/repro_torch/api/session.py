@@ -41,7 +41,8 @@ from repro_torch.api.report import (CrawlReport, harvest, stats_dict,
 from repro_torch.configs.base import CrawlConfig
 from repro_torch.core import classifier as CLS
 from repro_torch.core import crawler as CR
-from repro_torch.core.stages import (CrawlState, FetchReport, init_state,
+from repro_torch.core.stages import (CrawlState, FetchReport,
+                                     dispatch_exchange, init_state,
                                      state_from_numpy, state_to_numpy)
 from repro_torch.device import Device, resolve_device
 
@@ -57,13 +58,18 @@ class CrawlSession:
     config's domains and slots)."""
 
     def __init__(self, cfg: CrawlConfig, device: Optional[Device] = None, *,
-                 n_shards: int = 1,
+                 n_shards: int = 1, score_fn: Optional[Callable] = None,
                  classify_accuracy: float = CLS.DEFAULT_ACCURACY,
-                 extra_stages: Sequence = (), tracer=None):
-        """``extra_stages`` slots scenario stages (``make_politeness_stage``,
+                 stages: Optional[Sequence] = None,
+                 extra_stages: Sequence = (),
+                 dispatch_stage: Optional[Callable] = None, tracer=None):
+        """``score_fn`` (stateless ``(urls, cfg)``) overrides the ordering
+        registry's scorer (by default ``cfg.ordering`` decides).
+        ``extra_stages`` slots scenario stages (``make_politeness_stage``,
         ``make_revisit_stage``, ...) into the pipeline by their
-        ``placement``; ``tracer`` shares an ``obs.Tracer`` across
-        sessions."""
+        ``placement``; ``stages`` replaces the whole pipeline as given;
+        ``dispatch_stage`` replaces ``dispatch_exchange`` on dispatch
+        steps. ``tracer`` shares an ``obs.Tracer`` across sessions."""
         from repro_torch import obs
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -79,8 +85,9 @@ class CrawlSession:
             self._rebalance = get_rebalance(cfg.rebalance)
         self._step_fn = CR.make_crawl_step(
             cfg, n_shards=self.n_shards, device=self.device,
-            classify_accuracy=classify_accuracy,
-            extra_stages=tuple(extra_stages))
+            score_fn=score_fn, classify_accuracy=classify_accuracy,
+            stages=stages, extra_stages=tuple(extra_stages),
+            dispatch_stage=dispatch_stage or dispatch_exchange)
         self.state: CrawlState = init_state(cfg, self.n_shards, self.device)
         self._t = 0
         self.tracer = tracer if tracer is not None else obs.Tracer()

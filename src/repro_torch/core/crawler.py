@@ -4,15 +4,16 @@
 once: the stage pipeline (allocate -> fetch_analyze -> extract_stage) and,
 on exchange steps, ``dispatch_exchange``, batched along the leading shard
 axis where the JAX package runs one shard_mapped program a device.
-``make_spmd_crawler`` is the counterpart of the JAX package's entry of the
-same name. ``mark_dead`` simulates a crawl process failing, and
-``apply_rebalance`` migrates rows after a remap (the C4 heal,
-``train/fault.heal_crawler``).
+``score_fn``, ``stages`` and ``dispatch_stage`` thread through as in the
+JAX package. ``make_spmd_crawler`` is the counterpart of the JAX
+package's entry of the same name. ``mark_dead`` simulates a crawl
+process failing, and ``apply_rebalance`` migrates rows after a remap (the
+C4 heal, ``train/fault.heal_crawler``).
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,13 +36,34 @@ __all__ = [
 
 
 def make_crawl_step(cfg: CrawlConfig, *, n_shards: int, device,
+                    score_fn: Optional[Callable] = None,
                     classify_accuracy: float = CLS.DEFAULT_ACCURACY,
-                    extra_stages: Sequence[Stage] = ()):
+                    stages: Optional[Sequence[Stage]] = None,
+                    extra_stages: Sequence[Stage] = (),
+                    dispatch_stage: Stage = ST.dispatch_exchange):
     """Build the step of all ``n_shards`` shards: fn(state, *, dispatch)
-    -> (state, FetchReport)."""
+    -> (state, FetchReport).
+
+    ``score_fn`` (stateless ``(urls, cfg)``) overrides the ordering
+    registry's scorer; by default ``cfg.ordering`` decides.
+    ``extra_stages`` slot scenario stages into the assembled pipeline by
+    their ``placement``; ``stages`` replaces the WHOLE per-step pipeline
+    as given (its first stage must create the StepCarry, as
+    ``stages.allocate`` does, and a stateful ordering's update stage must
+    be included by hand). ``dispatch_stage`` runs only on exchange
+    steps."""
     ctx = ST.make_context(cfg, n_shards=n_shards, device=device,
+                          score_fn=score_fn,
                           classify_accuracy=classify_accuracy)
-    pipeline = ST.assemble_pipeline(ctx, extra_stages)
+    if stages is None:
+        pipeline = ST.assemble_pipeline(ctx, extra_stages)
+    else:
+        if extra_stages:
+            raise ValueError("pass either stages= or extra_stages=, not "
+                             "both")
+        pipeline = tuple(stages)
+    if not pipeline:
+        raise ValueError("the crawl pipeline needs at least one stage")
 
     def step(state: CrawlState, *, dispatch: bool
              ) -> Tuple[CrawlState, FetchReport]:
@@ -50,7 +72,7 @@ def make_crawl_step(cfg: CrawlConfig, *, n_shards: int, device,
             state, carry, delta = stage(ctx, state, carry)
             state = ST.apply_delta(state, delta)
         if dispatch:
-            state, carry, delta = ST.dispatch_exchange(ctx, state, carry)
+            state, carry, delta = dispatch_stage(ctx, state, carry)
             state = ST.apply_delta(state, delta)
         state = state._replace(step=state.step + 1)
         return state, FetchReport(

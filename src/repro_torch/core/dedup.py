@@ -50,3 +50,9 @@ def exact_dedup(urls: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     keep_sorted = first & (sorted_u != _BIG)
     keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
     return keep & mask
+
+
+def fp_rate(b: Bloom, n_inserted: torch.Tensor, k: int) -> torch.Tensor:
+    """Analytic false-positive rate given inserts per row (f32)."""
+    m = float(1 << b.n_bits_log2)
+    return (1.0 - torch.exp(-k * n_inserted.to(torch.float32) / m)) ** k

@@ -1,8 +1,11 @@
 """URL ranker (paper §IV.A.2) — relevance scoring for the prioritized
-queues. Counterpart of ``repro/core/ranker.py``."""
+queues. Counterpart of ``repro/core/ranker.py``.
+
+A learned scorer (``make_learned_scorer``) can replace the hand-crafted
+blend: ``score_fn`` is pluggable."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -22,6 +25,15 @@ def score_urls(urls: torch.Tensor, cfg: CrawlConfig, *,
            torch.clamp(request_count.to(torch.float32) / 16.0, max=1.0))
     s = w_pop * pop + w_hub * hub + w_req * req
     return torch.clamp(s, 0.0, 0.999)
+
+
+def make_learned_scorer(apply_fn: Callable, params) -> Callable:
+    """Wrap a model over URL features as a frontier scorer:
+    apply_fn(params, features (..., 8)) -> scores, clipped to [0, 0.999]."""
+    def scorer(urls: torch.Tensor, cfg: CrawlConfig, **_) -> torch.Tensor:
+        feats = url_features(urls, cfg)
+        return torch.clamp(apply_fn(params, feats), 0.0, 0.999)
+    return scorer
 
 
 def url_features(urls: torch.Tensor, cfg: CrawlConfig) -> torch.Tensor:

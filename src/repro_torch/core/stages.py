@@ -71,7 +71,8 @@ from repro_torch.kernels.dedup_deposit.ref import first_twin, sorted_queue
 from repro_torch.kernels.opic_update.ops import (scatter_cash,
                                                  scatter_cash_cells)
 from repro_torch.kernels.rowsum import row_sum
-from repro_torch.ordering.policies import ORD_URL0, get_ordering
+from repro_torch.ordering.policies import (ORD_URL0, as_score_fn,
+                                           get_ordering)
 
 # stats counters (per shard)
 STATS = ("fetched", "fetch_own", "fetch_foreign", "discovered", "dedup_exact",
@@ -301,9 +302,12 @@ def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
 
 
 def make_context(cfg: CrawlConfig, *, n_shards: int, device,
+                 score_fn: Optional[Callable] = None,
                  classify_accuracy: float) -> StageContext:
-    """The static inputs of the stages of all ``n_shards`` shards;
-    ``cfg.ordering`` names the scorer."""
+    """The static inputs of the stages of all ``n_shards`` shards. A
+    ``score_fn`` override (stateless ``(urls, cfg)``, e.g. a learned
+    scorer) wins over the registry; by default ``cfg.ordering`` names the
+    scorer."""
     check_supported(cfg, n_shards)
     dev = resolve_device(device)
     r_local = cfg.n_slots // n_shards
@@ -311,9 +315,10 @@ def make_context(cfg: CrawlConfig, *, n_shards: int, device,
     ordering = get_ordering(cfg.ordering)
     shard = PT.shard_of_slot(torch.arange(cfg.n_slots, device=dev),
                              cfg.n_slots, n_shards)
+    score = (as_score_fn(score_fn) if score_fn is not None else
+             ordering.make_score_fn(cfg, n_shards=n_shards, shard=shard))
     return StageContext(
-        cfg=cfg, n_shards=n_shards, shard=shard,
-        score_fn=ordering.make_score_fn(cfg, n_shards=n_shards, shard=shard),
+        cfg=cfg, n_shards=n_shards, shard=shard, score_fn=score,
         classify_accuracy=classify_accuracy,
         cumw=W.zipf_cumweights(cfg, dev),
         k_row=max(1, cfg.fetch_batch // r_local), S=S,

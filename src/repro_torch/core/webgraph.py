@@ -113,6 +113,22 @@ def outlinks(url: torch.Tensor, cfg: CrawlConfig,
     return out
 
 
+def page_tokens(url: torch.Tensor, cfg: CrawlConfig, *, n_tokens: int,
+                vocab: int) -> torch.Tensor:
+    """Domain-clustered unigram content of the canonical page:
+    (...,) -> (..., n_tokens) int32 terms, 70% from the domain's band of
+    the vocabulary and 30% from all of it."""
+    c = canonical(url, cfg)[..., None]
+    i = torch.arange(n_tokens, dtype=torch.int64, device=url.device)
+    h = hash2(c, i, 4)
+    dom = domain_of(url, cfg)[..., None]
+    band = vocab // max(int(cfg.n_domains), 1)
+    in_band = _uniform(hash2(c, i, 5)) < 0.7
+    tok_band = dom * band + h % max(band, 1)
+    tok_glob = h % vocab
+    return torch.where(in_band, tok_band, tok_glob).to(torch.int32)
+
+
 def popularity(url: torch.Tensor, cfg: CrawlConfig) -> torch.Tensor:
     """Static page-quality proxy (inlink count analogue) in [0, 1]."""
     u = _uniform(_mix(canonical(url, cfg), 21))

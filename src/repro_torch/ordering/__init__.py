@@ -1,8 +1,14 @@
-"""repro_torch.ordering — the URL-ordering registry of the port."""
+"""repro_torch.ordering — the URL-ordering registry of the port, and the
+ordering-quality metrics (``quality``)."""
 from repro_torch.ordering.policies import (ORD_URL0, ORD_WIDTH,
                                            OrderingPolicy, as_score_fn,
-                                           get_ordering, orderings,
+                                           get_ordering,
+                                           make_learned_ordering, orderings,
                                            register_ordering)
+from repro_torch.ordering.quality import (coverage_curve, hot_page_recall,
+                                          ordering_quality, pooled_hot_set)
 
 __all__ = ["ORD_URL0", "ORD_WIDTH", "OrderingPolicy", "as_score_fn",
-           "get_ordering", "orderings", "register_ordering"]
+           "get_ordering", "make_learned_ordering", "orderings",
+           "register_ordering", "coverage_curve", "hot_page_recall",
+           "ordering_quality", "pooled_hot_set"]

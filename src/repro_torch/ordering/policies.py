@@ -3,9 +3,10 @@
 
 The stateless built-ins live here: ``fifo`` (one bucket, arrival order),
 ``backlink`` (the ranker's static blend, the default) and ``learned`` (a
-fixed linear probe over ``ranker.url_features``). The stateful OPIC
-orderings, ``opic`` (ordering/opic.py) and ``opic_url``
-(ordering/opic_url.py), register when first resolved.
+fixed linear probe over ``ranker.url_features``); ``make_learned_ordering``
+wraps a trained scorer as a policy. The stateful OPIC orderings, ``opic``
+(ordering/opic.py) and ``opic_url`` (ordering/opic_url.py), register when
+first resolved.
 """
 from __future__ import annotations
 
@@ -106,6 +107,19 @@ def _learned_score_fn(cfg, *, n_shards, shard=0):
         s = torch.sigmoid(feats @ w + _LEARNED_B)
         return torch.clamp(s, 0.0, 0.999)
     return score
+
+
+def make_learned_ordering(apply_fn: Callable, params,
+                          name: str = "learned_custom") -> OrderingPolicy:
+    """Wrap a trained model (apply_fn(params, features) -> [0, 1) scores)
+    as a registrable ordering policy: ``register_ordering`` it, then
+    select it by name through ``CrawlConfig.ordering``."""
+    scorer = ranker.make_learned_scorer(apply_fn, params)
+
+    def make_score_fn(cfg, *, n_shards, shard=0):
+        return as_score_fn(scorer)
+
+    return OrderingPolicy(name, False, zeros_state, make_score_fn)
 
 
 FIFO = register_ordering(OrderingPolicy(

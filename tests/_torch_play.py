@@ -113,11 +113,12 @@ JAX_SCRIPT = textwrap.dedent("""
 """)
 
 
-def run_jax(out, cases, timeout=900):
-    """Run every case in one JAX subprocess; returns ``out``."""
+def run_jax(out, cases, timeout=900, script=None):
+    """Run every case in one JAX subprocess (``script``, JAX_SCRIPT by
+    default, gets ``out`` and the cases as JSON); returns ``out``."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     env.pop("REPRO_TELEMETRY", None)
-    r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, str(out),
+    r = subprocess.run([sys.executable, "-c", script or JAX_SCRIPT, str(out),
                         json.dumps(cases)], capture_output=True, text=True,
                        timeout=timeout, cwd=".", env=env)
     if r.returncode != 0 or "jax cases: OK" not in r.stdout:

@@ -200,3 +200,38 @@ def test_serve_and_init_lm_need_a_card_by_default():
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--gen", "2"])
     assert serve.main(["--gen", "2", "--device", "cpu"]) == 0
+
+
+def test_serve_and_quality_copies_mirror_reference():
+    """The port copies of numpy-only modules (serve/load.py,
+    ordering/quality.py, launch/trace_report.py) and the serve layer's
+    signatures keep the reference's names and defaults; the sessions add
+    only ``device`` and ``n_shards`` (the JAX mesh's counterpart)."""
+    import inspect
+    from repro import serve as jserve
+    from repro.launch import trace_report as jtr
+    from repro.ordering import quality as jq
+    from repro_torch import serve as tserve
+    from repro_torch.launch import trace_report as ttr
+    from repro_torch.ordering import quality as tq
+
+    def params(fn, drop=()):
+        return [(p.name, p.default) for p in
+                inspect.signature(fn).parameters.values()
+                if p.name not in drop]
+    assert params(tserve.QueryLoad) == params(jserve.QueryLoad)
+    assert [f.name for f in dataclasses.fields(tserve.ServeReport)] == \
+        [f.name for f in dataclasses.fields(jserve.ServeReport)]
+    assert params(tserve.ServeSession, ("device", "n_shards")) == \
+        params(jserve.ServeSession, ("mesh",))
+    assert tq.HOT_THRESHOLD == jq.HOT_THRESHOLD
+    for name in ("coverage_curve", "ordering_quality", "pooled_hot_set",
+                 "hot_page_recall"):
+        assert params(getattr(tq, name)) == params(getattr(jq, name))
+    for name in ("load_trace", "telemetry_from_trace", "render_ledger_table",
+                 "render_spans", "render_report", "main"):
+        assert params(getattr(ttr, name)) == params(getattr(jtr, name))
+    from repro.api import session as jsess
+    from repro_torch.api import session as tsess
+    assert params(tsess.CrawlSession, ("device", "n_shards")) == \
+        params(jsess.CrawlSession, ("mesh", "axes"))

@@ -471,6 +471,50 @@ def test_session_on_card_matches_cpu(cuda):
                                       states["cpu"][name], err_msg=name)
 
 
+def test_score_fn_override_on_card_equals_default(cuda):
+    """``score_fn=ranker.score_urls`` on the card is the default backlink
+    crawl in every output and state leaf."""
+    from repro_torch.core import ranker
+    cfg = webparf.reduced()
+    reps, states = {}, {}
+    for key, kw in (("default", {}), ("score_fn",
+                                      {"score_fn": ranker.score_urls})):
+        sess = CrawlSession(cfg, device=cuda, n_shards=4, **kw)
+        reps[key], states[key] = sess.run(16), state_to_numpy(sess.state)
+    np.testing.assert_array_equal(reps["default"].urls,
+                                  reps["score_fn"].urls)
+    assert reps["default"].stats == reps["score_fn"].stats
+    for name in states["default"]:
+        np.testing.assert_array_equal(states["default"][name],
+                                      states["score_fn"][name],
+                                      err_msg=name)
+
+
+def test_serve_session_on_card_matches_cpu(cuda):
+    """ServeSession at reduced() with 4 shards, through a fail and a heal:
+    the index leaves, the served answers and their scores, the lags,
+    arrivals, recall and the crawl identical on the card and the CPU (the
+    port's scores are correctly rounded and add in one order)."""
+    from _torch_serve_play import play
+    case = {"shards": 4,
+            "serve": dict(qps=3.0, load_seed=0, doc_len=16, vocab=512,
+                          top_k=5, index_capacity=1024),
+            "ops": [["run", 8, False], ["fail", 1], ["run", 4, False],
+                    ["heal"], ["run", 8, True]]}
+    got = {torch.device(d).type: play(case, device=d) for d in (cuda, "cpu")}
+    (sa, ra), (sb, rb) = got["cuda"], got["cpu"]
+    for i in ra:
+        a, b = ra[i], rb[i]
+        assert a.n_queries > 0
+        for f in ("top_urls", "top_scores", "lag_steps", "arrival_step"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f"run {i}: {f}")
+        assert (a.recall_at_k, a.index) == (b.recall_at_k, b.index)
+        np.testing.assert_array_equal(a.crawl.urls, b.crawl.urls)
+    for x, y in zip(sa.index, sb.index):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+
+
 CLI_SIZE = dict(n_domains=32, frontier_capacity=512, fetch_batch=32,
                 bloom_bits_log2=16, dispatch_capacity=1024,
                 url_space_log2=24)             # launch/crawl.py's defaults
