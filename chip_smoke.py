@@ -124,6 +124,29 @@ non-zero):
                logits within 1e-4 over a prefill and 16 teacher-forced
                decode steps, its prefill launching flash_attention once a
                layer (its f32 path).
+     train   — Qwen2-1.5B at full width (bf16, remat on) trained on the
+               train CLI's corpus (its crawl of the reduced webparf config,
+               60 steps, on the card: frontier_select and bloom launch):
+               batches of 4 x 4096 tokens (train_4k's length, its batch of
+               256 cut to 4 for the time limit), 4 AdamW steps on
+               warmup-cosine from 3e-4: each step's loss, grad norm and ms,
+               tokens/s, peak memory, and its launches (zeroed just before
+               the step, read just after): 56 flash_attention_tc (28
+               forward, 28 remat recomputes; the backward is plain
+               PyTorch) and nothing else; a profile of one more step (the
+               plain backward's device ms marked by a record_function
+               range) and the backward's standalone ms on the captured
+               call; then, on layer 0's q, k, v of the first step, the
+               kernel forward against the plain version and the autograd
+               backward against autograd through flash_ref with a seeded
+               dO, in bf16 and cast to f32.
+     train_f32 — the CLI's reduced f32 model, 20 steps on the card and the
+               CPU from the same weights and batches: losses within 1e-4,
+               parameters within 2 * sum(lr) (mean within 1e-6),
+               flash_attention launched once a layer a step; then
+               run_with_failures on the card with a failure at step 8,
+               equal to the uninterrupted card run bit for bit.
+     examples — examples/torch_quickstart.py's main on the card.
   6. kernels — each kernel's time (CUDA events; for the crawl kernels also
                in a CUDA graph, warm and cold, by the profiler, and per
                launch inside the profiled crawl; dedup_deposit also on the
@@ -137,7 +160,8 @@ non-zero):
                flash_attention_tc on the bf16 ones, flash_attention on
                them cast to f32, its contract) the larger of that and
                their operations over 989 TFLOP/s (bf16) or, three TF32
-               products per f32 product, 495 TFLOP/s (f32).
+               products per f32 product, 495 TFLOP/s (f32); the attention
+               rows also carry their launches per train step.
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1115,6 +1139,367 @@ def phase_lm_cpu(steps=16):
           "tolerance": LM_CPU_TOL, "argmax_equal": bool(torch.equal(
               a.argmax(-1), b.argmax(-1))), "launches": counts})
     return counts
+
+
+# the training path: Qwen2-1.5B at full width (bf16, remat on) on the train
+# CLI's corpus (its crawl of the reduced webparf config, 60 steps, on the
+# card), at train_4k's length with its batch of 256 cut to 4 for the time
+# limit, and the CLI's optimizer (AdamW on warmup-cosine from 3e-4, 10
+# warmup steps)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 4
+TRAIN_CRAWL_STEPS = 60
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 10
+# the autograd backward's dq, dk, dv against autograd through flash_ref on
+# the same inputs and dO: |got - want| <= tol * max|want| (bf16: the
+# gradients' own rounding and the tc forward's p rounding, which enters
+# through rowsum(dO * O); f32: the split-TF32 forward's O)
+TRAIN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the reduced f32 model, card against CPU: each step's loss within
+# TRAIN_F32_LOSS_TOL; the final parameters within 2 * sum(lr) (Adam's
+# step of +-lr on a gradient whose sign is rounding) and their mean
+# |difference| within TRAIN_F32_MEAN_TOL (a wrong step moves every entry by
+# ~lr)
+TRAIN_F32_STEPS = 20
+TRAIN_F32_LOSS_TOL, TRAIN_F32_MEAN_TOL = 1e-4, 1e-6
+TRAIN_F32_FAIL_AT, TRAIN_F32_CKPT_EVERY = (8,), 5
+
+
+def train_bwd_pair(q, k, v, label):
+    """The gradient of ``attention`` (the kernel forward, the plain
+    backward) against autograd through the plain forward ``flash_ref``,
+    on the card, on the same q, k, v and a seeded dO; raises past
+    TRAIN_BWD_TOL. Returns each gradient's max |diff|, max |want| and
+    share of the tolerance."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    do = torch.tensor(np.random.default_rng(SEED + 9).standard_normal(
+        tuple(q.shape)), dtype=torch.float32, device=DEV).to(q.dtype)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, do)
+
+    def plain(a, b, c):
+        qg, kf, vf, group = FA._gqa_fold(a, b, c)
+        return flash_ref(qg, kf, vf, causal=True,
+                         group=group).reshape(a.shape)
+    got = grads(lambda a, b, c: FA.attention(a, b, c, causal=True))
+    want = grads(plain)
+    torch.cuda.synchronize()
+    tol = TRAIN_BWD_TOL[str(q.dtype).split(".")[-1]]
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        err, top = float((a - b).abs().max()), float(b.abs().max())
+        if not torch.isfinite(a).all() or err > tol * top:
+            raise AssertionError(f"flash backward {label} {name}: max "
+                                 f"|diff| {err} > {tol} * {top}")
+        out[name] = {"max_abs_err": err, "max_abs_want": top,
+                     "share_of_tolerance": err / (tol * top)}
+    return out
+
+
+def profile_train_step(step, state, batch):
+    """One training step under torch.profiler, the plain attention
+    backward marked by a ``record_function`` range: the device's busy
+    and idle share, the device events, the top kernels, and the device ms
+    of the kernels the marked backward launched. The step's state is
+    dropped."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.flash_attention import ops as FA
+    orig = FA.flash_backward
+
+    def marked(*args, **kw):
+        with record_function("flash_backward"):
+            return orig(*args, **kw)
+    FA.flash_backward = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        FA.flash_backward = orig
+    per_name, n = Counter(), 0
+    bwd_us, bwd_span_us, bwd_calls = 0.0, 0.0, 0
+    for e in prof.events():
+        if e.name == "flash_backward":
+            # the range shows twice: on the host, where its kernels' device
+            # time is summed, and as a span on the device's timeline,
+            # which is not a kernel
+            if e.device_type == DeviceType.CUDA:
+                bwd_span_us += e.time_range.elapsed_us()
+            else:
+                bwd_calls += 1
+                bwd_us += e.device_time_total
+        elif e.device_type == DeviceType.CUDA:
+            per_name[e.name[:80]] += e.time_range.elapsed_us()
+            n += 1
+    busy = sum(per_name.values())
+    return {"wall_ms": wall_us / 1e3, "device_events": n,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / wall_us,
+            "top_device_ms": {k: v / 1e3
+                              for k, v in per_name.most_common(10)},
+            "flash_backward_calls": bwd_calls,
+            "flash_backward_device_ms": bwd_us / 1e3,
+            "flash_backward_span_ms": bwd_span_us / 1e3,
+            "flash_backward_share_of_busy": bwd_us / busy if busy else None}
+
+
+def phase_train():
+    """The training path at Qwen2-1.5B's full width (bf16, remat on): the
+    train CLI's corpus crawl on the card (counts zeroed just before it,
+    read just after: frontier_select and bloom must launch), its pages as
+    TRAIN_BATCH x TRAIN_SEQ token batches, TRAIN_STEPS AdamW steps, each
+    timed (host clock between synchronisations) with its launches counted
+    (zeroed just before the step, read just after): 2 flash_attention_tc
+    a layer (the forward and the remat recompute; the backward is plain)
+    and nothing else. Layer 0's q, k, v of the first step are captured;
+    after the state is freed the kernel forward is held to the plain
+    version and the autograd backward to autograd through flash_ref, in
+    bf16 and cast to f32. Then a profile of one more step and the plain
+    backward's standalone time on the captured call."""
+    import torch
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.train import crawl_corpus
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg = get_arch(LM_ARCH)[0]
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        raise AssertionError(f"train: want bf16 with remat, got {cfg}")
+    crawl_cfg = get_reduced("webparf")
+    reset_launches()
+    t0 = time.perf_counter()
+    urls, _ = crawl_corpus(crawl_cfg, TRAIN_CRAWL_STEPS, DEV)
+    torch.cuda.synchronize()
+    crawl_s = time.perf_counter() - t0
+    crawl_counts = launch_counts()
+    if not crawl_counts["frontier_select"] or not crawl_counts["bloom"]:
+        raise AssertionError(f"train: the corpus crawl launched "
+                             f"{crawl_counts}")
+    batches = list(lm_batches(urls, crawl_cfg, batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, vocab=cfg.vocab_size,
+                              device=DEV))
+    if len(batches) < TRAIN_STEPS + 1:
+        raise AssertionError(f"train: {len(batches)} batches from "
+                             f"{len(urls)} pages")
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device=DEV))
+    opt = adamw(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt)
+    state = init_train_state(params, opt)
+    del params
+    captured = []
+    orig = FA.attention
+
+    def spy(q, k, v, **kw):
+        if not captured:
+            captured.append(tuple(x.detach().clone() for x in (q, k, v)))
+        return orig(q, k, v, **kw)
+    losses, gnorms, step_ms, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        FA.attention = spy if i == 0 else orig
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(launch_counts())
+        finally:
+            FA.attention = orig
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in per_step[0]}
+    want[FA.TC_KERNEL.name] = 2 * cfg.n_layers
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"train step {i}: launches {c}, want "
+                                 f"{want}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"train: losses {losses}, norms {gnorms}")
+    prof = profile_train_step(step, state, batches[TRAIN_STEPS])
+    del state, batches, m
+    free_card()
+    q, k, v = captured[0]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fwd = {"bfloat16": flash_pair(q, k, v, True, "train layer 0"),
+           "float32": flash_pair(q.float(), k.float(), v.float(), True,
+                                 "train layer 0 as float32")}
+    if fwd["bfloat16"][0] != FA.TC_KERNEL.name or \
+            fwd["float32"][0] != FA.KERNEL.name:
+        raise AssertionError(f"train: routed {fwd}")
+    bwd = {"bfloat16": train_bwd_pair(q, k, v, "bf16"),
+           "float32": train_bwd_pair(q.float(), k.float(), v.float(),
+                                     "as float32")}
+    o = FA.attention(q, k, v, causal=True)
+    do = torch.randn_like(o)
+    bwd_ms = cuda_ms(lambda: FA.flash_backward(q, k, v, o, do, causal=True),
+                     3)
+    fwd_ms = cuda_ms(lambda: FA.launch(FA.TC_KERNEL, q, k, v, True), 10)
+    steady = step_ms[1:] or step_ms
+    out = {"phase": "train", "arch": LM_ARCH,
+           "config": dataclasses.asdict(cfg), "n_params": cfg.n_params,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "cut": "train_4k's global batch 256 cut to 4 for the time limit",
+           "steps": TRAIN_STEPS, "optimizer": f"adamw(warmup_cosine("
+           f"{TRAIN_LR}, {TRAIN_WARMUP}, {TRAIN_STEPS}))",
+           "corpus": {"crawl_steps": TRAIN_CRAWL_STEPS, "pages": len(urls),
+                      "seconds": crawl_s, "launches": crawl_counts},
+           "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "tokens_per_s": tokens * len(steady) / (sum(steady) / 1e3),
+           "tokens_per_s_first_step": tokens / (step_ms[0] / 1e3),
+           "peak_mem_gib": peak, "launches_per_step": per_step[0],
+           "profile_one_step": prof,
+           "flash_backward_ms_per_call": bwd_ms,
+           "flash_backward_ms_per_step": bwd_ms * cfg.n_layers,
+           "flash_backward_share_of_step": bwd_ms * cfg.n_layers
+           / (sum(steady) / len(steady)),
+           "flash_attention_tc_ms_per_call": fwd_ms,
+           "captured": {"shape_q": list(q.shape), "shape_kv": list(k.shape)},
+           "forward_max_abs_err": {d: f[1] for d, f in fwd.items()},
+           "forward_tc_share_of_tc_plain_tolerance": fwd["bfloat16"][2],
+           "backward": bwd, "backward_tolerance":
+           f"|got - want| <= tol * max|want|, tol {TRAIN_BWD_TOL}"}
+    emit(out)
+    return out
+
+
+def phase_train_f32():
+    """The train CLI's reduced f32 model (its defaults: corpus crawl of
+    60 steps, batch 8 x 128, AdamW on warmup-cosine from 3e-4) for
+    TRAIN_F32_STEPS steps on the card and on the CPU from the same numpy
+    weights and batches: losses and final parameters within the stated
+    bounds, flash_attention (split TF32) launched once a layer a step on
+    the card (counts zeroed just before the card's run, read just after);
+    then run_with_failures on the card with one injected failure, equal to
+    the uninterrupted card run bit for bit. TF32 is off for the GEMMs."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import build_parser, crawl_corpus
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cli = build_parser().parse_args([])
+    cfg = scaled(get_reduced(LM_ARCH), dtype="float32")
+    crawl_cfg = get_reduced("webparf")
+    urls, _ = crawl_corpus(crawl_cfg, cli.crawl_steps, "cpu")
+    host = list(lm_batches(urls, crawl_cfg, batch=cli.batch,
+                           seq_len=cli.seq_len, vocab=cfg.vocab_size,
+                           device="cpu"))
+    batches = [host[i % len(host)] for i in range(TRAIN_F32_STEPS)]
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device="cpu"))
+    lr = warmup_cosine(cli.lr, TRAIN_WARMUP, TRAIN_F32_STEPS)
+    opt = adamw(lr=lr)
+    step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt)
+
+    def start(dev):
+        return (init_train_state({k: v.to(dev) for k, v in params.items()},
+                                 opt),
+                [tuple(x.to(dev) for x in b) for b in batches])
+    runs, counts = {}, None
+    for dev in (DEV, "cpu"):
+        st, bs = start(dev)
+        reset_launches()
+        losses = []
+        for b in bs:
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+        counts = launch_counts() if counts is None else counts
+        runs[dev] = (st, losses)
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.n_layers * TRAIN_F32_STEPS
+    if counts != want:
+        raise AssertionError(f"train_f32: launches {counts}, want {want}")
+    (card, l_card), (cpu, l_cpu) = runs[DEV], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(l_card, l_cpu))
+    d = torch.cat([(card.params[k].cpu() - v).abs().ravel()
+                   for k, v in cpu.params.items()])
+    bound = 2 * sum(float(lr(torch.tensor(i, dtype=torch.int32)))
+                    for i in range(1, TRAIN_F32_STEPS + 1))
+    if not np.isfinite(l_card).all() or loss_err > TRAIN_F32_LOSS_TOL \
+            or float(d.max()) > bound or float(d.mean()) > TRAIN_F32_MEAN_TOL:
+        raise AssertionError(f"train_f32: card vs cpu: losses {loss_err}, "
+                             f"params max {float(d.max())} (bound {bound}),"
+                             f" mean {float(d.mean())}")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        st, bs = start(DEV)
+        replayed = fault.run_with_failures(
+            step, st, bs, ckpt_dir=str(ckpt_dir),
+            ckpt_every=TRAIN_F32_CKPT_EVERY,
+            plan=fault.FailurePlan(fail_at=TRAIN_F32_FAIL_AT))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    a, b = ckpt.flatten(card), ckpt.flatten(replayed)
+    differ = sorted(k for k in a if a[k].tobytes() != b[k].tobytes())
+    if differ or int(replayed.step) != TRAIN_F32_STEPS:
+        raise AssertionError(f"train_f32: the replay on the card differs "
+                             f"from the uninterrupted run in {differ}")
+    out = {"phase": "train_f32", "config": dataclasses.asdict(cfg),
+           "batch": cli.batch, "seq_len": cli.seq_len,
+           "steps": TRAIN_F32_STEPS, "pages": len(urls),
+           "losses_cuda": l_card, "losses_cpu": l_cpu,
+           "max_loss_err": loss_err, "loss_tolerance": TRAIN_F32_LOSS_TOL,
+           "params_max_abs_err": float(d.max()), "params_bound": bound,
+           "params_mean_abs_err": float(d.mean()),
+           "params_mean_tolerance": TRAIN_F32_MEAN_TOL,
+           "launches": counts,
+           "launches_per_step": {k: c / TRAIN_F32_STEPS
+                                 for k, c in counts.items()},
+           "replay": {"fail_at": list(TRAIN_F32_FAIL_AT),
+                      "ckpt_every": TRAIN_F32_CKPT_EVERY,
+                      "bitwise_equal": True}}
+    emit(out)
+    return out
+
+
+def phase_examples():
+    """``examples/torch_quickstart.py``'s ``main`` on the card (crawl, the
+    crawl CLI in batched mode, 20 training steps): its kernels launched
+    (counts zeroed just before, read just after) and finite losses."""
+    import importlib.util
+    from repro_torch.kernels import launch_counts, reset_launches
+    path = ROOT / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = mod.main(["--device", DEV])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if got["steps"] != 20 or not np.isfinite(
+            [got["first_loss"], got["last_loss"]]).all() or not all(
+            counts[k] for k in ("frontier_select", "bloom",
+                                "flash_attention")):
+        raise AssertionError(f"examples: quickstart gave {got}, launches "
+                             f"{counts}")
+    emit({"phase": "examples", "quickstart": got, "seconds": seconds,
+          "launches": counts})
 
 
 def attention_flops(q):
@@ -3120,6 +3505,16 @@ def main() -> int:
     counts_f32 = phase_lm_cpu()
     rows_["lm"] = kernels_lm(captured, counts_lm, err_lm, counts_f32)
     del captured
+    free_card()
+    train = phase_train()
+    free_card()
+    train_f32 = phase_train_f32()
+    free_card()
+    phase_examples()
+    per_train_step = {
+        "flash_attention_tc": train["launches_per_step"][
+            "flash_attention_tc"],
+        "flash_attention": train_f32["launches_per_step"]["flash_attention"]}
     kernels = (rows_["backlink"] + rows_["opic_url"] + rows_["lm"]
                + rows_["packed"])
     for r in kernels:
@@ -3135,6 +3530,15 @@ def main() -> int:
             r["checked_on_mode_calls"] = {
                 k: chk[r["name"]] for k, (_, chk) in modes.items()
                 if r["name"] in chk}
+        if r["name"] in per_train_step:
+            r["launches_per_train_step"] = per_train_step[r["name"]]
+            r["train_path"] = (
+                "qwen2-1.5b bf16 train step (forward + remat recompute; "
+                "backward plain)" if r["name"] == "flash_attention_tc" else
+                "reduced f32 train step (train_f32; backward plain)")
+        if r["name"] in ("frontier_select", "bloom"):
+            r["launches_train_corpus_crawl"] = \
+                train["corpus"]["launches"][r["name"]]
         if r["name"] == "opic_update":
             r.update(spend, launches_opic_path=counts_opic["opic_update"],
                      launches_per_step_opic_path=(

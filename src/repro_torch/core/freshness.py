@@ -4,8 +4,8 @@ pages already discovered. Counterpart of ``repro/core/freshness.py``.
 Fetched URLs re-enter their domain's queue at an age-discounted score, so
 that the allocator interleaves revisits with discovery. A page "changes"
 when ``change_epoch(url, t)`` advances, at a rate tied to its popularity
-(popular pages change faster). ``page_tokens_versioned`` waits for the
-port's ``webgraph.page_tokens`` (the training slice).
+(popular pages change faster), and its content with it
+(``page_tokens_versioned``).
 """
 from __future__ import annotations
 
@@ -32,6 +32,16 @@ def change_epoch(url: torch.Tensor, step: Union[torch.Tensor, int],
     step = torch.as_tensor(step, dtype=torch.int32, device=url.device)
     return torch.div(step, change_period(url, cfg),
                      rounding_mode="floor").to(torch.int32)
+
+
+def page_tokens_versioned(url: torch.Tensor, step: Union[torch.Tensor, int],
+                          cfg: CrawlConfig, *, n_tokens: int,
+                          vocab: int) -> torch.Tensor:
+    """Epoch-salted content: the same page has new text after each
+    change. (..., ) -> (..., n_tokens) int32."""
+    epoch = change_epoch(url, step, cfg).to(torch.int64)
+    return W.page_tokens(W.hash2(url, epoch, 71), cfg, n_tokens=n_tokens,
+                         vocab=vocab)
 
 
 def revisit_score(url: torch.Tensor, age_steps: torch.Tensor,

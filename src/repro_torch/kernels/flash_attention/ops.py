@@ -31,15 +31,23 @@ is read without a copy; RoPE has already made q and k new contiguous
 tensors. The kernels' output is laid out ``(B, Sq, Hq, hd)`` in memory and
 returned as its ``(B, Hq, Sq, hd)`` view, so the attention block's
 transpose back is free.
+
+``attention`` is differentiable: a ``torch.autograd.Function`` runs the
+route above forward and a plain PyTorch backward (``flash_backward``), the
+gradient the reference gets from autodiff of ``layers.chunked_attention``.
+The TPU kernel has no backward kernel, so neither does the port: the
+backward is the same code on the card and on the CPU, in f32 whatever the
+input dtype, one KV tile at a time.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import Kernel
-from repro_torch.kernels.flash_attention.ref import flash_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_ref
 
 # flash_attention_launch(q, k, v, o, B, Hq, Hkv, Sq, Skv, hd, is_bf16,
 #   causal, q strides (b, h, s), k strides, v strides, o strides, stream)
@@ -132,22 +140,113 @@ def launch(kernel: Kernel, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, block_q: int = 128,
-              block_k: int = 128) -> torch.Tensor:
-    """q (B, Hq, Sq, hd); k, v (B, Hkv, Skv, hd). Returns (B, Hq, Sq, hd) in
-    q.dtype, from the kernel :func:`route` names. ``block_k`` is the plain
-    version's KV tile; the kernels' tiles are fixed, and the results agree
-    up to f32 rounding (and, on the bf16 tensor-core route, p's rounding to
-    bf16). ``block_q`` changes no result (query rows are independent) and
-    stays for the reference's signature."""
-    _check(q, k, v, block_q, block_k)
+def _forward(q, k, v, causal: bool, block_k: int) -> torch.Tensor:
     B, Hq, Sq, hd = q.shape
-    Skv = k.shape[2]
     kernel = route(q.device.type, q.dtype, hd)
     if kernel is None:
         qg, kf, vf, group = _gqa_fold(q, k, v)
         out = flash_ref(qg, kf, vf, causal=causal, group=group,
-                        block_k=max(1, min(block_k, Skv)))
+                        block_k=max(1, min(block_k, k.shape[2])))
         return out.reshape(B, Hq, Sq, hd)
     return launch(kernel, q, k, v, causal)
+
+
+def flash_backward(q, k, v, o, do, *, causal: bool, block_k: int = 128
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``attention`` at (q, k, v) given its output ``o``
+    and the output's cotangent ``do``: (dq, dk, dv) in the inputs' dtypes.
+
+    Plain PyTorch in f32, in two passes over the KV tiles of ``block_k``,
+    never an (Sq, Skv) tensor. The first recomputes each tile's scores
+    from q and k and keeps the online softmax's row max ``m`` and
+    denominator ``l``, as the reference's ``jax.checkpoint(kv_step)``
+    recomputes ``p``. The second recomputes ``p = exp(s - m) / l`` a tile
+    at a time and takes ``dv += p^T do``, ``dp = do v^T``,
+    ``ds = p * (dp - rowsum(do * o))``, ``dq += ds k``, ``dk += ds^T q``
+    (q scaled by 1/sqrt(hd); dq scaled by it once more), dk and dv summed
+    over each GQA group. Under ``causal`` a tile reads only the query rows
+    at or past its first key: the blocks wholly above the diagonal are
+    skipped, as the forward skips them."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    # (B*Hkv, G, Sq, hd): the query rows of one KV head's group together
+    qs = (q.float() * scale).reshape(B * Hkv, G, Sq, hd)
+    dof = do.float().reshape(B * Hkv, G, Sq, hd)
+    delta = (dof * o.float().reshape(B * Hkv, G, Sq, hd)).sum(dim=-1)
+    kf = k.float().reshape(B * Hkv, Skv, hd)
+    vf = v.float().reshape(B * Hkv, Skv, hd)
+    q_pos = torch.arange(Sq, device=q.device)
+    n_kv = min(Skv, Sq) if causal else Skv
+    tiles = range(0, n_kv, block_k)
+
+    def scores(k0):
+        """(first query row, this tile's f32 scores (BHkv, G, rows, bk))
+        with masked scores at -1e30."""
+        r0 = min(k0, Sq) if causal else 0
+        kb = kf[:, k0:k0 + block_k]
+        s = torch.matmul(qs[:, :, r0:], kb.transpose(1, 2)[:, None])
+        if causal:
+            k_pos = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+            s = s.masked_fill(q_pos[r0:, None] < k_pos[None, :], NEG_INF)
+        return r0, s
+
+    m = torch.full((B * Hkv, G, Sq), NEG_INF, **f32)
+    l = torch.zeros((B * Hkv, G, Sq), **f32)
+    for k0 in tiles:
+        r0, s = scores(k0)
+        m_new = torch.maximum(m[..., r0:], s.amax(dim=-1))
+        l[..., r0:] = l[..., r0:] * torch.exp(m[..., r0:] - m_new) + \
+            torch.exp(s - m_new[..., None]).sum(dim=-1)
+        m[..., r0:] = m_new
+    inv_l = 1.0 / torch.clamp(l, min=1e-30)
+
+    dq = torch.zeros((B * Hkv, G, Sq, hd), **f32)
+    dk = torch.zeros((B * Hkv, Skv, hd), **f32)
+    dv = torch.zeros((B * Hkv, Skv, hd), **f32)
+    for k0 in tiles:
+        r0, s = scores(k0)
+        k1 = min(k0 + block_k, Skv)
+        p = torch.exp(s - m[..., r0:, None]) * inv_l[..., r0:, None]
+        do_r = dof[:, :, r0:]
+        dv[:, k0:k1] = torch.matmul(p.transpose(-1, -2), do_r).sum(dim=1)
+        dp = torch.matmul(do_r, vf[:, None, k0:k1].transpose(-1, -2))
+        ds = p * (dp - delta[..., r0:, None])
+        dq[:, :, r0:] += torch.matmul(ds, kf[:, None, k0:k1])
+        dk[:, k0:k1] = torch.matmul(ds.transpose(-1, -2),
+                                    qs[:, :, r0:]).sum(dim=1)
+    return ((dq * scale).reshape(B, Hq, Sq, hd).to(q.dtype),
+            dk.reshape(B, Hkv, Skv, hd).to(k.dtype),
+            dv.reshape(B, Hkv, Skv, hd).to(v.dtype))
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_k):
+        o = _forward(q, k, v, causal, block_k)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.block_k = causal, block_k
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, do, causal=ctx.causal,
+                                    block_k=ctx.block_k)
+        return dq, dk, dv, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, block_q: int = 128,
+              block_k: int = 128) -> torch.Tensor:
+    """q (B, Hq, Sq, hd); k, v (B, Hkv, Skv, hd). Returns (B, Hq, Sq, hd) in
+    q.dtype, from the kernel :func:`route` names; differentiable through
+    :func:`flash_backward`. ``block_k`` is the plain version's KV tile and
+    the backward's; the kernels' tiles are fixed, and the results agree
+    up to f32 rounding (and, on the bf16 tensor-core route, p's rounding to
+    bf16). ``block_q`` changes no result (query rows are independent) and
+    stays for the reference's signature."""
+    _check(q, k, v, block_q, block_k)
+    return _Attention.apply(q, k, v, causal, block_k)

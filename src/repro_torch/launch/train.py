@@ -1,0 +1,136 @@
+"""End-to-end training driver. Counterpart of ``repro/launch/train.py``.
+
+The LM path feeds on the WebParF crawl, the paper's system as the data
+substrate:
+
+  crawl N steps -> fetched pages -> token stream -> train
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --steps 50                                    # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+
+Without ``--full`` the arch's ``reduced()`` config runs, in f32; ``--full``
+is the published config (bf16, remat on). Weights are drawn from
+``--seed``. It runs on cuda unless ``--device cpu`` is given, and raises
+when no card is present. Only the LM family trains here: the GNN and
+RecSys archs come with ROADMAP Queue 1, item 18d, and so does
+``--model-parallel`` other than 1.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.configs import get_arch, get_reduced
+from repro_torch.configs.base import scaled
+from repro_torch.device import resolve_device
+
+_LATER = "ROADMAP Queue 1, item 18d"
+
+
+def crawl_corpus(crawl_cfg, steps: int, device=None):
+    """Run the WebParF crawler and return (the fetched URLs, the final
+    crawl state): the crawled collection feeding training."""
+    from repro_torch.api import CrawlSession
+    sess = CrawlSession(crawl_cfg, device)
+    return sess.run(steps).urls, sess.state
+
+
+def train_lm(args, cfg=None):
+    """Crawl, tokenize the crawl and train an LM on it; returns the final
+    ``TrainState``. ``cfg`` replaces the arch's config (as
+    ``examples/torch_crawl_and_train.py`` sizes its model)."""
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    dev = resolve_device(args.device)
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel}: the port trains on "
+            f"one card; model parallelism comes with the sharding "
+            f"decisions of {_LATER}")
+    if cfg is None:
+        cfg = get_arch(args.arch)[0] if args.full else get_reduced(args.arch)
+        if not args.full:
+            cfg = scaled(cfg, dtype="float32")  # bf16 ulp too coarse at toy lr
+
+    crawl_cfg = get_reduced("webparf")
+    urls, _ = crawl_corpus(crawl_cfg, args.crawl_steps, dev)
+    print(f"crawled {len(urls)} pages -> token stream")
+
+    params = T.stack_params(T.init_lm(cfg, seed=args.seed, device=dev))
+    n_params = sum(p.numel() for p in params.values())
+    print(f"{args.arch}: {n_params / 1e6:.2f}M params "
+          f"(reduced={not args.full}) on {dev}")
+
+    opt = adamw(lr=warmup_cosine(args.lr, 10, args.steps))
+    step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt,
+                           microbatches=args.microbatches)
+    state = init_train_state(params, opt)
+
+    batches = list(lm_batches(urls, crawl_cfg, batch=args.batch,
+                              seq_len=args.seq_len, vocab=cfg.vocab_size,
+                              device=dev))
+    if not batches:
+        raise SystemExit("not enough crawled data; raise --crawl-steps")
+    t0 = time.time()
+    i = 0
+    while i < args.steps:
+        for b in batches:
+            if i >= args.steps:
+                break
+            state, m = step(state, b)
+            i += 1
+            if i % args.log_every == 0:
+                dt = time.time() - t0
+                print(f"step {i:5d}  loss {float(m['loss']):.4f}  "
+                      f"gnorm {float(m['grad_norm']):.3f}  "
+                      f"{i * args.batch * args.seq_len / dt:.0f} tok/s")
+            if args.ckpt_dir and i % args.ckpt_every == 0:
+                ckpt.save(args.ckpt_dir, i, state)
+    if args.ckpt_dir:
+        ckpt.save(args.ckpt_dir, i, state)
+    print(f"final loss {float(m['loss']):.4f}")
+    return state
+
+
+def train_other(args):
+    raise NotImplementedError(
+        f"arch {args.arch!r}: GNN and RecSys training come with {_LATER}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--crawl-steps", type=int, default=60)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    cfg, _ = get_arch(args.arch)
+    if cfg.family == "lm":
+        train_lm(args)
+    else:
+        train_other(args)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

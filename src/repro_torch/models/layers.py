@@ -1,7 +1,7 @@
 """Transformer building blocks of the dense LM family: RMSNorm, RoPE,
-attention (prefill through the ``flash_attention`` kernel, one-token decode
-against a KV cache) and the SwiGLU MLP. Counterpart of the dense part of
-``repro/models/layers.py``.
+attention (prefill and training through the ``flash_attention`` kernel,
+one-token decode against a KV cache), the SwiGLU MLP and the chunked
+cross-entropy. Counterpart of the dense part of ``repro/models/layers.py``.
 
 Weights keep the reference's layout (``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``), so they carry across by name
@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.flash_attention import ops as FA
@@ -34,7 +35,9 @@ NEG_INF = -1e30
 
 def _param(shape, dtype, device, fill: Optional[float] = None
            ) -> nn.Parameter:
-    """A parameter without gradient: uninitialised, or ``fill``ed."""
+    """A parameter without gradient (the serving model's; training takes
+    its weights as the stacked tensors of ``transformer.stack_params``):
+    uninitialised, or ``fill``ed."""
     t = (torch.empty(shape, dtype=dtype, device=device) if fill is None else
          torch.full(shape, fill, dtype=dtype, device=device))
     return nn.Parameter(t, requires_grad=False)
@@ -215,6 +218,42 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype: torch.dtype,
 def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
     return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never the whole (B, S, V) logits at once)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    logits = (h @ lm_head).float()                     # (B, chunk, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    # the gold logit by gather: exact, as the reference's one-hot
+    # contraction adds only zeros beside it (each row's index is distinct,
+    # so the backward's scatter has no duplicate target)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
+                         labels: torch.Tensor, *,
+                         chunk: int = 512) -> torch.Tensor:
+    """hidden (B, S, d); lm_head (d, V); labels (B, S) -> the mean loss, f32.
+    Logits are f32 a chunk of ``chunk`` positions at a time, each chunk
+    under ``torch.utils.checkpoint`` so its logits are recomputed in the
+    backward (the reference's ``jax.checkpoint(step)``); the chunks' sums
+    are added in order."""
+    B, S, d = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_softmax_xent: S={S} is not a multiple "
+                         f"of the chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        tot = tot + checkpoint(_xent_chunk, hidden[:, c0:c0 + chunk],
+                               lm_head, labels[:, c0:c0 + chunk],
+                               use_reentrant=False, preserve_rng_state=False)
+    return tot / (B * S)
 
 
 def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int):

@@ -8,16 +8,26 @@ The model is an ``nn.Module`` whose decoder layers sit in an
 reference's checkpoint form: a flat dict keyed by path (``embed``,
 ``layers/attn/wq``, ...) whose ``layers/*`` leaves are stacked over a
 leading layer axis (``params_from_numpy``, ``params_to_numpy``). MoE models
-raise ``NotImplementedError``. Nothing here trains: every entry point runs
-under ``torch.inference_mode()``.
+raise ``NotImplementedError``.
+
+Serving (``forward``, ``prefill_step``, ``decode_step``) runs the module
+under ``torch.inference_mode()``. Training (``train_forward``, ``lm_loss``)
+is functional over that checkpoint form as tensors (``stack_params``): the
+trainer makes them leaves that require grad, each layer reads its slice
+(``unbind``, whose backward stacks the layers' gradients once), and
+``cfg.remat`` recomputes each decoder layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint(body)``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, NamedTuple, Optional, Tuple
+from types import SimpleNamespace
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import Device, resolve_device
@@ -173,14 +183,22 @@ def params_from_numpy(cfg: LMConfig, flat: Dict[str, np.ndarray], *,
     return model
 
 
+def stack_params(model: LM) -> Dict[str, torch.Tensor]:
+    """The model's weights as new tensors in the reference's checkpoint
+    form, on the model's device: a flat dict keyed by path whose
+    ``layers/*`` leaves are stacked over a leading layer axis. What
+    ``lm_loss`` and the optimizers take."""
+    return {key: torch.stack([x.detach() for x in ts])
+            if key.startswith("layers/") else ts[0].detach().clone()
+            for key, ts in _leaves(model).items()}
+
+
 def params_to_numpy(model: LM) -> Dict[str, np.ndarray]:
-    """The inverse of ``params_from_numpy``: ``layers/*`` leaves stacked
-    over a leading layer axis; bf16 leaves as their uint16 bits
-    (``a.view(ml_dtypes.bfloat16)`` gives JAX's dtype back)."""
+    """The inverse of ``params_from_numpy``: ``stack_params`` on the host;
+    bf16 leaves as their uint16 bits (``a.view(ml_dtypes.bfloat16)``
+    gives JAX's dtype back)."""
     out = {}
-    for key, ts in _leaves(model).items():
-        t = torch.stack([x.detach() for x in ts]) if key.startswith(
-            "layers/") else ts[0].detach()
+    for key, t in stack_params(model).items():
         t = t.cpu()
         out[key] = (t.view(torch.int16).numpy().view(np.uint16)
                     if t.dtype == torch.bfloat16 else t.numpy())
@@ -220,6 +238,69 @@ def forward(model: LM,
         x, _ = _layer(layer, cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward with gradients, over stacked tensors
+# ---------------------------------------------------------------------------
+
+Params = Dict[str, torch.Tensor]
+
+
+def _layer_views(params: Params, n_layers: int) -> List[SimpleNamespace]:
+    """Each layer's slices of the stacked ``layers/*`` tensors, laid out
+    as a ``DecoderLayer`` (``layer.attn.wq``, ...), so ``_layer`` runs on
+    them."""
+    per = {k[len("layers/"):]: params[k].unbind(0) for k in params
+           if k.startswith("layers/")}
+    out = []
+    for i in range(n_layers):
+        layer = SimpleNamespace(attn=SimpleNamespace(),
+                                mlp=SimpleNamespace())
+        for name, ts in per.items():
+            *path, leaf = name.split("/")
+            obj = layer
+            for part in path:
+                obj = getattr(obj, part)
+            setattr(obj, leaf, ts[i])
+        out.append(layer)
+    return out
+
+
+def _layer_out(layer, cfg: LMConfig, x, positions):
+    return _layer(layer, cfg, x, positions)[0]
+
+
+def train_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (hidden (B, S, d), aux_loss 0: no MoE), with
+    gradients, from weights in ``stack_params``' form. The embedding is
+    ``F.embedding``, whose backward is deterministic on the card (the
+    indexing form's is an accumulating ``index_put``). With ``cfg.remat``
+    each decoder layer keeps only its input for the backward and is run
+    again there."""
+    _dense_only(cfg)
+    B, S = tokens.shape
+    x = F.embedding(tokens, params["embed"])
+    positions = _positions(B, S, x.device)
+    for layer in _layer_views(params, cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(_layer_out, layer, cfg, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_out(layer, cfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The mean next-token cross-entropy (f32) of ``labels`` given
+    ``tokens``, both (B, S); the reference's ``n_groups`` and
+    ``causal_skip`` change nothing for a dense model and are not taken."""
+    hidden, aux = train_forward(params, cfg, tokens)
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return L.chunked_softmax_xent(hidden, head, labels) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,19 @@
-"""Crawl-state checkpoints in the JAX package's format. Counterpart of
+"""Checkpoints in the JAX package's format. Counterpart of
 ``repro/train/checkpoint.py``.
 
 A checkpoint is a directory ``step_<10 digits>`` holding ``arrays.npz``
-(one array per CrawlState field, keyed by field name, in the JAX package's
-dtypes) and ``manifest.json``; it is written to a temporary directory and
-renamed, so a crash mid-save never leaves a partial checkpoint. Either
-package can restore what the other saved.
+(one array per leaf, keyed by its path joined with ``/``, in the JAX
+package's dtypes) and ``manifest.json``; it is written to a temporary
+directory and renamed, so a crash mid-save never leaves a partial
+checkpoint. Either package can restore what the other saved.
+
+A tree is a dict, a NamedTuple (its field names are path parts, as
+``jax.tree_util.tree_flatten_with_path`` names them), a tensor or a numpy
+array. A ``TrainState`` therefore flattens to the reference's keys:
+``params/layers/attn/wq``, ``opt_state/count``, ``opt_state/m/...``,
+``step``; a crawl state is saved as its flat dict of numpy leaves. bf16
+leaves are written as 2-byte voids, as JAX writes its bfloat16 (JAX's own
+``restore`` refuses those, so only the port restores a bf16 leaf).
 """
 from __future__ import annotations
 
@@ -14,16 +22,49 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
+
+_SEP = "/"
 
 
-def save(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray], *,
-         keep: int = 3) -> str:
-    """Atomically write checkpoint ``step`` from numpy leaves keyed by
-    name. Returns the final path."""
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _items(tree, prefix: str = ""):
+    """(path, leaf) pairs of a tree, depth first."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _items(v, f"{prefix}{k}{_SEP}")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _items(v, f"{prefix}{k}{_SEP}")
+    else:
+        yield prefix[:-len(_SEP)], tree
+
+
+def flatten(tree: Any) -> Dict[str, np.ndarray]:
+    """The tree's leaves as numpy arrays keyed by path."""
+    return {k: _to_numpy(v) for k, v in _items(tree)}
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == np.dtype("V2") else str(a.dtype)
+
+
+def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
+    """Atomically write checkpoint ``step`` of a tree (a flat dict of
+    numpy leaves keyed by name is one). Returns the final path."""
     os.makedirs(ckpt_dir, exist_ok=True)
+    flat = flatten(tree)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
@@ -31,7 +72,7 @@ def save(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray], *,
         manifest = {
             "step": int(step),
             "keys": sorted(flat),
-            "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+            "dtypes": {k: _dtype_name(v) for k, v in flat.items()},
             "shapes": {k: list(v.shape) for k, v in flat.items()},
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -73,3 +114,44 @@ def load(ckpt_dir: str, *, step: Optional[int] = None
     path = os.path.join(ckpt_dir, f"step_{step:010d}", "arrays.npz")
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def _tensor_like(a: np.ndarray, like: torch.Tensor, key: str
+                 ) -> torch.Tensor:
+    """``a`` cast to ``like``'s dtype on its device, as the reference's
+    restore casts to the target's dtype. A 2-byte void or integer array
+    restored into a bf16 leaf is that leaf's bits."""
+    if like.dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+            and a.dtype.kind in "Vui":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                             ).view(torch.bfloat16)
+    elif a.dtype.kind == "V":
+        raise TypeError(f"{key}: a bfloat16 leaf restores only into a "
+                        f"bfloat16 target, not {like.dtype}")
+    else:
+        t = torch.from_numpy(np.array(a)).to(like.dtype)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"{key}: want {tuple(like.shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.to(like.device)
+
+
+def _rebuild(tree, data, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, data, f"{prefix}{k}{_SEP}")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(v, data, f"{prefix}{k}{_SEP}")
+                            for k, v in zip(tree._fields, tree)))
+    key = prefix[:-len(_SEP)]
+    if key not in data:
+        raise KeyError(f"checkpoint missing leaf {key!r}")
+    return _tensor_like(data[key], tree, key)
+
+
+def restore(ckpt_dir: str, target: Any, *, step: Optional[int] = None
+            ) -> Any:
+    """Checkpoint ``step`` (the latest by default) onto the structure of
+    ``target``, a tree of tensors: each leaf cast to its target's dtype
+    and placed on its target's device."""
+    return _rebuild(target, load(ckpt_dir, step=step))

@@ -16,7 +16,8 @@ from repro_torch.configs import webparf as tweb  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] + sorted(
-    (ROOT / "tools").glob("*.py"))
+    (ROOT / "tools").glob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -235,3 +236,72 @@ def test_serve_and_quality_copies_mirror_reference():
     from repro_torch.api import session as tsess
     assert params(tsess.CrawlSession, ("device", "n_shards")) == \
         params(jsess.CrawlSession, ("mesh", "axes"))
+
+
+def test_train_cli_flags_mirror_reference():
+    """The train CLI takes the reference's flags with their defaults, plus
+    ``--device``."""
+    import argparse
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+
+    class Parsed(Exception):
+        pass
+
+    def flags(ap):
+        return {a.dest: a.default for a in ap._actions
+                if a.dest != "help"}
+    seen = []
+
+    def capture(self, argv=None, namespace=None):
+        seen.append(self)
+        raise Parsed
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = capture
+    try:
+        with pytest.raises(Parsed):
+            jtrain.main([])
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    want = flags(seen[0])
+    got = flags(ttrain.build_parser())
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+def test_training_needs_a_card_by_default():
+    from repro_torch.launch import train as ttrain
+    argv = ["--steps", "1", "--crawl-steps", "1"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ttrain.main(argv)
+
+
+def test_unported_training_raises():
+    """GNN/RecSys training, model parallelism and param resharding name
+    item 18d; MoE names item 18b."""
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_train_step
+    base = ["--steps", "1", "--crawl-steps", "1", "--device", "cpu"]
+    for arch in ("gat-cora", "dcn-v2", "bert4rec"):
+        with pytest.raises(NotImplementedError, match="18d"):
+            ttrain.main(["--arch", arch] + base)
+    with pytest.raises(NotImplementedError, match="18b"):
+        ttrain.main(["--arch", "deepseek-moe-16b"] + base)
+    with pytest.raises(NotImplementedError, match="18d"):
+        ttrain.main(["--model-parallel", "2"] + base)
+    with pytest.raises(NotImplementedError, match="18d"):
+        ttrain.train_other(ttrain.build_parser().parse_args(
+            ["--arch", "dcn-v2"]))
+    with pytest.raises(NotImplementedError, match="18d"):
+        make_train_step(lambda p, b: 0, adamw(),
+                        param_resharding=lambda p: p)
+    for name in ("INIT", "TRAIN_LOSS", "make_batch", "init_dcn_v2",
+                 "chunked_topk_scores"):
+        with pytest.raises(NotImplementedError, match="18d"):
+            getattr(recsys, name)
+    with pytest.raises(AttributeError):
+        recsys.no_such_name

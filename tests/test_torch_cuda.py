@@ -803,3 +803,94 @@ def test_flash_attention_split_tf32_cases(cuda, hd, group, Sq, Skv, causal,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+
+
+# the attention's autograd (the kernel forward, the plain backward) against
+# autograd through flash_ref, both on the card: |got - want| <= tol *
+# max|want| (chip_smoke.TRAIN_BWD_TOL: the bf16 gradients' own rounding and
+# the tc forward's p rounding; in f32 the split-TF32 forward's O)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd,group,S", [(16, 3, 40), (64, 2, 200),
+                                        (128, 6, 130)])
+def test_flash_attention_backward_on_card(cuda, hd, group, S, causal,
+                                          dtype):
+    rng = np.random.default_rng(hd + S)
+    q, k, v = flash_case(rng, 2, 2 * group, 2, S, S, hd, dtype, cuda,
+                         view="projection")
+    do = torch.tensor(rng.standard_normal(tuple(q.shape)),
+                      dtype=torch.float32, device=cuda).to(q.dtype)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, do)
+
+    def plain(a, b, c):
+        qg, kf, vf, g = FOPS._gqa_fold(a, b, c)
+        return flash_ref(qg, kf, vf, causal=causal, group=g).reshape(a.shape)
+    n0 = FOPS.KERNEL.launches + FOPS.TC_KERNEL.launches
+    got = grads(lambda a, b, c: FOPS.attention(a, b, c, causal=causal,
+                                               block_k=64))
+    assert FOPS.KERNEL.launches + FOPS.TC_KERNEL.launches == n0 + 1
+    want = grads(plain)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == q.dtype
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= BWD_TOL[dtype] * float(
+            b.abs().max())
+
+
+def test_training_on_card_matches_cpu(cuda, tmp_path):
+    """The reduced qwen2 in f32, 6 AdamW steps from the same weights and
+    batches on both devices: losses within 1e-4, one flash_attention
+    launch a layer a step (remat off), and run_with_failures on the card
+    equal to the uninterrupted card run bit for bit. TF32 is off."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = scaled(get_reduced("qwen2-1.5b"), dtype="float32")
+        params = T.stack_params(T.init_lm(cfg, seed=0, device="cpu"))
+        rng = np.random.default_rng(2)
+        batches = [tuple(torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                   (4, 64)),
+                                      dtype=torch.int32) for _ in range(2))
+                   for _ in range(6)]
+        opt = adamw(lr=warmup_cosine(3e-3, 2, 6))
+        step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]),
+                               opt)
+
+        def start(dev):
+            return (init_train_state({k: v.to(dev) for k, v in
+                                      params.items()}, opt),
+                    [tuple(x.to(dev) for x in b) for b in batches])
+        losses, states = {}, {}
+        for dev in (cuda, torch.device("cpu")):
+            st, bs = start(dev)
+            n0 = FOPS.KERNEL.launches
+            losses[dev.type] = []
+            for b in bs:
+                st, m = step(st, b)
+                losses[dev.type].append(float(m["loss"]))
+            if dev.type == "cuda":
+                assert FOPS.KERNEL.launches == n0 + cfg.n_layers * 6
+            states[dev.type] = st
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                                   atol=1e-4)
+        st, bs = start(cuda)
+        replayed = fault.run_with_failures(
+            step, st, bs, ckpt_dir=str(tmp_path), ckpt_every=2,
+            plan=fault.FailurePlan(fail_at=(3, 5)))
+        a, b = ckpt.flatten(states["cuda"]), ckpt.flatten(replayed)
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
