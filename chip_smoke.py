@@ -146,7 +146,38 @@ non-zero):
                flash_attention launched once a layer a step; then
                run_with_failures on the card with a failure at step 8,
                equal to the uninterrupted card run bit for bit.
-     examples — examples/torch_quickstart.py's main on the card.
+     moe_serve — DeepSeekMoE-16B at its published config (28 layers: 1
+               dense of d_ff 10944, then 27 MoE of 64 routed experts top-6
+               of 1408 and 2 shared; d 2048, 16/16 heads, hd 128, vocab
+               102400; 16.38 B parameters), bf16, seeded weights, 4 x
+               2048 prompts + 32 tokens through ``launch.serve.serve``
+               (prefill_32k's 32 x 32768 cut for memory, as for Qwen):
+               layer 0's and 27's attention inputs held to the plain
+               version, 28 flash_attention_tc and 0 flash_attention
+               launches a prefill (counts zeroed just before the counted
+               serve, read just after), prefill ms, decode ms a token,
+               tok/s, peak GiB (< 80), each MoE layer's share of dropped
+               assignments, a profile of a prefill and of decode tokens
+               split into expert bmm, dispatch, scatter/combine, attention,
+               dense GEMMs, f32 elementwise and the rest, the host syncs a
+               decode token, and the bounds (prefill FLOP over 989
+               TFLOP/s, the routed GEMMs over E x C slots; a token's bytes,
+               every expert's weights and the k/v, over 3.35 TB/s).
+     moe_arctic — Arctic at its published widths (d 7168, 56/8 heads,
+               128 experts top-2 of 4864 beside a dense residual of 4864,
+               vocab 32000), depth cut from 35 to 2 layers (27.7 B
+               parameters), bf16, 1 x 2048 + 8 tokens, counted and
+               bounded as moe_serve (2 flash_attention_tc a prefill).
+     moe_cpu — the reduced deepseek-moe-16b and arctic-480b in f32 on the
+               card and the CPU (TF32 off): logits within 1e-4 over a
+               prefill and 16 teacher-forced decode steps, argmax, experts
+               and keep equal, flash_attention once a layer a prefill;
+               again at capacity factor 0.5 (assignments must drop); 4
+               AdamW steps of the reduced deepseek-moe-16b, losses within
+               1e-4.
+     examples — examples/torch_quickstart.py's main on the card, and
+               examples/torch_serve_lm.py's (the reduced deepseek-moe-16b:
+               2 flash_attention launches, finite logits).
   6. kernels — each kernel's time (CUDA events; for the crawl kernels also
                in a CUDA graph, warm and cold, by the profiler, and per
                launch inside the profiled crawl; dedup_deposit also on the
@@ -161,7 +192,9 @@ non-zero):
                them cast to f32, its contract) the larger of that and
                their operations over 989 TFLOP/s (bf16) or, three TF32
                products per f32 product, 495 TFLOP/s (f32); the attention
-               rows also carry their launches per train step.
+               rows also carry their launches per train step and per MoE
+               prefill (28 DeepSeekMoE and 2 Arctic flash_attention_tc;
+               2 flash_attention for each reduced f32 model).
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1477,29 +1510,551 @@ def phase_train_f32():
     return out
 
 
-def phase_examples():
-    """``examples/torch_quickstart.py``'s ``main`` on the card (crawl, the
-    crawl CLI in batched mode, 20 training steps): its kernels launched
-    (counts zeroed just before, read just after) and finite losses."""
+def run_example(name):
+    """``examples/<name>.py``'s ``main`` on the card, counts zeroed just
+    before and read just after: (its result, seconds, counts)."""
     import importlib.util
     from repro_torch.kernels import launch_counts, reset_launches
-    path = ROOT / "examples" / "torch_quickstart.py"
-    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     reset_launches()
     t0 = time.perf_counter()
     got = mod.main(["--device", DEV])
-    seconds = time.perf_counter() - t0
-    counts = launch_counts()
+    return got, time.perf_counter() - t0, launch_counts()
+
+
+def phase_examples():
+    """``examples/torch_quickstart.py``'s ``main`` on the card (crawl, the
+    crawl CLI in batched mode, 20 training steps): its kernels launched
+    and finite losses; ``examples/torch_serve_lm.py`` (the reduced
+    deepseek-moe-16b, bf16 at hd 16: flash_attention once a layer in its
+    prefill, nothing else; ``serve`` raises on non-finite logits)."""
+    from repro_torch.configs import get_reduced
+    got, seconds, counts = run_example("torch_quickstart")
     if got["steps"] != 20 or not np.isfinite(
             [got["first_loss"], got["last_loss"]]).all() or not all(
             counts[k] for k in ("frontier_select", "bloom",
                                 "flash_attention")):
         raise AssertionError(f"examples: quickstart gave {got}, launches "
                              f"{counts}")
+    rc, serve_s, serve_counts = run_example("torch_serve_lm")
+    want = {k: 0 for k in serve_counts}
+    want["flash_attention"] = get_reduced(MOE_ARCH).n_layers
+    if rc != 0 or serve_counts != want:
+        raise AssertionError(f"examples: serve_lm returned {rc}, launches "
+                             f"{serve_counts}, want {want}")
     emit({"phase": "examples", "quickstart": got, "seconds": seconds,
-          "launches": counts})
+          "launches": counts, "serve_lm_seconds": serve_s,
+          "serve_lm_launches": serve_counts})
+
+
+# the MoE LM family: DeepSeekMoE-16B at its published config (28 layers, 1
+# dense then 27 MoE, d 2048, 16/16 heads, hd 128, 64 routed experts top-6 of
+# 1408 plus 2 shared, dense d_ff 10944, vocab 102400), bf16, seeded weights,
+# prefill_32k's 32 x 32768 cut to 4 x 2048 (as for Qwen2-1.5B) and 32
+# greedy tokens; Arctic at its published widths (d 7168, 56/8 heads, hd
+# 128, 128 experts top-2 of 4864 beside a dense residual of 4864, vocab
+# 32000) with its depth cut from 35 to 2 layers (476.9 B parameters do not
+# fit one card; 2 layers are 27.7 B, 55.4 GB in bf16), 1 x 2048 + 8
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = "deepseek-moe-16b", 4, 2048, 32
+ARCTIC_ARCH, ARCTIC_LAYERS = "arctic-480b", 2
+ARCTIC_BATCH, ARCTIC_PROMPT, ARCTIC_GEN = 1, 2048, 8
+MOE_CPU_ARCHS = ("deepseek-moe-16b", "arctic-480b")
+MOE_DROP_FACTOR = 0.5       # moe_cpu's capacity factor that must drop
+MOE_TRAIN_STEPS = 4
+MOE_PROFILE_DECODE = 4      # decode steps profiled (one token each)
+# the MoE block's parts, as ranges wrapped around the layers' functions
+# while a prefill or a decode step is profiled; what no range covers is
+# split by the launching op (aten::mm / aten::addmm: the dense GEMMs) and
+# by the kernel's element type (f32 elementwise) into the rest
+MOE_RANGES = {"moe_dispatch": "dispatch", "_moe_scatter": "scatter_combine",
+              "_moe_combine": "scatter_combine",
+              "chunked_attention": "attention",
+              "decode_attention": "attention"}
+
+
+def record_dispatch(fn):
+    """``fn()`` with ``layers.moe_dispatch`` spied on: (its result, each
+    call's (expert_idx, keep) on the host, in call order)."""
+    from repro_torch.models import layers as L
+    got, orig = [], L.moe_dispatch
+
+    def spy(logits, m, capacity):
+        out = orig(logits, m, capacity)
+        got.append((out[1].cpu(), out[3].cpu()))
+        return out
+    L.moe_dispatch = spy
+    try:
+        return fn(), got
+    finally:
+        L.moe_dispatch = orig
+
+
+def profile_moe(fn, calls):
+    """``fn()`` (``calls`` calls) under torch.profiler with the MoE
+    block's parts and the attention marked by ``record_function`` ranges
+    (MOE_RANGES; ``torch.bmm``, which only the expert products call from
+    Python, as ``expert_bmm``): per call the device ms of each part, the
+    dense GEMMs (aten::mm / addmm outside the ranges), the f32 elementwise
+    kernels outside them, the rest, the device's busy ms and idle share,
+    the device events and the kernels that took most of the time. Each
+    kernel counts once, in the innermost range around the op that launched
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as L
+
+    def marked(name, f):
+        def run(*args, **kw):
+            with record_function(name):
+                return f(*args, **kw)
+        return run
+    patched = [(L, n, getattr(L, n)) for n in MOE_RANGES]
+    patched.append((torch, "bmm", torch.bmm))
+    for mod, name, f in patched:
+        setattr(mod, name, marked(f"moe::{name}", f))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        for mod, name, f in patched:
+            setattr(mod, name, f)
+    cats = {f"moe::{n}": c for n, c in MOE_RANGES.items()}
+    cats["moe::bmm"] = "expert_bmm"
+    split, per_name, n = Counter(), Counter(), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name not in cats:       # a range's span is no kernel
+                per_name[e.name[:80]] += e.time_range.elapsed_us()
+                n += 1
+            continue
+        if not e.kernels:
+            continue
+        cat, p = None, e
+        while p is not None and cat is None:
+            cat, p = cats.get(p.name), p.cpu_parent
+        for k in e.kernels:
+            if cat is None:
+                f32 = "float" in k.name and "BFloat16" not in k.name
+                c = ("dense_gemm" if e.name in ("aten::mm", "aten::addmm")
+                     else "f32_elementwise" if f32 else "other")
+            else:
+                c = cat
+            split[c] += k.duration
+    busy = sum(per_name.values())
+    return {"wall_ms_per_call": wall_us / 1e3 / calls,
+            "device_busy_ms_per_call": busy / 1e3 / calls,
+            "device_idle_share": 1 - busy / wall_us if n else None,
+            "device_events_per_call": n / calls,
+            "split_ms_per_call": {k: v / 1e3 / calls
+                                  for k, v in sorted(split.items())},
+            "split_covers_busy": sum(split.values()) / busy if busy
+            else None,
+            "top_device_ms_per_call": {k: v / 1e3 / calls for k, v in
+                                       per_name.most_common(8)}}
+
+
+def lm_prefill_flops(cfg, B, S, kept=None):
+    """The operations of one prefill of B x S tokens: the projections,
+    the causal attention, the MLPs (an MoE layer's routed experts over
+    its E x C bucket slots, what the bucketed GEMMs compute, or, given
+    ``kept``, over each MoE layer's kept assignments, what the function
+    needs; its shared experts, dense residual and router over every token)
+    and the head on the last position."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import n_prefix
+    d, hd, T = cfg.d_model, cfg.head_dim, B * S
+    per_layer = (2 * T * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                 + 4 * B * cfg.n_heads * hd * (S * (S + 1) // 2))
+    dense = 6 * T * d * cfg.d_ff
+    P = n_prefix(cfg)
+    mlp = P * dense
+    if cfg.moe is None:
+        mlp += (cfg.n_layers - P) * dense
+    else:
+        m = cfg.moe
+        C = L.moe_capacity(m, T)
+        moe = (6 * T * d * m.n_shared * m.d_ff_expert
+               + 2 * T * d * m.n_experts)
+        if m.dense_residual:
+            moe += 6 * T * d * (m.d_ff_dense or cfg.d_ff)
+        slots = ([m.n_experts * C] * (cfg.n_layers - P) if kept is None
+                 else kept)
+        mlp += (cfg.n_layers - P) * moe + sum(6 * n * d * m.d_ff_expert
+                                              for n in slots)
+    return cfg.n_layers * per_layer + mlp + 2 * B * d * cfg.vocab_size
+
+
+def lm_weight_bytes(model):
+    """The bytes of the weights one forward reads: every parameter but an
+    untied embedding table, of which it reads only the tokens' rows."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if name != "embed" or model.lm_head is None)
+
+
+def lm_kv_bytes(cfg, B, length):
+    """The bytes of k and v a decode step reads at cache length
+    ``length``, over every layer."""
+    import torch
+    return (2 * cfg.n_layers * B * cfg.n_kv_heads * length * cfg.head_dim
+            * getattr(torch, cfg.dtype).itemsize)
+
+
+def record_serve(model, prompts, gen):
+    """One greedy ``serve`` with every MoE call's route recorded (a host
+    copy a call, so it is timed nowhere): (tokens, the prefill's
+    (expert_idx, keep) per MoE layer, per decode step the same)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import n_prefix
+    (toks, _, _), routes = record_dispatch(lambda: serve(model, prompts,
+                                                         gen))
+    n_moe = model.cfg.n_layers - n_prefix(model.cfg)
+    if len(routes) != n_moe * gen:
+        raise AssertionError(f"record_serve: {len(routes)} MoE calls, "
+                             f"want {n_moe * gen}")
+    return toks, routes[:n_moe], [routes[i:i + n_moe]
+                                  for i in range(n_moe, len(routes), n_moe)]
+
+
+def routed_experts(routes):
+    """The distinct experts that kept assignments reach, per MoE call."""
+    return [len(set(e[k].tolist())) for e, k in routes]
+
+
+def moe_bounds(model, B, P, gen, prefill_routes, decode_routes):
+    """The function's bound, from this run's routes: a prefill takes the
+    larger of its operations (each MoE layer's routed experts over its
+    kept assignments, T x K at most) over 989 TFLOP/s (bf16) and its bytes
+    (every weight but the routed experts, the experts some kept
+    assignment reaches, and the k/v it writes) over 3.35 TB/s; a decode
+    token the bytes of the same weights over that step's experts and the
+    k/v it reads, averaged over the run's decode steps. Beside it
+    (``bucketed_*``) the bound of the bucketed design (ROADMAP P9): the
+    expert GEMMs over E x C slots, every expert's weights for any
+    token, the same bytes otherwise."""
+    import torch
+    cfg, m = model.cfg, model.cfg.moe
+    item = getattr(torch, cfg.dtype).itemsize
+    per_expert = 3 * cfg.d_model * m.d_ff_expert * item
+    wbytes = lm_weight_bytes(model)
+    n_moe = len(prefill_routes)
+    other = wbytes - n_moe * m.n_experts * per_expert
+    kept = [int(k.sum()) for _, k in prefill_routes]
+    flops = lm_prefill_flops(cfg, B, P, kept=kept)
+    pre_bytes = (other + per_expert * sum(routed_experts(prefill_routes))
+                 + lm_kv_bytes(cfg, B, P))
+    dec_bytes = [other + per_expert * sum(routed_experts(r))
+                 + lm_kv_bytes(cfg, B, P + i)
+                 for i, r in enumerate(decode_routes, 1)]
+    t_ops = 1e3 * flops / H100_BF16_FLOPS
+    t_b = 1e3 * pre_bytes / HBM_BYTES_PER_S
+    b_flops = lm_prefill_flops(cfg, B, P)
+    kv = sum(lm_kv_bytes(cfg, B, P + i) for i in range(1, gen)) / (gen - 1)
+    b_ops = 1e3 * b_flops / H100_BF16_FLOPS
+    b_w = 1e3 * (wbytes + lm_kv_bytes(cfg, B, P)) / HBM_BYTES_PER_S
+    return {"prefill_flops": flops, "prefill_bytes": pre_bytes,
+            "prefill_kept_assignments_per_moe_layer": kept,
+            "prefill_routed_experts_per_moe_layer":
+                routed_experts(prefill_routes),
+            "prefill_ops_bound_ms": t_ops, "prefill_bytes_bound_ms": t_b,
+            "prefill_bound_ms": max(t_ops, t_b),
+            "prefill_bound_by": "operations" if t_ops >= t_b else "bytes",
+            "decode_routed_experts_mean": sum(
+                sum(routed_experts(r)) for r in decode_routes)
+                / len(decode_routes) / n_moe,
+            "decode_bytes_mean": sum(dec_bytes) / len(dec_bytes),
+            "decode_bound_ms": 1e3 * sum(dec_bytes) / len(dec_bytes)
+                / HBM_BYTES_PER_S,
+            "decode_bound_by": "bytes",
+            "bucketed_prefill_flops": b_flops, "weight_bytes": wbytes,
+            "bucketed_prefill_ops_bound_ms": b_ops,
+            "bucketed_prefill_bytes_bound_ms": b_w,
+            "bucketed_prefill_bound_ms": max(b_ops, b_w),
+            "bucketed_decode_kv_bytes_mean": kv,
+            "bucketed_decode_bound_ms": 1e3 * (wbytes + kv)
+                / HBM_BYTES_PER_S}
+
+
+def moe_serve(model, prompts, gen, label):
+    """One counted ``serve`` after a warm-up: counts zeroed just before
+    and read just after, flash_attention_tc once a layer (every layer,
+    prefix included) and flash_attention never, well-formed tokens.
+    Returns (tokens, prefill s, decode s, counts, peak GiB)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import serve
+    cfg = model.cfg
+    serve(model, prompts, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    toks, t_pre, t_dec = serve(model, prompts, gen)
+    counts = launch_counts()
+    check_prefill_launches(counts, cfg.n_layers, label)
+    B = prompts.shape[0]
+    if toks.shape != (B, gen) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: tokens malformed: "
+                             f"{tuple(toks.shape)}")
+    return (toks, t_pre, t_dec, counts,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def serve_line(label, cfg, B, P, gen, t_pre, t_dec, peak, counts,
+               bounds):
+    return {"phase": label, "arch": cfg.name,
+            "config": dataclasses.asdict(cfg), "n_params": cfg.n_params,
+            "batch": B, "prompt_len": P, "gen": gen,
+            "prefill_ms": 1e3 * t_pre,
+            "decode_ms_per_token": 1e3 * t_dec / (gen - 1),
+            "generated_tok_per_s": B * gen / (t_pre + t_dec),
+            "decode_tok_per_s": B * (gen - 1) / t_dec,
+            "prefill_tok_per_s": B * P / t_pre, "peak_mem_gib": peak,
+            "launches": counts, **bounds,
+            "prefill_share_of_bound": bounds["prefill_bound_ms"]
+            / (1e3 * t_pre),
+            "decode_share_of_bound": bounds["decode_bound_ms"]
+            / (1e3 * t_dec / (gen - 1)),
+            "prefill_share_of_bucketed_bound":
+                bounds["bucketed_prefill_bound_ms"] / (1e3 * t_pre),
+            "decode_share_of_bucketed_bound":
+                bounds["bucketed_decode_bound_ms"]
+                / (1e3 * t_dec / (gen - 1))}
+
+
+def moe_flash_parity(model, prompts, label):
+    """Layer 0's and the last layer's attention inputs captured from a
+    prefill and held to the plain version: each must route to
+    flash_attention_tc. Returns the max |diff|."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    captured = capture_flash(model, prompts, {0, model.cfg.n_layers - 1})
+    err = 0.0
+    for layer, (q, k, v) in sorted(captured.items()):
+        name, e, _ = flash_pair(q, k, v, True, f"{label} layer {layer}")
+        if name != FA.TC_KERNEL.name:
+            raise AssertionError(f"{label} layer {layer}: routed to {name}")
+        err = max(err, e)
+    return err
+
+
+def moe_routes(model, prompts, gen, toks):
+    """The bounds from a recorded ``serve`` (``record_serve``,
+    ``moe_bounds``), the share of each MoE layer's prefill assignments
+    that capacity dropped, and whether the recorded run generated the
+    counted run's ``toks`` (the routes are then that run's)."""
+    import torch
+    got, pre, dec = record_serve(model, prompts, gen)
+    drops = [float((~keep).float().mean()) for _, keep in pre]
+    bounds = moe_bounds(model, prompts.shape[0], prompts.shape[1], gen,
+                        pre, dec)
+    bounds.update(prefill_drop_share_per_moe_layer=drops,
+                  prefill_drop_share_max=max(drops),
+                  routes_of_counted_tokens=torch.equal(got.cpu(),
+                                                       toks.cpu()))
+    return bounds
+
+
+def phase_moe_serve():
+    """DeepSeekMoE-16B at full width from the port's seeded init, bf16 on
+    the card: the captured attention parity (``moe_flash_parity``), the
+    counted ``serve`` of MOE_BATCH x MOE_PROMPT prompts and MOE_GEN tokens
+    (``moe_serve``), the drop shares and the bounds from the run's routes
+    (``moe_routes``), a profile of one prefill and of decode tokens split
+    by part, and the host syncs of a decode token (torch's sync debug
+    mode). Returns the prefill's counts and the captured parity's max
+    |diff|."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(MOE_ARCH)[0]
+    t0 = time.time()
+    model = T.init_lm(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    prompts = torch.tensor(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)), device=DEV)
+    err = moe_flash_parity(model, prompts, "moe_serve")
+    toks, t_pre, t_dec, counts, peak = moe_serve(
+        model, prompts, MOE_GEN, "moe_serve")
+    if peak >= 80:
+        raise AssertionError(f"moe_serve: peak {peak} GiB")
+    bounds = moe_routes(model, prompts, MOE_GEN, toks)
+    P = MOE_PROMPT
+    pre = profile_moe(lambda: T.prefill_step(model, prompts), 1)
+    logits, cache = T.prefill_step(model, prompts,
+                                   max_len=P + 2 * MOE_PROFILE_DECODE)
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+
+    def decode():
+        nonlocal cache
+        for _ in range(MOE_PROFILE_DECODE):
+            _, cache = T.decode_step(model, tok, cache)
+    dec = profile_moe(decode, MOE_PROFILE_DECODE)
+    n_sync, sync_lines = count_call_syncs(decode)
+    out = serve_line("moe_serve", cfg, MOE_BATCH, P, MOE_GEN, t_pre, t_dec,
+                     peak, counts, bounds)
+    out.update(init_s=init_s, first_tokens=toks[:, :8].tolist(),
+               captured_flash_max_abs_err=err,
+               profile={"prefill": pre, "decode_token": dec},
+               host_syncs_per_decode_token=n_sync / MOE_PROFILE_DECODE,
+               sync_lines=sync_lines)
+    emit(out)
+    return counts, err
+
+
+def phase_moe_arctic():
+    """Arctic at its published widths with the depth cut to ARCTIC_LAYERS,
+    bf16 on the card: the captured attention parity at its GQA group of 7
+    (``moe_flash_parity``), the counted ``serve`` of ARCTIC_BATCH x
+    ARCTIC_PROMPT and ARCTIC_GEN tokens (one flash_attention_tc launch a
+    layer), the drop shares, and prefill and decode beside their bounds
+    (``moe_routes``). Returns the prefill's counts and the captured
+    parity's max |diff|."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import scaled
+    from repro_torch.models import transformer as T
+    cfg = scaled(get_arch(ARCTIC_ARCH)[0], n_layers=ARCTIC_LAYERS)
+    t0 = time.time()
+    model = T.init_lm(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    prompts = torch.tensor(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (ARCTIC_BATCH, ARCTIC_PROMPT)), device=DEV)
+    err = moe_flash_parity(model, prompts, "moe_arctic")
+    toks, t_pre, t_dec, counts, peak = moe_serve(
+        model, prompts, ARCTIC_GEN, "moe_arctic")
+    bounds = moe_routes(model, prompts, ARCTIC_GEN, toks)
+    out = serve_line("moe_arctic", cfg, ARCTIC_BATCH, ARCTIC_PROMPT,
+                     ARCTIC_GEN, t_pre, t_dec, peak, counts, bounds)
+    out.update(init_s=init_s, reduced={"n_layers": [35, ARCTIC_LAYERS]},
+               tokens=toks.tolist(), captured_flash_max_abs_err=err)
+    emit(out)
+    return counts, err
+
+
+def _moe_card_cpu(cfg, toks, P):
+    """The same f32 weights on the card and the CPU: a P-token prefill,
+    then teacher-forced decode over the rest of ``toks``; returns per
+    device the logits (on the host) and each MoE call's keep, and the
+    card's launch counts (zeroed just before its run)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import transformer as T
+    cpu = T.init_lm(cfg, seed=SEED, device="cpu")
+    card = T.params_from_numpy(cfg, T.params_to_numpy(cpu), device=DEV)
+    out, counts = {}, None
+    for name, m in (("cuda", card), ("cpu", cpu)):
+        t = toks.to(m.device)
+
+        def run():
+            lg, cache = T.prefill_step(m, t[:, :P], max_len=t.shape[1])
+            logs = [lg]
+            for i in range(P, t.shape[1]):
+                lg, cache = T.decode_step(m, t[:, i:i + 1], cache)
+                logs.append(lg)
+            return torch.cat(logs, 1).cpu()
+        reset_launches()
+        logits, routes = record_dispatch(run)
+        counts = launch_counts() if counts is None else counts
+        out[name] = (logits, [keep for _, keep in routes],
+                     [e for e, _ in routes])
+    return out, counts
+
+
+def phase_moe_cpu(steps=16):
+    """The reduced deepseek-moe-16b and arctic-480b in f32, the same
+    weights on the card and the CPU: a 32-token prefill and ``steps``
+    teacher-forced decode steps, logits within LM_CPU_TOL and argmax
+    equal, every route equal, flash_attention launched once a layer in
+    the prefill; again at capacity factor MOE_DROP_FACTOR, whose prefill
+    must drop, with the same keep on both; then MOE_TRAIN_STEPS AdamW
+    steps through make_train_step on both, each loss (aux included)
+    within TRAIN_F32_LOSS_TOL, flash_attention once a layer a step. TF32
+    is off: it would round the f32 router's products to 10 bits and flip
+    experts. Returns the f32 prefill's flash_attention launches by
+    arch."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    P = 32
+    res, per_arch = {"phase": "moe_cpu", "tolerance": LM_CPU_TOL}, {}
+    for arch in MOE_CPU_ARCHS:
+        cfg = scaled(get_reduced(arch), dtype="float32")
+        toks = torch.tensor(np.random.default_rng(SEED + 8).integers(
+            0, cfg.vocab_size, (LM_BATCH, P + steps)))
+        line = {}
+        for factor in (cfg.moe.capacity_factor, MOE_DROP_FACTOR):
+            c = scaled(cfg, moe=scaled(cfg.moe, capacity_factor=factor))
+            got, counts = _moe_card_cpu(c, toks, P)
+            (a, ka, ea), (b, kb, eb) = got["cuda"], got["cpu"]
+            err = float((a - b).abs().max())
+            if not torch.isfinite(a).all() or err > LM_CPU_TOL:
+                raise AssertionError(f"moe_cpu {arch} factor {factor}: "
+                                     f"logits differ by {err}")
+            if not (all(torch.equal(x, y) for x, y in zip(ka, kb))
+                    and all(torch.equal(x, y) for x, y in zip(ea, eb))):
+                raise AssertionError(f"moe_cpu {arch} factor {factor}: "
+                                     f"routes differ on card and CPU")
+            n_moe = cfg.n_layers - T.n_prefix(cfg)
+            dropped = int(sum((~k).sum() for k in ka[:n_moe]))
+            if counts["flash_attention"] != cfg.n_layers or \
+                    counts["flash_attention_tc"] != 0:
+                raise AssertionError(f"moe_cpu {arch}: launches {counts}")
+            if factor == MOE_DROP_FACTOR and dropped == 0:
+                raise AssertionError(f"moe_cpu {arch}: nothing dropped at "
+                                     f"capacity factor {factor}")
+            line[f"factor_{factor}"] = {
+                "max_abs_err": err, "argmax_equal": bool(torch.equal(
+                    a.argmax(-1), b.argmax(-1))),
+                "prefill_dropped_assignments": dropped,
+                "launches": counts}
+        per_arch[arch] = counts["flash_attention"]
+        res[arch] = line
+    cfg = scaled(get_reduced(MOE_CPU_ARCHS[0]), dtype="float32")
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device="cpu"))
+    rng = np.random.default_rng(SEED + 9)
+    batches = [tuple(torch.tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                                  dtype=torch.int32) for _ in range(2))
+               for _ in range(MOE_TRAIN_STEPS)]
+    opt = adamw(lr=TRAIN_LR)
+    step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt)
+    losses, counts = {}, None
+    for dev in (DEV, "cpu"):
+        st = init_train_state({k: v.to(dev) for k, v in params.items()},
+                              opt)
+        reset_launches()
+        losses[dev] = []
+        for b in batches:
+            st, m = step(st, tuple(x.to(dev) for x in b))
+            losses[dev].append(float(m["loss"]))
+        counts = launch_counts() if counts is None else counts
+    loss_err = max(abs(x - y) for x, y in zip(losses[DEV], losses["cpu"]))
+    if not np.isfinite(losses[DEV]).all() or loss_err > TRAIN_F32_LOSS_TOL \
+            or counts["flash_attention"] != cfg.n_layers * MOE_TRAIN_STEPS:
+        raise AssertionError(f"moe_cpu train: losses {losses}, launches "
+                             f"{counts}")
+    res["train"] = {"arch": cfg.name, "steps": MOE_TRAIN_STEPS,
+                    "losses_cuda": losses[DEV], "losses_cpu": losses["cpu"],
+                    "max_loss_err": loss_err,
+                    "loss_tolerance": TRAIN_F32_LOSS_TOL,
+                    "launches": counts}
+    emit(res)
+    return per_arch
 
 
 def attention_flops(q):
@@ -1764,7 +2319,9 @@ def count_call_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    # the mode's own notice that it is a prototype names no sync
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
     return len(syncs), dict(Counter(f"{Path(w.filename).name}:{w.lineno}"
                                     for w in syncs))
 
@@ -3504,13 +4061,25 @@ def main() -> int:
               for name, e in flash["max_abs_err"].items()}
     counts_f32 = phase_lm_cpu()
     rows_["lm"] = kernels_lm(captured, counts_lm, err_lm, counts_f32)
+    tc_row, core_row = rows_["lm"]
     del captured
     free_card()
     train = phase_train()
     free_card()
     train_f32 = phase_train_f32()
     free_card()
+    counts_moe, err_moe = phase_moe_serve()
+    free_card()
+    counts_arctic, err_arctic = phase_moe_arctic()
+    free_card()
+    moe_f32 = phase_moe_cpu()
     phase_examples()
+    tc_row["max_abs_err"] = max(tc_row["max_abs_err"], err_moe, err_arctic)
+    tc_row["launches_per_moe_prefill"] = {
+        MOE_ARCH: counts_moe["flash_attention_tc"],
+        f"{ARCTIC_ARCH} ({ARCTIC_LAYERS} layers)":
+            counts_arctic["flash_attention_tc"]}
+    core_row["launches_per_moe_f32_prefill"] = moe_f32
     per_train_step = {
         "flash_attention_tc": train["launches_per_step"][
             "flash_attention_tc"],

@@ -1,28 +1,29 @@
 """Architecture registry of the port: ``get_arch(name) -> (CONFIG,
 SHAPES)`` and ``get_reduced(name)``, counterparts of ``repro.configs``'.
 
-Only the ported families resolve: the crawl (``webparf``) and the three
-dense LMs. The other architectures of the reference raise
-``NotImplementedError`` naming the slice that will port them.
+Only the ported families resolve: the crawl (``webparf``), the three
+dense LMs and the two MoE LMs. The GNN and RecSys architectures of the
+reference raise ``NotImplementedError`` naming the slice that will port
+them.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import CrawlConfig, LMConfig, scaled
+from repro_torch.configs.base import CrawlConfig, LMConfig, MoEConfig, scaled
 
 _ARCH_MODULES: Dict[str, str] = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "qwen2-1.5b": "qwen2_1_5b",
     "deepseek-coder-33b": "deepseek_coder_33b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "arctic-480b": "arctic_480b",
     "webparf": "webparf",
 }
 
 # the reference's other architectures, and the slice that ports them
 _LATER: Dict[str, str] = {
-    "deepseek-moe-16b": "the MoE serving slice (ROADMAP Queue 1, item 18b)",
-    "arctic-480b": "the MoE serving slice (ROADMAP Queue 1, item 18b)",
     "gat-cora": "the GNN/RecSys slice (ROADMAP Queue 1, item 18d)",
     "bert4rec": "the GNN/RecSys slice (ROADMAP Queue 1, item 18d)",
     "dien": "the GNN/RecSys slice (ROADMAP Queue 1, item 18d)",
@@ -52,4 +53,5 @@ def get_reduced(name: str):
     return _load(name).reduced()
 
 
-__all__ = ["CrawlConfig", "LMConfig", "get_arch", "get_reduced", "scaled"]
+__all__ = ["CrawlConfig", "LMConfig", "MoEConfig", "get_arch", "get_reduced",
+           "scaled"]

@@ -4,9 +4,9 @@ Copies of ``repro.configs.base``'s ``ShapeSpec``, ``LM_SHAPES``,
 ``CRAWL_SHAPES``, ``MoEConfig``, ``LMConfig`` and ``CrawlConfig`` (field
 names and defaults are held equal by tests/test_torch_boundary.py): the port
 keeps its own copies so it imports nothing of the JAX package. The crawl
-family and the dense LM family are ported; ``MoEConfig`` is here because
-``LMConfig.moe`` names it, though MoE layers are not ported yet. The GNN and
-RecSys config classes stay with the JAX package.
+family and the LM family, dense and MoE (``MoEConfig``, the layers of
+``models/layers.py``'s ``moe_block``), are ported. The GNN and RecSys config
+classes stay with the JAX package.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ class LMConfig:
     moe: Optional[MoEConfig] = None
     first_k_dense: int = 0       # first k layers use the dense MLP even in MoE models
     dtype: str = "bfloat16"
-    remat: bool = True           # training only (not ported)
+    remat: bool = True           # activation checkpointing per layer (train)
     scan_layers: bool = True     # the port holds its layers in a ModuleList
 
     def __post_init__(self):

@@ -4,7 +4,11 @@ a KV cache. Counterpart of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 32 --gen 16            # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-moe-16b --full               # MoE at full width
 
+Any LM arch serves: the dense ones and the MoE ones (deepseek-moe-16b,
+arctic-480b; ``--full`` arctic-480b needs more than one card's memory).
 Without ``--full`` the arch's ``reduced()`` config runs; weights are drawn
 from ``--seed`` (there are no pretrained weights), prompts from a numpy
 generator of the same seed. It runs on cuda unless ``--device cpu`` is

@@ -11,7 +11,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu
 
 Without ``--full`` the arch's ``reduced()`` config runs, in f32; ``--full``
-is the published config (bf16, remat on). Weights are drawn from
+is the published config (bf16, remat on). Every LM arch trains, dense or
+MoE (the MoE aux loss is part of the loss); ``--full`` of an MoE arch is
+not refused, but its weights and AdamW state (16.4 B parameters for
+deepseek-moe-16b, ~300 GB) exceed one card's memory. Weights are drawn from
 ``--seed``. It runs on cuda unless ``--device cpu`` is given, and raises
 when no card is present. Only the LM family trains here: the GNN and
 RecSys archs come with ROADMAP Queue 1, item 18d, and so does

@@ -1,5 +1,5 @@
-"""The model zoo of the port: the dense LM family (``layers``, blocks;
-``transformer``, the model, its training loss, prefill and decode) and
+"""The model zoo of the port: the LM family, dense and MoE (``layers``,
+blocks; ``transformer``, the model, its training loss, prefill and decode) and
 ``recsys``'s MLP (the learned URL ranker's model). ``init_lm`` builds a
 model from a seed; it runs on cuda unless ``device="cpu"`` is passed."""
 from repro_torch.models.transformer import (LM, LMCache, decode_step,

@@ -1,14 +1,15 @@
-"""Transformer building blocks of the dense LM family: RMSNorm, RoPE,
-attention (prefill and training through the ``flash_attention`` kernel,
-one-token decode against a KV cache), the SwiGLU MLP and the chunked
-cross-entropy. Counterpart of the dense part of ``repro/models/layers.py``.
+"""Transformer building blocks of the LM family: RMSNorm, RoPE, attention
+(prefill and training through the ``flash_attention`` kernel, one-token
+decode against a KV cache), the SwiGLU MLP, the capacity-bucketed MoE and
+the chunked cross-entropy. Counterpart of ``repro/models/layers.py``.
 
 Weights keep the reference's layout (``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``), so they carry across by name
 (``transformer.params_from_numpy``). The reference's ``constrain`` and
 ``opt_barrier`` place data on a mesh and steer XLA; on one card they do
-nothing and are dropped. MoE layers are not ported yet (``moe_block``
-raises).
+nothing and are dropped. The MoE's expert products are ``torch.bmm``
+over the buckets: the reference computes them as ``jnp.einsum`` outside any
+kernel.
 
 Prefill attention on the CPU, in f32 and at the small bf16 head dims keeps
 ``p`` and the scaled q in f32, as the TPU kernel does; the reference's
@@ -27,7 +28,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, MoEConfig
+from repro_torch.core import router
 from repro_torch.kernels.flash_attention import ops as FA
 
 NEG_INF = -1e30
@@ -131,11 +133,10 @@ class Attention(nn.Module):
             self.bv = _param((cfg.n_kv_heads * hd,), dtype, device, fill=0.0)
 
 
-def init_attn(gen: torch.Generator, cfg: LMConfig, dtype: torch.dtype,
-              device) -> Attention:
-    """N(0, 1/d) projections, zero biases, drawn from ``gen``."""
-    p = Attention(cfg, dtype, device)
-    std = cfg.d_model ** -0.5
+def draw_attn(p: Attention, gen: torch.Generator) -> Attention:
+    """N(0, 1/d) projections drawn from ``gen`` into ``p`` in the order
+    wq, wk, wv, wo; the biases stay zero."""
+    std = p.wq.shape[0] ** -0.5
     for w in (p.wq, p.wk, p.wv, p.wo):
         w.normal_(0.0, std, generator=gen)
     return p
@@ -206,18 +207,176 @@ class MLP(nn.Module):
         self.w_down = _param((ff, d), dtype, device)
 
 
-def init_mlp(gen: torch.Generator, d: int, ff: int, dtype: torch.dtype,
-             device) -> MLP:
-    p = MLP(d, ff, dtype, device)
+def draw_mlp(p: MLP, gen: torch.Generator) -> MLP:
+    """N(0, 1/d) ``w_gate``, ``w_up`` and N(0, 1/ff) ``w_down`` drawn from
+    ``gen`` into ``p``, in that order."""
+    d, ff = p.w_gate.shape
     p.w_gate.normal_(0.0, d ** -0.5, generator=gen)
     p.w_up.normal_(0.0, d ** -0.5, generator=gen)
     p.w_down.normal_(0.0, ff ** -0.5, generator=gen)
     return p
 
 
+def silu(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference writes it, x * sigmoid(x), in two
+    ops: in bf16 the product rounds where the reference's does. (XLA also
+    rounds inside its sigmoid, so an MoE layer's bf16 output differs from
+    the reference's by up to 1 ulp; ``F.silu``, one rounding, by 2.)
+    Every MLP and expert of the port takes it."""
+    return h * torch.sigmoid(h)
+
+
 def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
+    h = silu(x @ p.w_gate) * (x @ p.w_up)
     return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# MoE: capacity-bucketed dispatch
+# ---------------------------------------------------------------------------
+#
+# The routing of WebParF's URL dispatcher (core/router.py): score -> top-k
+# -> position in the expert's bucket by cumsum -> drop past capacity ->
+# scatter to (E, C) buckets -> expert GEMMs -> gather back -> weighted
+# combine. The reference's mesh path (``_moe_spmd``) is not ported: on one
+# card the reference itself takes ``_moe_local`` (ROADMAP Queue 1, 18d).
+
+
+class MoE(nn.Module):
+    """The routed experts in the reference's layout: ``router`` (d, E)
+    f32, ``w_gate``/``w_up`` (E, d, f_e), ``w_down`` (E, f_e, d); ``shared``
+    (DeepSeekMoE) an MLP of width n_shared * f_e, ``dense`` (Arctic's
+    dense residual) an MLP of width ``d_ff_dense or d_ff``."""
+
+    def __init__(self, cfg: LMConfig, dtype: torch.dtype, device):
+        super().__init__()
+        m, d = cfg.moe, cfg.d_model
+        self.router = _param((d, m.n_experts), torch.float32, device)
+        self.w_gate = _param((m.n_experts, d, m.d_ff_expert), dtype, device)
+        self.w_up = _param((m.n_experts, d, m.d_ff_expert), dtype, device)
+        self.w_down = _param((m.n_experts, m.d_ff_expert, d), dtype, device)
+        self.shared = (MLP(d, m.n_shared * m.d_ff_expert, dtype, device)
+                       if m.n_shared else None)
+        self.dense = (MLP(d, m.d_ff_dense or cfg.d_ff, dtype, device)
+                      if m.dense_residual else None)
+
+
+def draw_moe(p: MoE, gen: torch.Generator) -> MoE:
+    """The reference's scales (N(0, 1/d), ``w_down`` N(0, 1/f_e)) drawn
+    from ``gen`` into ``p`` in the order router, w_gate, w_up, w_down,
+    shared, dense."""
+    d, f_e = p.w_gate.shape[1:]
+    for w in (p.router, p.w_gate, p.w_up):
+        w.normal_(0.0, d ** -0.5, generator=gen)
+    p.w_down.normal_(0.0, f_e ** -0.5, generator=gen)
+    for mlp in (p.shared, p.dense):
+        if mlp is not None:
+            draw_mlp(mlp, gen)
+    return p
+
+
+def init_moe(gen: torch.Generator, cfg: LMConfig, dtype: torch.dtype,
+             device) -> MoE:
+    """An ``MoE`` of ``cfg`` drawn from ``gen`` (``draw_moe``)."""
+    return draw_moe(MoE(cfg, dtype, device), gen)
+
+
+def moe_capacity(m: MoEConfig, tokens_per_group: int) -> int:
+    return router.moe_capacity(tokens_per_group, m.top_k, m.n_experts,
+                               m.capacity_factor)
+
+
+def moe_dispatch(router_logits: torch.Tensor, m: MoEConfig, capacity: int):
+    """Group-local top-k routing with capacity bucketing.
+
+    router_logits (G, T, E). Returns (combine_w (G, T, K) f32, expert_idx
+    (G, T, K), slot_idx (G, T, K), keep (G, T, K), aux_loss f32 scalar).
+    The top-k is a stable descending sort, so ties go to the lower expert
+    index as ``lax.top_k`` sends them (``torch.topk`` does not)."""
+    G, T, E = router_logits.shape
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :m.top_k], top_e[..., :m.top_k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    slot, keep = router.position_in_bucket(
+        top_e.reshape(G, T * m.top_k), E, capacity)
+    slot = slot.reshape(G, T, m.top_k)
+    keep = keep.reshape(G, T, m.top_k)
+
+    # load-balancing aux loss (Switch/GShard style)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(top_e, E).float().sum(2).mean(
+        dim=(0, 1))
+    aux = (me * ce).sum() * E * m.aux_loss_weight
+    return top_w, top_e, slot, keep, aux
+
+
+def _moe_scatter(xt, e_idx, slot, keep, E: int, capacity: int):
+    """(T, d) tokens -> (E, C, d) buckets, one k-slice at a time, as the
+    reference's loop. Kept assignments own distinct cells and are copied
+    there; a dropped one goes to a spare slot past each expert's C, which
+    the returned view leaves out. The reference ADDS a dropped assignment
+    as zeros at slot C - 1, so its buckets are the same (a -0.0 token is
+    +0.0 there: compare with ==). Copies, not adds: no atomics, and no
+    write order decides a cell."""
+    T, d = xt.shape
+    buckets = torch.zeros((E * (capacity + 1), d), dtype=xt.dtype,
+                          device=xt.device)
+    for k in range(e_idx.shape[-1]):
+        s_spare = torch.where(keep[:, k], slot[:, k], capacity)
+        buckets.index_copy_(0, e_idx[:, k] * (capacity + 1) + s_spare, xt)
+    return buckets.view(E, capacity + 1, d)[:, :capacity]
+
+
+def _moe_combine(y, w, e_idx, slot, keep, capacity: int):
+    """Per-k-slice gather + weighted sum in f32, k = 0..K-1 in order:
+    (E, C, d) -> (T, d). Dropped assignments are gathered too and weighted
+    0, as in the reference; in the backward only those zeros meet at a
+    shared cell, so the gradient is exact in any order."""
+    T = e_idx.shape[0]
+    yf = y.reshape(-1, y.shape[-1])
+    out = torch.zeros((T, y.shape[-1]), dtype=torch.float32,
+                      device=y.device)
+    for k in range(e_idx.shape[-1]):
+        s_safe = torch.where(keep[:, k], slot[:, k], capacity - 1)
+        got = yf.index_select(0, e_idx[:, k] * capacity + s_safe).float()
+        out = out + torch.where(keep[:, k], w[:, k], 0.0)[:, None] * got
+    return out
+
+
+def _moe_local(p, m: MoEConfig, xt: torch.Tensor):
+    """MoE over (T, d) tokens: route (an f32 GEMM) -> bucket -> expert
+    GEMMs (``bmm`` over the E buckets) -> combine. Returns (out (T, d) in
+    xt's dtype, aux)."""
+    T, d = xt.shape
+    E = m.n_experts
+    logits = xt.float() @ p.router                       # (T, E) f32
+    capacity = moe_capacity(m, T)
+    w, e_idx, slot, keep, aux = moe_dispatch(logits[None], m, capacity)
+    w, e_idx, slot, keep = w[0], e_idx[0], slot[0], keep[0]
+    buckets = _moe_scatter(xt, e_idx, slot, keep, E, capacity)
+    h = torch.bmm(buckets, p.w_gate)
+    u = torch.bmm(buckets, p.w_up)
+    y = torch.bmm(silu(h) * u, p.w_down)
+    out = _moe_combine(y, w, e_idx, slot, keep, capacity)
+    return out.to(xt.dtype), aux
+
+
+def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int = 1):
+    """x (B, S, d) -> (out, aux_loss): the routed experts over all B * S
+    tokens as one group, then the shared experts and the dense residual
+    added in the reference's order. ``n_groups`` is unused, as in the
+    reference. No host sync: every size is known from the shapes."""
+    m = cfg.moe
+    B, S, d = x.shape
+    out, aux = _moe_local(p, m, x.reshape(B * S, d))
+    out = out.reshape(B, S, d)
+    if m.n_shared:
+        out = out + mlp_block(p.shared, x)
+    if m.dense_residual:
+        out = out + mlp_block(p.dense, x)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +413,3 @@ def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
                                lm_head, labels[:, c0:c0 + chunk],
                                use_reentrant=False, preserve_rng_state=False)
     return tot / (B * S)
-
-
-def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int):
-    raise NotImplementedError("moe_block is not ported yet: MoE serving is "
-                              "a later slice (ROADMAP Queue 1, item 18b)")

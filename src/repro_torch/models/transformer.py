@@ -1,14 +1,19 @@
-"""The dense decoder-only LM family (qwen2-1.5b, phi3-mini-3.8b,
-deepseek-coder-33b): init, the forward pass, prefill and KV-cache decode.
-Counterpart of ``repro/models/transformer.py``.
+"""The decoder-only LM family, dense (qwen2-1.5b, phi3-mini-3.8b,
+deepseek-coder-33b) and MoE (deepseek-moe-16b: shared experts and a
+first-k-dense prefix; arctic-480b: a dense residual beside the experts):
+init, the forward pass, prefill and KV-cache decode. Counterpart of
+``repro/models/transformer.py``.
 
-The model is an ``nn.Module`` whose decoder layers sit in an
-``nn.ModuleList``; the reference stacks them on a leading axis for
-``lax.scan``, the port walks the list. Weights carry across in the
-reference's checkpoint form: a flat dict keyed by path (``embed``,
-``layers/attn/wq``, ...) whose ``layers/*`` leaves are stacked over a
-leading layer axis (``params_from_numpy``, ``params_to_numpy``). MoE models
-raise ``NotImplementedError``.
+The model is an ``nn.Module`` whose decoder layers sit in two
+``nn.ModuleList``s: ``prefix``, an MoE model's ``first_k_dense`` dense
+layers (empty otherwise), and ``layers``, the rest (MoE layers in an MoE
+model); the reference stacks ``layers`` on a leading axis for ``lax.scan``,
+the port walks the lists. Weights carry across in the reference's
+checkpoint form: a flat dict keyed by path (``embed``, ``layers/attn/wq``,
+``layers/moe/shared/w_gate``, ``prefix/0/mlp/w_up``, ...) whose
+``layers/*`` leaves are stacked over a leading layer axis and whose
+``prefix/<i>/*`` leaves are one layer's each, the reference's list
+flattened by index (``params_from_numpy``, ``params_to_numpy``).
 
 Serving (``forward``, ``prefill_step``, ``decode_step``) runs the module
 under ``torch.inference_mode()``. Training (``train_forward``, ``lm_loss``)
@@ -21,7 +26,7 @@ trainer makes them leaves that require grad, each layer reads its slice
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,44 +43,45 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE models are not ported "
-                                  f"yet (ROADMAP Queue 1, item 18b)")
+def n_prefix(cfg: LMConfig) -> int:
+    """The leading dense layers of an MoE model (0 for a dense one)."""
+    return cfg.first_k_dense if cfg.moe is not None else 0
 
 
 class DecoderLayer(nn.Module):
+    """Norms, attention and either a dense ``mlp`` or an ``moe``, of
+    uninitialised weights."""
+
     def __init__(self, cfg: LMConfig, dtype: torch.dtype, device, *,
-                 attn: Optional[L.Attention] = None,
-                 mlp: Optional[L.MLP] = None):
+                 moe: bool = False):
         super().__init__()
         self.ln1 = L._param((cfg.d_model,), torch.float32, device, fill=1.0)
         self.ln2 = L._param((cfg.d_model,), torch.float32, device, fill=1.0)
-        self.attn = attn if attn is not None else L.Attention(cfg, dtype,
-                                                              device)
-        self.mlp = mlp if mlp is not None else L.MLP(cfg.d_model, cfg.d_ff,
-                                                     dtype, device)
+        self.attn = L.Attention(cfg, dtype, device)
+        if moe:
+            self.moe = L.MoE(cfg, dtype, device)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
 
 class LM(nn.Module):
-    """A dense LM: ``init_lm`` draws its weights, ``params_from_numpy``
-    loads them. ``layers=None`` allocates ``cfg.n_layers`` layers of
-    uninitialised weights."""
+    """An LM of uninitialised weights: ``init_lm`` draws them,
+    ``params_from_numpy`` loads them."""
 
-    def __init__(self, cfg: LMConfig, device: Device = None, *,
-                 layers: Optional[Iterable[DecoderLayer]] = None):
+    def __init__(self, cfg: LMConfig, device: Device = None):
         super().__init__()
-        _dense_only(cfg)
         dev = resolve_device(device)
         dt = _dtype(cfg)
         self.cfg = cfg
         self.embed = L._param((cfg.vocab_size, cfg.d_model), dt, dev)
         self.final_norm = L._param((cfg.d_model,), torch.float32, dev,
                                    fill=1.0)
-        if layers is None:
-            layers = (DecoderLayer(cfg, dt, dev)
-                      for _ in range(cfg.n_layers))
-        self.layers = nn.ModuleList(layers)
+        P = n_prefix(cfg)
+        self.prefix = nn.ModuleList(DecoderLayer(cfg, dt, dev)
+                                    for _ in range(P))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, dt, dev, moe=cfg.moe is not None)
+            for _ in range(cfg.n_layers - P))
         self.lm_head = (None if cfg.tie_embeddings else
                         L._param((cfg.d_model, cfg.vocab_size), dt, dev))
 
@@ -89,23 +95,25 @@ class LM(nn.Module):
 # ---------------------------------------------------------------------------
 
 def init_lm(cfg: LMConfig, *, seed: int = 0, device: Device = None) -> LM:
-    """The reference's shapes, dtypes and scales: N(0, 1/d) embeddings and
-    projections (``w_down`` N(0, 1/d_ff)), ones for the norms, zeros for the
-    biases, drawn in the order embed, layers, lm_head from a
+    """The reference's shapes, dtypes and scales: N(0, 1/d) embeddings,
+    projections and routers (``w_down`` N(0, 1/d_ff), an expert's
+    N(0, 1/f_e)), ones for the norms, zeros for the biases, drawn from one
     ``torch.Generator`` on the model's device seeded with ``seed`` (so one
-    seed gives other weights on the card than on the CPU). Runs on cuda
-    unless ``device`` says otherwise."""
+    seed gives other weights on the card than on the CPU) in the order
+    embed, the prefix layers, the main layers (each: attention, then its
+    MLP or MoE), lm_head. Runs on cuda unless ``device`` says otherwise."""
     dev = resolve_device(device)
-    dt = _dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
     with torch.no_grad():
-        model = LM(cfg, dev, layers=())
+        model = LM(cfg, dev)
         model.embed.normal_(0.0, d ** -0.5, generator=gen)
-        for _ in range(cfg.n_layers):
-            model.layers.append(DecoderLayer(
-                cfg, dt, dev, attn=L.init_attn(gen, cfg, dt, dev),
-                mlp=L.init_mlp(gen, d, cfg.d_ff, dt, dev)))
+        for layer in (*model.prefix, *model.layers):
+            L.draw_attn(layer.attn, gen)
+            if hasattr(layer, "moe"):
+                L.draw_moe(layer.moe, gen)
+            else:
+                L.draw_mlp(layer.mlp, gen)
         if model.lm_head is not None:
             model.lm_head.normal_(0.0, d ** -0.5, generator=gen)
     return model
@@ -121,25 +129,20 @@ def lm_head_weight(model: LM) -> torch.Tensor:
 # Weights in the reference's checkpoint form
 # ---------------------------------------------------------------------------
 
-_ATTN = ("wq", "wk", "wv", "wo")
-_BIAS = ("bq", "bk", "bv")
-_MLP = ("w_gate", "w_up", "w_down")
-
-
 def _leaves(model: LM) -> Dict[str, list]:
-    """{checkpoint key: [tensor]}: one tensor for a global leaf, one per
-    layer (in order) for a ``layers/*`` leaf."""
-    cfg = model.cfg
+    """{checkpoint key: [tensor]}: one tensor for a global leaf or a
+    ``prefix/<i>/*`` leaf, one per layer (in order) for a ``layers/*``
+    leaf. A layer's leaves are its parameters by name (``attn.wq`` ->
+    ``attn/wq``, ``moe.shared.w_up`` -> ``moe/shared/w_up``)."""
     out = {"embed": [model.embed], "final_norm": [model.final_norm]}
     if model.lm_head is not None:
         out["lm_head"] = [model.lm_head]
-    ls = list(model.layers)
-    out["layers/ln1"] = [layer.ln1 for layer in ls]
-    out["layers/ln2"] = [layer.ln2 for layer in ls]
-    for n in _ATTN + (_BIAS if cfg.qkv_bias else ()):
-        out[f"layers/attn/{n}"] = [getattr(layer.attn, n) for layer in ls]
-    for n in _MLP:
-        out[f"layers/mlp/{n}"] = [getattr(layer.mlp, n) for layer in ls]
+    for i, layer in enumerate(model.prefix):
+        for name, t in layer.named_parameters():
+            out[f"prefix/{i}/{name.replace('.', '/')}"] = [t]
+    for layer in model.layers:
+        for name, t in layer.named_parameters():
+            out.setdefault(f"layers/{name.replace('.', '/')}", []).append(t)
     return out
 
 
@@ -214,29 +217,40 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
         B, S)
 
 
+def _ffn(layer, cfg: LMConfig, z: torch.Tensor):
+    """The layer's MLP or MoE on the normed ``z``: (out, aux), aux None
+    for a dense layer (the reference adds a zero, which changes no sum)."""
+    if hasattr(layer, "moe"):
+        return L.moe_block(layer.moe, cfg, z)
+    return L.mlp_block(layer.mlp, z), None
+
+
 def _layer(layer: DecoderLayer, cfg: LMConfig, x, positions,
            cache: Optional[L.KVCache] = None):
     """One decoder layer over the whole sequence: (x', the sequence's k and
-    v in ``cache``'s dtype, or None without a cache)."""
+    v in ``cache``'s dtype, or None without a cache, the MoE aux loss or
+    None)."""
     h, kv = L.attn_block(layer.attn, cfg, L.rms_norm(x, layer.ln1,
                                                      cfg.norm_eps),
                          positions=positions, cache=cache)
     x = x + h
-    x = x + L.mlp_block(layer.mlp, L.rms_norm(x, layer.ln2, cfg.norm_eps))
-    return x, kv
+    mo, aux = _ffn(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))
+    return x + mo, kv, aux
 
 
 @torch.inference_mode()
 def forward(model: LM,
             tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (hidden (B, S, d), aux_loss 0: no MoE)."""
+    """tokens (B, S) -> (hidden (B, S, d), aux_loss): the aux losses added
+    in the reference's order, the prefix layers' zeros first."""
     cfg = model.cfg
     B, S = tokens.shape
     x = model.embed[tokens]
     positions = _positions(B, S, x.device)
-    for layer in model.layers:
-        x, _ = _layer(layer, cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in (*model.prefix, *model.layers):
+        x, _, a = _layer(layer, cfg, x, positions)
+        aux = aux if a is None else aux + a
     return L.rms_norm(x, model.final_norm, cfg.norm_eps), aux
 
 
@@ -247,57 +261,72 @@ def forward(model: LM,
 Params = Dict[str, torch.Tensor]
 
 
-def _layer_views(params: Params, n_layers: int) -> List[SimpleNamespace]:
-    """Each layer's slices of the stacked ``layers/*`` tensors, laid out
-    as a ``DecoderLayer`` (``layer.attn.wq``, ...), so ``_layer`` runs on
-    them."""
+def _view(leaves: Dict[str, torch.Tensor]) -> SimpleNamespace:
+    """Path-keyed tensors (``attn/wq``, ``moe/shared/w_up``) as nested
+    namespaces laid out as a ``DecoderLayer`` (``layer.attn.wq``,
+    ``layer.moe.shared.w_up``), so ``_layer`` runs on them."""
+    root = SimpleNamespace()
+    for name, t in leaves.items():
+        *path, leaf = name.split("/")
+        obj = root
+        for part in path:
+            if not hasattr(obj, part):
+                setattr(obj, part, SimpleNamespace())
+            obj = getattr(obj, part)
+        setattr(obj, leaf, t)
+    return root
+
+
+def _layer_views(params: Params, cfg: LMConfig
+                 ) -> Tuple[List[SimpleNamespace], List[SimpleNamespace]]:
+    """(the prefix layers, the main layers) as views: each prefix layer its
+    ``prefix/<i>/*`` tensors, each main layer its slices of the stacked
+    ``layers/*`` tensors."""
+    P = n_prefix(cfg)
+    prefix = [_view({k[len(f"prefix/{i}/"):]: t for k, t in params.items()
+                     if k.startswith(f"prefix/{i}/")}) for i in range(P)]
     per = {k[len("layers/"):]: params[k].unbind(0) for k in params
            if k.startswith("layers/")}
-    out = []
-    for i in range(n_layers):
-        layer = SimpleNamespace(attn=SimpleNamespace(),
-                                mlp=SimpleNamespace())
-        for name, ts in per.items():
-            *path, leaf = name.split("/")
-            obj = layer
-            for part in path:
-                obj = getattr(obj, part)
-            setattr(obj, leaf, ts[i])
-        out.append(layer)
-    return out
+    main = [_view({name: ts[i] for name, ts in per.items()})
+            for i in range(cfg.n_layers - P)]
+    return prefix, main
 
 
 def _layer_out(layer, cfg: LMConfig, x, positions):
-    return _layer(layer, cfg, x, positions)[0]
+    x, _, aux = _layer(layer, cfg, x, positions)
+    return x, aux
 
 
 def train_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (hidden (B, S, d), aux_loss 0: no MoE), with
-    gradients, from weights in ``stack_params``' form. The embedding is
-    ``F.embedding``, whose backward is deterministic on the card (the
-    indexing form's is an accumulating ``index_put``). With ``cfg.remat``
-    each decoder layer keeps only its input for the backward and is run
-    again there."""
-    _dense_only(cfg)
+    """tokens (B, S) -> (hidden (B, S, d), aux_loss), with gradients, from
+    weights in ``stack_params``' form. The embedding is ``F.embedding``,
+    whose backward is deterministic on the card (the indexing form's is an
+    accumulating ``index_put``). With ``cfg.remat`` each main layer keeps
+    only its input for the backward and is run again there (the prefix
+    layers are not, as in the reference). The aux losses are added in the
+    reference's order."""
     B, S = tokens.shape
     x = F.embedding(tokens, params["embed"])
     positions = _positions(B, S, x.device)
-    for layer in _layer_views(params, cfg.n_layers):
-        if cfg.remat:
-            x = checkpoint(_layer_out, layer, cfg, x, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _layer_out(layer, cfg, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    prefix, main = _layer_views(params, cfg)
+    for i, layer in enumerate(prefix + main):
+        if cfg.remat and i >= len(prefix):
+            x, a = checkpoint(_layer_out, layer, cfg, x, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _layer_out(layer, cfg, x, positions)
+        aux = aux if a is None else aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
     """The mean next-token cross-entropy (f32) of ``labels`` given
-    ``tokens``, both (B, S); the reference's ``n_groups`` and
-    ``causal_skip`` change nothing for a dense model and are not taken."""
+    ``tokens``, both (B, S), plus the MoE aux loss; the reference's
+    ``n_groups`` and ``causal_skip`` change no result and are not
+    taken."""
     hidden, aux = train_forward(params, cfg, tokens)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     return L.chunked_softmax_xent(hidden, head, labels) + aux
@@ -308,9 +337,9 @@ def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class LMCache(NamedTuple):
-    prefix_k: Optional[torch.Tensor]   # MoE first_k_dense layers: None here
+    prefix_k: Optional[torch.Tensor]   # (P, B, Hkv, S, hd), or None (P = 0)
     prefix_v: Optional[torch.Tensor]
-    main_k: torch.Tensor               # (L, B, Hkv, S, hd)
+    main_k: torch.Tensor               # (L', B, Hkv, S, hd)
     main_v: torch.Tensor
     length: torch.Tensor               # (B,) int32
 
@@ -318,13 +347,25 @@ class LMCache(NamedTuple):
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, *,
                device: Device = None) -> LMCache:
-    _dense_only(cfg)
     dev = resolve_device(device)
-    shp = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dt = dtype or _dtype(cfg)
-    return LMCache(None, None, torch.zeros(shp, dtype=dt, device=dev),
-                   torch.zeros(shp, dtype=dt, device=dev),
+    P = n_prefix(cfg)
+    shp = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+
+    def zeros(n):
+        return torch.zeros((n,) + shp, dtype=dt, device=dev)
+    pk, pv = (zeros(P), zeros(P)) if P else (None, None)
+    return LMCache(pk, pv, zeros(cfg.n_layers - P), zeros(cfg.n_layers - P),
                    torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def _with_caches(model: LM, cache: LMCache):
+    """(layer, its k cache, its v cache) for the prefix layers, then the
+    main layers."""
+    out = []
+    if model.prefix:
+        out += zip(model.prefix, cache.prefix_k, cache.prefix_v)
+    return out + list(zip(model.layers, cache.main_k, cache.main_v))
 
 
 @torch.inference_mode()
@@ -335,16 +376,15 @@ def decode_step(model: LM, tokens: torch.Tensor,
     are written IN PLACE into the cache's tensors."""
     cfg = model.cfg
     x = model.embed[tokens]
-    for i, layer in enumerate(model.layers):
-        kv = L.KVCache(cache.main_k[i], cache.main_v[i], cache.length)
+    for layer, k, v in _with_caches(model, cache):
+        kv = L.KVCache(k, v, cache.length)
         h, _ = L.attn_decode_block(layer.attn, cfg,
                                    L.rms_norm(x, layer.ln1, cfg.norm_eps), kv)
         x = x + h
-        x = x + L.mlp_block(layer.mlp, L.rms_norm(x, layer.ln2, cfg.norm_eps))
+        x = x + _ffn(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))[0]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = (x @ lm_head_weight(model)).float()
-    return logits, LMCache(None, None, cache.main_k, cache.main_v,
-                           cache.length + 1)
+    return logits, cache._replace(length=cache.length + 1)
 
 
 @torch.inference_mode()
@@ -362,12 +402,11 @@ def prefill_step(model: LM, tokens: torch.Tensor, *,
     cache = init_cache(cfg, B, max_len, device=model.device)
     x = model.embed[tokens]
     positions = _positions(B, S, x.device)
-    for i, layer in enumerate(model.layers):
-        x, kv = _layer(layer, cfg, x, positions,
-                       L.KVCache(cache.main_k[i], cache.main_v[i],
-                                 cache.length))
-        cache.main_k[i, :, :, :S] = kv.k
-        cache.main_v[i, :, :, :S] = kv.v
+    for layer, k, v in _with_caches(model, cache):
+        x, kv, _ = _layer(layer, cfg, x, positions,
+                          L.KVCache(k, v, cache.length))
+        k[:, :, :S] = kv.k
+        v[:, :, :S] = kv.v
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = (x[:, -1:] @ lm_head_weight(model)).float()
     length = torch.full((B,), S, dtype=torch.int32, device=x.device)

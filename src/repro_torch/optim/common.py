@@ -1,8 +1,9 @@
 """Shared optimizer plumbing. Counterpart of ``repro/optim/common.py``.
 
 Parameters, gradients and updates are flat dicts of tensors keyed by the
-reference's checkpoint paths (``embed``, ``layers/attn/wq``, ...; the
-``layers/*`` leaves stacked over a leading layer axis), so each leaf is the
+reference's checkpoint paths (``embed``, ``layers/attn/wq``,
+``prefix/0/mlp/w_up``, ...; the ``layers/*`` leaves stacked over a leading
+layer axis), so each leaf is the
 reference's leaf, shapes included, and a checkpoint in the JAX key layout
 needs no conversion. Every op runs on the leaves' device.
 """
@@ -20,11 +21,18 @@ class Optimizer(NamedTuple):
     update: Callable[..., Any]     # (grads, state, params) -> (updates, state)
 
 
+def _path_key(key: str):
+    """A key's path parts, a list index (all digits) as its number."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in key.split("/"))
+
+
 def leaf_order(tree: Params) -> List[str]:
     """The keys in the reference's leaf order: ``jax.tree`` flattens a
-    nested dict in sorted key order at each level, which is the order of
-    the keys' path tuples."""
-    return sorted(tree, key=lambda k: tuple(k.split("/")))
+    nested dict in sorted key order at each level and a list (an MoE
+    LM's ``prefix/<i>/...``) in index order, so ``prefix/2`` comes before
+    ``prefix/10``."""
+    return sorted(tree, key=_path_key)
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

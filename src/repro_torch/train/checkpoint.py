@@ -8,8 +8,9 @@ directory and renamed, so a crash mid-save never leaves a partial
 checkpoint. Either package can restore what the other saved.
 
 A tree is a dict, a NamedTuple (its field names are path parts, as
-``jax.tree_util.tree_flatten_with_path`` names them), a tensor or a numpy
-array. A ``TrainState`` therefore flattens to the reference's keys:
+``jax.tree_util.tree_flatten_with_path`` names them), a list or a plain
+tuple (its indices are path parts: an MoE LM's ``prefix`` layers are
+``prefix/0/...``, ``prefix/1/...``), a tensor or a numpy array. A ``TrainState`` therefore flattens to the reference's keys:
 ``params/layers/attn/wq``, ``opt_state/count``, ``opt_state/m/...``,
 ``step``; a crawl state is saved as its flat dict of numpy leaves. bf16
 leaves are written as 2-byte voids, as JAX writes its bfloat16 (JAX's own
@@ -47,6 +48,9 @@ def _items(tree, prefix: str = ""):
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for k, v in zip(tree._fields, tree):
             yield from _items(v, f"{prefix}{k}{_SEP}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _items(v, f"{prefix}{i}{_SEP}")
     else:
         yield prefix[:-len(_SEP)], tree
 
@@ -143,6 +147,9 @@ def _rebuild(tree, data, prefix: str = ""):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_rebuild(v, data, f"{prefix}{k}{_SEP}")
                             for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, data, f"{prefix}{i}{_SEP}")
+                          for i, v in enumerate(tree))
     key = prefix[:-len(_SEP)]
     if key not in data:
         raise KeyError(f"checkpoint missing leaf {key!r}")

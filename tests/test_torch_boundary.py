@@ -128,6 +128,7 @@ def test_kernels_build_nothing_at_import():
 
 
 DENSE_LMS = ("qwen2-1.5b", "phi3-mini-3.8b", "deepseek-coder-33b")
+MOE_LMS = ("deepseek-moe-16b", "arctic-480b")
 
 
 def test_lm_config_classes_mirror_reference():
@@ -150,7 +151,7 @@ def test_lm_config_classes_mirror_reference():
             (j.n_params, j.n_active_params, j.head_dim)
 
 
-@pytest.mark.parametrize("arch", DENSE_LMS + ("webparf",))
+@pytest.mark.parametrize("arch", DENSE_LMS + MOE_LMS + ("webparf",))
 def test_ported_arch_configs_mirror_reference(arch):
     from repro import configs as jconfigs
     from repro_torch import configs as tconfigs
@@ -164,8 +165,7 @@ def test_ported_arch_configs_mirror_reference(arch):
         assert tc.n_params == jc.n_params
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b",
-                                  "gat-cora", "bert4rec", "dien",
+@pytest.mark.parametrize("arch", ["gat-cora", "bert4rec", "dien",
                                   "wide-deep", "dcn-v2"])
 def test_unported_archs_raise(arch):
     from repro.configs import ARCH_NAMES
@@ -175,16 +175,6 @@ def test_unported_archs_raise(arch):
         tconfigs.get_arch(arch)
     with pytest.raises(NotImplementedError, match="slice"):
         tconfigs.get_reduced(arch)
-
-
-def test_moe_lm_raises():
-    from repro_torch.models import layers, transformer
-    cfg = tbase.LMConfig("moe", 2, 64, 4, 2, 128, 256,
-                         moe=tbase.MoEConfig(8, 2, 32))
-    with pytest.raises(NotImplementedError):
-        transformer.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        layers.moe_block(None, cfg, torch.zeros(1, 2, 64), n_groups=1)
 
 
 def test_serve_and_init_lm_need_a_card_by_default():
@@ -280,7 +270,7 @@ def test_training_needs_a_card_by_default():
 
 def test_unported_training_raises():
     """GNN/RecSys training, model parallelism and param resharding name
-    item 18d; MoE names item 18b."""
+    item 18d."""
     from repro_torch.launch import train as ttrain
     from repro_torch.models import recsys
     from repro_torch.optim import adamw
@@ -289,8 +279,6 @@ def test_unported_training_raises():
     for arch in ("gat-cora", "dcn-v2", "bert4rec"):
         with pytest.raises(NotImplementedError, match="18d"):
             ttrain.main(["--arch", arch] + base)
-    with pytest.raises(NotImplementedError, match="18b"):
-        ttrain.main(["--arch", "deepseek-moe-16b"] + base)
     with pytest.raises(NotImplementedError, match="18d"):
         ttrain.main(["--model-parallel", "2"] + base)
     with pytest.raises(NotImplementedError, match="18d"):

@@ -894,3 +894,56 @@ def test_training_on_card_matches_cpu(cuda, tmp_path):
         assert all(a[k].tobytes() == b[k].tobytes() for k in a)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.5])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b"])
+def test_moe_block_on_card_matches_cpu(cuda, arch, factor):
+    """One MoE layer of the reduced model in f32 with the same weights on
+    both devices (TF32 off: it would round the f32 router's products and
+    flip experts): output and aux within 1e-5, the same experts and keep
+    (at factor 0.5 assignments drop), and no host sync on the card (the
+    block runs under torch's sync debug mode set to raise)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers as L
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = scaled(get_reduced(arch), dtype="float32")
+        cfg = scaled(cfg, moe=scaled(cfg.moe, capacity_factor=factor))
+        cpu = L.init_moe(torch.Generator().manual_seed(0), cfg,
+                         torch.float32, "cpu")
+        card = L.MoE(cfg, torch.float32, cuda)
+        with torch.no_grad():
+            for (_, a), (_, b) in zip(card.named_parameters(),
+                                      cpu.named_parameters()):
+                a.copy_(b)
+        x = torch.tensor(np.random.default_rng(1).standard_normal(
+            (4, 64, cfg.d_model)), dtype=torch.float32)
+        routes = {}
+
+        def run(p, x):
+            logits = (x.reshape(-1, cfg.d_model) @ p.router)[None]
+            cap = L.moe_capacity(cfg.moe, logits.shape[1])
+            routes[x.device.type] = [t.cpu() for t in L.moe_dispatch(
+                logits, cfg.moe, cap)[1:4]]
+            return L.moe_block(p, cfg, x)
+        want, want_aux = run(cpu, x)
+        xc = x.to(cuda)
+        L.moe_block(card, cfg, xc)          # warm-up: the first cuBLAS call
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, got_aux = L.moe_block(card, cfg, xc)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        run(card, xc)
+        for a, b in zip(routes["cuda"], routes["cpu"]):
+            assert torch.equal(a, b)
+        assert bool((~routes["cpu"][2]).any()) == (factor == 0.5)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5)
+        assert abs(float(got_aux) - float(want_aux)) <= 1e-5 * float(
+            want_aux)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
