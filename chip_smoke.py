@@ -177,7 +177,41 @@ non-zero):
                1e-4.
      examples — examples/torch_quickstart.py's main on the card, and
                examples/torch_serve_lm.py's (the reduced deepseek-moe-16b:
-               2 flash_attention launches, finite logits).
+               2 flash_attention launches, finite logits); then the train
+               CLI (``launch.train.main``, its default device) for
+               gat-cora and dcn-v2, 10 steps each, finite losses.
+     gnn     — gat-cora at its published config (2 layers, 8 hidden x 8
+               heads, f32, TF32 off), seeded synthetic data:
+               full_graph_sm (2,708 nodes, 10,556 edges, 1,433 features,
+               140 labelled; 10 AdamW steps: losses, ms, peak GiB, a
+               profile of a step with its host syncs), minibatch_lg
+               (synthetic_csr at Reddit's 232,965 nodes and ~109 M edges
+               on the host; a fresh sample_fanout block of 1,024 seeds,
+               fanouts (15, 10), a step, its 602-wide features gathered on
+               the card: the sampler's host ms beside the device step's
+               ms), molecule (gat_batched_loss, 128 graphs of 30 nodes and
+               64 edges); ogb_products is reckoned on a line of its own
+               (its last layer's messages alone are 93.0 GB), not run.
+               Each step beside its bound (bytes over 3.35 TB/s, FLOP
+               over 67 TFLOP/s f32).
+     recsys  — bert4rec, dien, wide-deep and dcn-v2 at their published
+               configs (the full tables), seeded weights, make_batch's
+               batches, one arch at a time: train_batch (4 AdamW steps),
+               serve_p99 (512), serve_bulk (262,144) and retrieval_cand (1
+               x 1,000,000): ms, examples/s, peak GiB, a profile of a
+               train step and of a serve_p99 call (idle share, events, the
+               top three device ops), each beside its bound; a batch is
+               cut by powers of two only while its peak, reckoned from the
+               code, exceeds 64 GB, and each cut is printed with its bytes;
+               retrieval ids valid, every output finite.
+     gnn_recsys_cpu — the five reduced configs in f32 (TF32 off) on the
+               card and the CPU from the same weights and batches: 4 AdamW
+               steps' losses within 1e-4, serve outputs within 1e-5,
+               retrieval ids equal under the tie rule; the same 4 steps
+               again on the card, bit for bit (the first differing leaf
+               named otherwise); run_with_failures for dcn-v2 and gat-cora
+               with a failure at step 3 against the uninterrupted run.
+               No port kernel launches in gnn, recsys (counted).
   6. kernels — each kernel's time (CUDA events; for the crawl kernels also
                in a CUDA graph, warm and cold, by the profiler, and per
                launch inside the profiled crawl; dedup_deposit also on the
@@ -1545,9 +1579,677 @@ def phase_examples():
     if rc != 0 or serve_counts != want:
         raise AssertionError(f"examples: serve_lm returned {rc}, launches "
                              f"{serve_counts}, want {want}")
+    zoo = {arch: dict(zip(("losses", "seconds"), run_train_cli(arch)))
+           for arch in ("gat-cora", "dcn-v2")}
     emit({"phase": "examples", "quickstart": got, "seconds": seconds,
           "launches": counts, "serve_lm_seconds": serve_s,
-          "serve_lm_launches": serve_counts})
+          "serve_lm_launches": serve_counts, "train_cli": zoo})
+
+
+# ---------------------------------------------------------------------------
+# GNN and RecSys: plain PyTorch on the card (their reference reaches no
+# Pallas kernel), in f32 with TF32 off, so their bounds take the f32 rate
+# of the CUDA cores
+# ---------------------------------------------------------------------------
+
+F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+CARD_BYTES = 80e9
+CUT_BUDGET = 0.8 * CARD_BYTES   # a batch is halved while its reckoned peak
+                                # exceeds this (the rest: the allocator's
+                                # slack and what the reckoning leaves out)
+GNN_LR, RECSYS_LR = 5e-3, 1e-3  # the reference's cells (launch/specs.py)
+GNN_STEPS, MINIBATCH_STEPS, MOLECULE_STEPS = 10, 3, 10
+CORA_LABELLED = 140             # Planetoid's labelled nodes of Cora
+RECSYS_ARCHS = ("bert4rec", "dien", "wide-deep", "dcn-v2")
+RECSYS_TRAIN_STEPS = 4
+SERVE_CALLS, BULK_CALLS, RETRIEVAL_CALLS = 5, 2, 3   # the first warms up
+ZOO_CPU_STEPS = 4
+ZOO_LOSS_TOL, ZOO_OUT_TOL = 1e-4, 1e-5
+ZOO_FAIL_AT = (3,)
+
+
+def bound(nbytes, flops):
+    """The least time: bytes over 3.35 TB/s or FLOP over the f32 peak."""
+    b = 1e3 * nbytes / HBM_BYTES_PER_S
+    f = 1e3 * flops / F32_FLOPS
+    return {"bytes": nbytes, "flop": flops, "bytes_ms": b, "flop_ms": f,
+            "bound_ms": max(b, f),
+            "bound_by": "bytes" if b >= f else "operations",
+            "peaks": "3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores (TF32 "
+                     "off)"}
+
+
+def timed_steps(step, state, batch, n):
+    """n train steps, each timed by the host clock up to its loss on the
+    host: (state, losses, ms)."""
+    import torch
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return state, losses, ms
+
+
+def timed_calls(fn, n):
+    """n calls of fn, each timed by the host clock between
+    synchronisations: (the last output, ms)."""
+    import torch
+    ms, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+def top3(prof):
+    """A profile's idle share, events, host syncs and its three device ops
+    that took most time, per call."""
+    rt = prof["runtime_calls_per_call"]
+    return {"device_idle_share": prof["device_idle_share"],
+            "device_events": prof["device_events_per_call"],
+            "device_busy_ms": prof["device_busy_ms_per_call"],
+            "wall_ms": prof["wall_ms_per_call"],
+            "host_syncs": rt.get("cudaStreamSynchronize", 0.0),
+            "top3_device_ms": dict(list(
+                prof["top_device_ms_per_call"].items())[:3])}
+
+
+def finite(*xs):
+    return all(bool(np.isfinite(np.asarray(x, dtype=np.float64)).all())
+               for x in xs)
+
+
+def gat_cost(cfg, N, E, F, C):
+    """A GAT train step's bytes (each layer's input read, its projection
+    and output written, the per-edge gathers and the segment sums'
+    scatters, forward; the backward twice that) and FLOP (3x the
+    forward's)."""
+    dims_in = [F] + [cfg.d_hidden * cfg.n_heads] * (cfg.n_layers - 1)
+    dims_out = [cfg.d_hidden] * (cfg.n_layers - 1) + [C]
+    H, b, f = cfg.n_heads, 0, 0
+    for fi, d in zip(dims_in, dims_out):
+        b += 4 * (N * fi + fi * H * d + 2 * N * H * d    # x, w; h and out
+                  + 4 * E * H + E * H * d                # gathers
+                  + E * H + E * H * d)                   # scatters
+        f += 2 * N * fi * H * d + 4 * N * H * d + 12 * E * H + 2 * E * H * d
+    return bound(3 * b, 3 * f)
+
+
+def gat_graph(rng, N, E, F, C, labelled, dev):
+    """A seeded graph on the device (features N(0, 1), edges uniform)."""
+    import torch
+    from repro_torch.models import gnn as G
+    return G.Graph(
+        torch.tensor(rng.normal(size=(N, F)), dtype=torch.float32,
+                     device=dev),
+        torch.tensor(rng.integers(0, N, E), dtype=torch.int32, device=dev),
+        torch.tensor(rng.integers(0, N, E), dtype=torch.int32, device=dev),
+        torch.ones(E, dtype=torch.bool, device=dev),
+        torch.tensor(rng.integers(0, C, N), dtype=torch.int32, device=dev),
+        torch.tensor(labelled, device=dev))
+
+
+def gat_train(cfg, loss, F, C):
+    """A GAT train step (AdamW at GNN_LR) and its initial state."""
+    from repro_torch.models import gnn as G
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    opt = adamw(lr=GNN_LR)
+    step = make_train_step(lambda p, b: loss(p, cfg, b), opt)
+    return step, init_train_state(G.init_gat(SEED, cfg, F, C, device=DEV),
+                                  opt)
+
+
+def phase_gnn():
+    """gat-cora at its published config (2 layers, 8 hidden x 8 heads,
+    f32) on three of its four shape cells, seeded synthetic data (Cora,
+    Reddit and the molecules are not in the repo): full_graph_sm (GNN_STEPS
+    AdamW steps: loss, ms, peak GiB, host syncs and a profile of a step),
+    minibatch_lg (synthetic_csr at Reddit's size on the host, a fresh
+    sample_fanout block of 1,024 seeds and fanouts (15, 10) a step, its
+    602-wide features gathered on the card: the sampler's host ms beside
+    the device step's ms, a profile of one more step), molecule
+    (gat_batched_loss over 128 graphs);
+    ogb_products is reckoned, not run. Each step beside its bound. No port
+    kernel launches (counts zeroed at the start, read at the end)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import sampler as S
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import gnn as G
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, shapes = get_arch("gat-cora")
+    shapes = {s.name: s for s in shapes}
+    rng = np.random.default_rng(SEED)
+    reset_launches()
+    out = {"phase": "gnn", "config": dataclasses.asdict(cfg),
+           "lr": GNN_LR}
+
+    s = shapes["full_graph_sm"]
+    N, E, F, C = (s[k] for k in ("n_nodes", "n_edges", "d_feat",
+                                 "n_classes"))
+    g = gat_graph(rng, N, E, F, C, np.arange(N) < CORA_LABELLED, DEV)
+    step, state = gat_train(cfg, G.gat_loss, F, C)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, ms = timed_steps(step, state, g, GNN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = top3(profile_device(lambda: step(state, g), 1))
+    out["full_graph_sm"] = {
+        "nodes": N, "edges": E, "d_feat": F, "classes": C,
+        "labelled": CORA_LABELLED, "losses": losses, "step_ms": ms,
+        "peak_gib": peak, "profile_one_step": prof,
+        "host_syncs_per_step": prof["host_syncs"],
+        **gat_cost(cfg, N, E, F, C)}
+    del g, step, state
+    free_card()
+
+    s = shapes["minibatch_lg"]
+    N, F, C = s["n_nodes"], s["d_feat"], s["n_classes"]
+    fan, seeds_n = (s["fanout0"], s["fanout1"]), s["batch_nodes"]
+    t0 = time.perf_counter()
+    csr = S.synthetic_csr(N, round(s["n_edges"] / N), seed=SEED)
+    csr_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    feats = torch.randn((N, F), generator=gen, device=DEV)
+    labels = torch.randint(0, C, (N,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    step, state = gat_train(cfg, G.gat_loss, F, C)
+    srng = np.random.default_rng(SEED + 1)
+    sample_ms, step_ms, losses, blocks = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MINIBATCH_STEPS):
+        t0 = time.perf_counter()
+        seeds = srng.choice(N, seeds_n, replace=False)
+        blk = S.sample_fanout(csr, seeds, fan, rng=srng)
+        sample_ms.append(1e3 * (time.perf_counter() - t0))
+        ids = torch.tensor(blk.node_ids, dtype=torch.long, device=DEV)
+        gb = G.Graph(feats.index_select(0, ids.clamp(min=0)),
+                     torch.tensor(blk.src, device=DEV),
+                     torch.tensor(blk.dst, device=DEV),
+                     torch.tensor(blk.edge_mask, device=DEV),
+                     labels.index_select(0, ids.clamp(min=0)),
+                     torch.tensor(np.isin(blk.node_ids, seeds), device=DEV))
+        state, (loss,), (ms,) = timed_steps(step, state, gb, 1)
+        losses.append(loss)
+        step_ms.append(ms)
+        blocks.append({"nodes": blk.n_valid_nodes,
+                       "edges": int(blk.edge_mask.sum())})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = top3(profile_device(lambda: step(state, gb), 1))
+    out["minibatch_lg"] = {
+        "graph_nodes": N, "graph_edges": int(csr.indptr[-1]),
+        "csr_index_bytes": int(csr.indices.nbytes + csr.indptr.nbytes),
+        "csr_build_host_s": csr_s, "seeds": seeds_n, "fanouts": list(fan),
+        "max_nodes": S._block_max_nodes(seeds_n, fan),
+        "max_edges": S._block_max_edges(seeds_n, fan),
+        "blocks": blocks, "sampler_host_ms": sample_ms,
+        "device_step_ms": step_ms, "losses": losses, "peak_gib": peak,
+        "profile_one_step": prof, **gat_cost(cfg, S._block_max_nodes(seeds_n, fan),
+                   S._block_max_edges(seeds_n, fan), F, C)}
+    del csr, feats, labels, step, state, gb
+    free_card()
+
+    s = shapes["molecule"]
+    B, n, e, F, C = (s[k] for k in ("batch", "n_nodes", "n_edges",
+                                    "d_feat", "n_classes"))
+    shp = lambda *d: (B,) + d
+    gb = G.Graph(
+        torch.tensor(rng.normal(size=shp(n, F)), dtype=torch.float32,
+                     device=DEV),
+        torch.tensor(rng.integers(0, n, shp(e)), dtype=torch.int32,
+                     device=DEV),
+        torch.tensor(rng.integers(0, n, shp(e)), dtype=torch.int32,
+                     device=DEV),
+        torch.ones(shp(e), dtype=torch.bool, device=DEV),
+        torch.tensor(rng.integers(0, C, shp(n)), dtype=torch.int32,
+                     device=DEV),
+        torch.ones(shp(n), dtype=torch.bool, device=DEV))
+    step, state = gat_train(cfg, G.gat_batched_loss, F, C)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, ms = timed_steps(step, state, gb, MOLECULE_STEPS)
+    out["molecule"] = {
+        "graphs": B, "nodes": n, "edges": e, "losses": losses,
+        "step_ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "profile_one_step": top3(profile_device(lambda: step(state, gb), 1)),
+        **gat_cost(cfg, B * n, B * e, F, C)}
+    del gb, step, state
+    free_card()
+
+    s = shapes["ogb_products"]
+    msg = s["n_edges"] * cfg.n_heads * s["n_classes"] * 4
+    emit({"phase": "gnn_ogb_products", "run": False,
+          "last_layer_message_bytes": msg,
+          "reckoning": f"{s['n_edges']} edges x {cfg.n_heads} heads x "
+                       f"{s['n_classes']} classes x 4 B = {msg / 1e9:.1f} GB"
+                       f" of f32 messages in the last layer alone, more "
+                       f"than the card's {CARD_BYTES / 1e9:.0f} GB before "
+                       f"any gradient"})
+    out["launches"] = launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"gnn: port kernels launched {out['launches']}")
+    for cell in ("full_graph_sm", "minibatch_lg", "molecule"):
+        if not finite(out[cell]["losses"]):
+            raise AssertionError(f"gnn: {cell} losses {out[cell]['losses']}")
+    emit(out)
+    return out
+
+
+def is_table(key):
+    return key in ("item", "category", "user", "wide") or \
+        key.startswith("tables/")
+
+
+def recsys_cost(cfg, kind, B, C=0, batch_bytes=0):
+    """The bound of one call at batch B: bytes (the gathered rows, and for
+    a train step their gradients scattered back; the dense weights read,
+    twice in a train step; the batch; a train step adds the table
+    gradients written once and one AdamW pass, p, g, m, v read and p, m,
+    v written: 7 bytes a parameter byte) and FLOP (3x the forward's in a
+    train step). ``C`` candidates for retrieval."""
+    from repro_torch.models import recsys as R
+    shapes = R.param_shapes(cfg)
+    P = 4 * sum(int(np.prod(s)) for s, _ in shapes.values())
+    tables = 4 * sum(int(np.prod(s)) for k, (s, _) in shapes.items()
+                     if is_table(k))
+    dense = P - tables
+    d, k = cfg.embed_dim, cfg.kind
+    if k == "bert4rec":
+        L, H = cfg.seq_len, cfg.n_heads
+        rows = B * L + (B * R.N_MASK + R.N_NEG if kind == "train" else 0)
+        f = cfg.n_blocks * (24 * L * d * d + 4 * L * L * d) * B
+        f += {"train": 2 * B * R.N_MASK * (R.N_NEG + 1) * d,
+              "serve": 2 * B * cfg.tables["item"] * d,
+              "retrieval": 2 * C * d}[kind]
+        row_bytes = 4 * d * rows
+        extra = 4 * cfg.tables["item"] * d if kind == "serve" else 0
+    elif k == "dien":
+        S, gd = cfg.seq_len, cfg.gru_dim
+        rows = B * (2 * S + 3) + 2 * C
+        row_bytes = 4 * d * rows
+        dims = (d + 2 * d + gd,) + tuple(cfg.mlp_dims) + (1,)
+        f = B * (S * (12 * d * gd + 18 * gd * gd) + 2 * S * gd
+                 + 4 * d * gd + sum(2 * a * b for a, b in zip(dims, dims[1:])))
+        f += 4 * C * d
+        extra = 0
+    else:
+        e = cfg.embed_dim
+        if k == "wide_deep":
+            bag = sum(cfg.multi_hot.values())
+            ids = len(cfg.tables) - len(cfg.multi_hot) + bag
+            row_bytes = 4 * (B * (ids * e + R.N_WIDE_CROSS) + C * e)
+            dims = (len(cfg.tables) * e,) + tuple(cfg.mlp_dims) + (1,)
+        else:
+            d0 = cfg.n_dense + cfg.n_sparse * e
+            row_bytes = 4 * (B * cfg.n_sparse * e + C * e)
+            dims = (d0,) + tuple(cfg.mlp_dims)
+            dims_head = cfg.mlp_dims[-1] + d0
+        f = B * sum(2 * a * b for a, b in zip(dims, dims[1:]))
+        if k == "dcn_v2":
+            f += B * (cfg.n_cross_layers * 2 * d0 * d0 + 2 * dims_head)
+        f += 2 * C * e
+        extra = 0
+    if kind == "train":
+        return bound(2 * row_bytes + 2 * dense + tables + 7 * P
+                     + batch_bytes, 3 * f)
+    return bound(row_bytes + dense + extra + batch_bytes, f)
+
+
+def recsys_reckon(cfg, kind, B):
+    """The reckoned peak bytes of one call at batch B, from the code: the
+    parameters (P) and the activations the arch's code holds at once; for
+    a train step the larger of the backward's start (the initial
+    parameters, the state's parameters and AdamW's two moments, 4P, and
+    the saved activations) and the optimizer's end (9P: the functional
+    AdamW holds the old and new moments, the updates, the clipped
+    gradients and the old and new parameters, beside the initial ones;
+    and ~4 temporaries of the largest leaf, its per-leaf arithmetic)."""
+    from repro_torch.models import recsys as R
+    sizes = [4 * int(np.prod(s)) for s, _ in R.param_shapes(cfg).values()]
+    P, big = sum(sizes), max(sizes)
+    d, k = cfg.embed_dim, cfg.kind
+    if k == "bert4rec":
+        L, H = cfg.seq_len, cfg.n_heads
+        att = 4 * B * H * L * L
+        # a block saves ~24 (B, L, d) tensors (the norms' terms, q, k, v,
+        # o, the FFN's 4d hidden twice, the residuals) and its attention
+        # probabilities; the top-k merge holds (B, 16,484) scores, ids
+        # and the sort's buffers
+        if kind == "train":
+            neg = 4 * B * R.N_MASK * (R.N_NEG + 1)
+            act = cfg.n_blocks * (att + 96 * B * L * d) + neg \
+                + max(2 * att, 2 * neg)
+        else:
+            act = 2 * att + 40 * B * L * d + 48 * B * (16384 + 100)
+        parts = {"attention_scores_per_block": att}
+        if kind == "train":
+            parts["negative_logits"] = neg
+    elif k == "dien":
+        S, gd = cfg.seq_len, cfg.gru_dim
+        # a train step saves ~8 state-sized tensors a GRU step and 9 an
+        # AUGRU step, and the stacked states; serving holds the states
+        # twice (list and stack) and the history's rows
+        act = 4 * B * S * ((18 * gd + 4 * d) if kind == "train"
+                           else (2 * gd + 4 * d))
+        parts = {"gru_steps_saved": act}
+    else:
+        e = cfg.embed_dim
+        # a train step saves ~12 floats an example per unit of width (the
+        # rows, the concatenation, the layers' outputs and their
+        # gradients), serving holds ~4
+        width = len(cfg.tables) * e + cfg.n_dense + sum(cfg.mlp_dims)
+        act = 4 * B * (12 if kind == "train" else 4) * width
+        parts = {}
+    total = max(4 * P + act, 9 * P + 4 * big) if kind == "train" \
+        else P + act
+    return {"batch": B, "reckoned_bytes": total, "params_bytes": P,
+            "activations_bytes": act, **parts}
+
+
+def cut_batch(cfg, kind, B):
+    """Halve B while its reckoned peak exceeds CUT_BUDGET: (B, each
+    reckoning)."""
+    steps = [recsys_reckon(cfg, kind, B)]
+    while steps[-1]["reckoned_bytes"] > CUT_BUDGET:
+        if B == 1:
+            raise AssertionError(f"{cfg.name} {kind}: does not fit at "
+                                 f"batch 1: {steps[-1]}")
+        B //= 2
+        steps.append(recsys_reckon(cfg, kind, B))
+    return B, steps
+
+
+def phase_recsys():
+    """bert4rec, dien, wide-deep and dcn-v2 at their published configs
+    (full tables, f32, TF32 off), seeded weights and make_batch's batches,
+    one arch at a time, each freed before the next: train_batch (65,536,
+    cut by powers of two only as far as the reckoned peak forces, each
+    cut printed with its bytes; RECSYS_TRAIN_STEPS AdamW steps: loss, ms,
+    examples/s, peak GiB, a profile of one more step), serve_p99 (512:
+    SERVE_CALLS calls and a profile of one), serve_bulk (262,144, cut as
+    train_batch; BULK_CALLS calls) and retrieval_cand (1 query, 1,000,000
+    candidates: RETRIEVAL_CALLS calls; ids valid, scores descending), each
+    beside its bound; rates from the calls after the first. No port
+    kernel launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    out = {"phase": "recsys", "lr": RECSYS_LR,
+           "cut_budget_bytes": CUT_BUDGET, "archs": {}}
+    for arch in RECSYS_ARCHS:
+        cfg, shapes = get_arch(arch)
+        kind = cfg.kind
+        t0 = time.perf_counter()
+        params = R.INIT[kind](SEED, cfg, device=DEV)
+        torch.cuda.synchronize()
+        rec = {"config": dataclasses.asdict(cfg), "total_rows":
+               cfg.total_rows, "init_s": time.perf_counter() - t0,
+               "params": sum(p.numel() for p in params.values())}
+        for s in shapes:
+            B, cuts = cut_batch(cfg, s.kind, s.get("batch", 1))
+            if len(cuts) > 1:
+                emit({"phase": "recsys_cut", "arch": arch, "cell": s.name,
+                      "reckoned": cuts, "budget_bytes": CUT_BUDGET})
+            shape = ShapeSpec(s.name, s.kind, dict(s.dims, batch=B))
+            batch = R.make_batch(cfg, shape, rng_key=SEED, device=DEV)
+            cell = {"batch": B, "published_batch": s.get("batch", 1),
+                    "reckoned_bytes": cuts[-1]["reckoned_bytes"]}
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in leaves(batch))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if s.kind == "train":
+                opt = adamw(lr=RECSYS_LR)
+                step = make_train_step(
+                    lambda p, b: R.TRAIN_LOSS[kind](p, cfg, b), opt)
+                # no name holds the initial state: its zero moments would
+                # stay alive beside the trained ones
+                state, losses, ms = timed_steps(
+                    step, init_train_state(params, opt), batch,
+                    RECSYS_TRAIN_STEPS)
+                cell.update(losses=losses, step_ms=ms,
+                            examples_per_s=1e3 * B / float(
+                                np.median(ms[1:])))
+                cell["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                cell["profile_one_step"] = top3(profile_device(
+                    lambda: step(state, batch), 1))
+                if not finite(losses):
+                    raise AssertionError(f"recsys {arch}: losses {losses}")
+                del state, step, opt
+                cost = recsys_cost(cfg, "train", B, batch_bytes=nbytes)
+            else:
+                fn = R.SERVE[kind] if s.kind == "serve" else R.RETRIEVAL[kind]
+                n = (BULK_CALLS if s.name == "serve_bulk" else SERVE_CALLS
+                     if s.kind == "serve" else RETRIEVAL_CALLS)
+                with torch.no_grad():
+                    got, ms = timed_calls(lambda: fn(params, cfg, batch), n)
+                    if s.name == "serve_p99":
+                        cell["profile_one_call"] = top3(profile_device(
+                            lambda: fn(params, cfg, batch), 1))
+                cell.update(call_ms=ms, examples_per_s=1e3 * B / float(
+                    np.median(ms[1:])))
+                cell["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                scores = got[0] if isinstance(got, tuple) else got
+                if not bool(torch.isfinite(scores).all()):
+                    raise AssertionError(f"recsys {arch} {s.name}: "
+                                         f"non-finite output")
+                if isinstance(got, tuple):
+                    hi = s["n_candidates"] if s.kind == "retrieval" \
+                        else cfg.tables["item"]
+                    ids = got[1]
+                    ok = bool(((ids >= 0) & (ids < hi)).all()) and bool(
+                        (scores[:, 1:] <= scores[:, :-1]).all())
+                    if not ok:
+                        raise AssertionError(f"recsys {arch} {s.name}: "
+                                             f"ids or order invalid")
+                    cell["ids_valid"] = True
+                cost = recsys_cost(cfg, s.kind, B, s.get("n_candidates", 0),
+                                   nbytes)
+                del got
+            cell.update(cost)
+            times = cell.get("step_ms", cell.get("call_ms"))[1:]
+            cell["ms_over_bound"] = float(np.median(times)) / \
+                cost["bound_ms"]
+            rec[s.name] = cell
+            del batch
+            free_card()
+        out["archs"][arch] = rec
+        emit({"phase": "recsys_arch", "arch": arch, **rec})
+        del params
+        free_card()
+    out["launches"] = launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"recsys: port kernels launched "
+                             f"{out['launches']}")
+    emit({"phase": "recsys", "launches": out["launches"]})
+    return out
+
+
+def zoo_cases():
+    """The five reduced GNN/RecSys configs: (arch, loss, serve, retrieval
+    or None, params on the CPU, train, serve and retrieval batches as
+    numpy trees)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    rng = np.random.default_rng(SEED)
+    N, E, F, C = 96, 384, 16, 5
+    g = G.Graph(rng.normal(size=(N, F)).astype(np.float32),
+                rng.integers(0, N, E).astype(np.int32),
+                rng.integers(0, N, E).astype(np.int32), rng.random(E) < 0.9,
+                rng.integers(0, C, N).astype(np.int32), rng.random(N) < 0.5)
+    cfg = get_reduced("gat-cora")
+    yield ("gat-cora", lambda p, b, c=cfg: G.gat_loss(p, c, b),
+           lambda p, b, c=cfg: G.gat_forward(p, c, b), None,
+           G.init_gat(SEED, cfg, F, C, device="cpu"), g, g, None)
+    for arch in RECSYS_ARCHS:
+        cfg = get_reduced(arch)
+        k = cfg.kind
+        mk = lambda kind, **d: R.make_batch(
+            cfg, ShapeSpec(kind, kind, d), rng_key=SEED, numpy=True)
+        yield (arch, lambda p, b, c=cfg: R.TRAIN_LOSS[c.kind](p, c, b),
+               lambda p, b, c=cfg: R.SERVE[c.kind](p, c, b),
+               lambda p, b, c=cfg: R.RETRIEVAL[c.kind](p, c, b),
+               R.INIT[k](SEED, cfg, device="cpu"), mk("train", batch=32),
+               mk("serve", batch=16),
+               mk("retrieval", batch=1, n_candidates=4096))
+
+
+def leaves(x):
+    """The tensors of a batch (a dict, possibly nested)."""
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from leaves(v)
+    else:
+        yield x
+
+
+def ids_under_tie_rule(want_s, want_i, got_s, got_i, ulp=4):
+    """Ids equal where the reference's neighbouring scores are more than
+    ``ulp`` apart, equal as sets inside a run of near-ties (a run that
+    reaches the last rank holds only its scores)."""
+    ws = np.asarray(want_s, np.float32)
+    for r in range(ws.shape[0]):
+        key = ws[r].view(np.int32).astype(np.int64)
+        key = np.where(key < 0, -(2**31) - key, key)
+        lo, k = 0, ws.shape[1]
+        while lo < k:
+            hi = lo + 1
+            while hi < k and abs(key[hi] - key[hi - 1]) <= ulp:
+                hi += 1
+            if hi < k and sorted(want_i[r, lo:hi]) != sorted(
+                    got_i[r, lo:hi]):
+                return False
+            lo = hi
+    return True
+
+
+def phase_gnn_recsys_cpu():
+    """The five reduced GNN/RecSys configs in f32 (TF32 off) on the card
+    and on the CPU from the same weights and batches: ZOO_CPU_STEPS AdamW
+    steps' losses within ZOO_LOSS_TOL, the serve outputs within
+    ZOO_OUT_TOL, the retrieval scores within ZOO_OUT_TOL and their ids
+    equal under the tie rule. Then, on the card, the same steps run a
+    second time (every leaf compared bit for bit; the first leaf that
+    differs is named) and, for dcn-v2 and gat-cora, run_with_failures
+    with a failure at step 3 against the uninterrupted run (bit for bit,
+    else the largest difference)."""
+    import shutil
+    import torch
+    from repro_torch.models.recsys import to_device as tree_to
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"phase": "gnn_recsys_cpu", "steps": ZOO_CPU_STEPS,
+           "loss_tolerance": ZOO_LOSS_TOL, "out_tolerance": ZOO_OUT_TOL,
+           "archs": {}}
+    for arch, loss, serve, retr, params, tb, sb, rb in zoo_cases():
+        step = make_train_step(loss, adamw(lr=RECSYS_LR))
+
+        def start(dev):
+            return (init_train_state({k: v.to(dev) for k, v in
+                                      params.items()}, adamw(lr=RECSYS_LR)),
+                    tree_to(tb, dev))
+
+        def run(dev):
+            st, b = start(dev)
+            losses = []
+            for _ in range(ZOO_CPU_STEPS):
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+            with torch.no_grad():
+                p = {k: v.to(dev) for k, v in params.items()}
+                sv = serve(p, tree_to(sb, dev))
+                rt = retr(p, tree_to(rb, dev)) if retr else None
+            return st, losses, sv, rt
+        card, cpu, again = run(DEV), run("cpu"), run(DEV)
+        rec = {"losses_cuda": card[1], "losses_cpu": cpu[1],
+               "max_loss_err": max(abs(a - b) for a, b in
+                                   zip(card[1], cpu[1]))}
+        sv_c, sv_h = (x[0] if isinstance(x, tuple) else x
+                      for x in (card[2], cpu[2]))
+        rec["serve_max_abs_err"] = float((sv_c.cpu() - sv_h).abs().max())
+        if isinstance(card[2], tuple):
+            rec["serve_ids_tie_rule"] = ids_under_tie_rule(
+                cpu[2][0].numpy(), cpu[2][1].numpy(),
+                card[2][0].cpu().numpy(), card[2][1].cpu().numpy())
+        if retr:
+            rec["retrieval_max_abs_err"] = float(
+                (card[3][0].cpu() - cpu[3][0]).abs().max())
+            rec["retrieval_ids_tie_rule"] = ids_under_tie_rule(
+                cpu[3][0].numpy(), cpu[3][1].numpy(),
+                card[3][0].cpu().numpy(), card[3][1].cpu().numpy())
+        a, b = ckpt.flatten(card[0]), ckpt.flatten(again[0])
+        differ = [k for k in sorted(a) if a[k].tobytes() != b[k].tobytes()]
+        rec["rerun_bitwise_equal"] = not differ
+        rec["rerun_first_differing_leaf"] = differ[0] if differ else None
+        if arch in ("dcn-v2", "gat-cora"):
+            ckpt_dir = ROOT / "build" / "zoo_ckpt"
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            st, bt = start(DEV)
+            try:
+                replayed = fault.run_with_failures(
+                    step, st, [bt] * ZOO_CPU_STEPS, ckpt_dir=str(ckpt_dir),
+                    ckpt_every=2, plan=fault.FailurePlan(
+                        fail_at=ZOO_FAIL_AT))
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            r = ckpt.flatten(replayed)
+            diff = max(float(np.abs(r[k].astype(np.float64)
+                                    - a[k].astype(np.float64)).max())
+                       for k in a)
+            rec["replay"] = {"fail_at": list(ZOO_FAIL_AT),
+                             "bitwise_equal": all(
+                                 r[k].tobytes() == a[k].tobytes()
+                                 for k in a),
+                             "max_abs_diff": diff}
+        bad = (rec["max_loss_err"] > ZOO_LOSS_TOL
+               or rec["serve_max_abs_err"] > ZOO_OUT_TOL
+               or rec.get("retrieval_max_abs_err", 0) > ZOO_OUT_TOL
+               or not rec.get("retrieval_ids_tie_rule", True)
+               or not rec.get("serve_ids_tie_rule", True)
+               or not finite(card[1]))
+        if bad:
+            raise AssertionError(f"gnn_recsys_cpu {arch}: {rec}")
+        out["archs"][arch] = rec
+    emit(out)
+    return out
+
+
+def run_train_cli(arch, steps=10):
+    """``python -m repro_torch.launch.train --arch <arch>`` on the card
+    (its default device): (the losses it printed, seconds)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["--arch", arch, "--steps", str(steps),
+                         "--log-every", "1"])
+    losses = [float(line.split()[-1]) for line in buf.getvalue().splitlines()
+              if line.startswith("step")]
+    if rc != 0 or len(losses) != steps or not finite(losses):
+        raise AssertionError(f"examples: train CLI {arch}: rc {rc}, "
+                             f"output {buf.getvalue()!r}")
+    return losses, time.perf_counter() - t0
 
 
 # the MoE LM family: DeepSeekMoE-16B at its published config (28 layers, 1
@@ -4074,6 +4776,12 @@ def main() -> int:
     free_card()
     moe_f32 = phase_moe_cpu()
     phase_examples()
+    free_card()
+    phase_gnn()
+    free_card()
+    phase_recsys()
+    free_card()
+    phase_gnn_recsys_cpu()
     tc_row["max_abs_err"] = max(tc_row["max_abs_err"], err_moe, err_arctic)
     tc_row["launches_per_moe_prefill"] = {
         MOE_ARCH: counts_moe["flash_attention_tc"],

@@ -1,12 +1,12 @@
 """The configurations of the PyTorch port.
 
 Copies of ``repro.configs.base``'s ``ShapeSpec``, ``LM_SHAPES``,
-``CRAWL_SHAPES``, ``MoEConfig``, ``LMConfig`` and ``CrawlConfig`` (field
-names and defaults are held equal by tests/test_torch_boundary.py): the port
-keeps its own copies so it imports nothing of the JAX package. The crawl
-family and the LM family, dense and MoE (``MoEConfig``, the layers of
-``models/layers.py``'s ``moe_block``), are ported. The GNN and RecSys config
-classes stay with the JAX package.
+``GNN_SHAPES``, ``RECSYS_SHAPES``, ``CRAWL_SHAPES``, ``MoEConfig``,
+``LMConfig``, ``GNNConfig``, ``RecSysConfig`` and ``CrawlConfig`` (field
+names, defaults and shape dims are held equal by
+tests/test_torch_boundary.py): the port keeps its own copies so it imports
+nothing of the JAX package. Every family is ported: the crawl, the LMs
+(dense and MoE), the GAT and the four RecSys models.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ from typing import Dict, Optional, Tuple
 @dataclass(frozen=True)
 class ShapeSpec:
     """One (arch x shape) cell; ``kind`` names the step it drives (lm:
-    "train", "prefill", "decode")."""
+    "train", "prefill", "decode"; gnn: "full_graph", "minibatch",
+    "batched_graphs"; recsys: "train", "serve", "retrieval")."""
     name: str
     kind: str
     dims: Dict[str, int] = field(default_factory=dict)
@@ -39,6 +40,25 @@ LM_SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
     ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
     ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
+
+GNN_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("full_graph_sm", "full_graph",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    ShapeSpec("minibatch_lg", "minibatch",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout0=15, fanout1=10, d_feat=602, n_classes=41)),
+    ShapeSpec("ogb_products", "full_graph",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100, n_classes=47)),
+    ShapeSpec("molecule", "batched_graphs",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=16, n_classes=2)),
+)
+
+RECSYS_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_batch", "train", dict(batch=65536)),
+    ShapeSpec("serve_p99", "serve", dict(batch=512)),
+    ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+    ShapeSpec("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1_000_000)),
 )
 
 CRAWL_SHAPES: Tuple[ShapeSpec, ...] = (
@@ -119,6 +139,55 @@ class LMConfig:
         act_moe = (m.top_k + m.n_shared) * 3 * d * m.d_ff_expert
         n_moe_layers = self.n_layers - self.first_k_dense
         return self.n_params - n_moe_layers * (full_moe - act_moe)
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    n_heads: int
+    aggregator: str = "attn"     # GAT edge-softmax attention
+    family: str = "gnn"
+    attn_dropout: float = 0.6    # not applied, as in the reference
+    negative_slope: float = 0.2
+    dtype: str = "float32"
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    kind: str                    # "bert4rec" | "dien" | "wide_deep" | "dcn_v2"
+    embed_dim: int
+    family: str = "recsys"
+    # sequential models
+    seq_len: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    gru_dim: int = 0
+    # tabular models
+    n_dense: int = 0
+    n_sparse: int = 0
+    n_cross_layers: int = 0
+    mlp_dims: Tuple[int, ...] = ()
+    # embedding tables: (table_name -> n_rows); the lookup is the hot path
+    tables: Dict[str, int] = field(default_factory=dict)
+    # multi-hot fields use an embedding bag; bag size per field
+    multi_hot: Dict[str, int] = field(default_factory=dict)
+    dtype: str = "float32"
+    interaction: str = ""
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.tables.values())
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,2 @@
-"""Crawl -> training-data pipeline (``pipeline``). The GNN sampler
-(``repro/data/sampler.py``) comes with the GNN/RecSys slice (ROADMAP
-Queue 1, item 18d)."""
+"""Crawl -> training-data pipeline (``pipeline``) and the GNN fanout
+sampler (``sampler``)."""

@@ -8,6 +8,8 @@ substrate:
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 50                                    # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu
 
 Without ``--full`` the arch's ``reduced()`` config runs, in f32; ``--full``
@@ -15,10 +17,12 @@ is the published config (bf16, remat on). Every LM arch trains, dense or
 MoE (the MoE aux loss is part of the loss); ``--full`` of an MoE arch is
 not refused, but its weights and AdamW state (16.4 B parameters for
 deepseek-moe-16b, ~300 GB) exceed one card's memory. Weights are drawn from
-``--seed``. It runs on cuda unless ``--device cpu`` is given, and raises
-when no card is present. Only the LM family trains here: the GNN and
-RecSys archs come with ROADMAP Queue 1, item 18d, and so does
-``--model-parallel`` other than 1.
+``--seed``. The GAT trains on a seeded graph of 256 nodes, a RecSys arch on
+``recsys.make_batch``'s batch of ``--batch`` examples, each with AdamW at
+``--lr``, as the reference's ``train_other``. It runs on cuda unless
+``--device cpu`` is given, and raises when no card is present.
+``--model-parallel`` other than 1 waits for the sharding decisions of
+ROADMAP Queue 1, item 18d.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.configs import get_arch, get_reduced
 from repro_torch.configs.base import scaled
 from repro_torch.device import resolve_device
 
-_LATER = "ROADMAP Queue 1, item 18d"
+_SHARDING = "the sharding decisions of ROADMAP Queue 1, item 18d"
 
 
 def crawl_corpus(crawl_cfg, steps: int, device=None):
@@ -54,8 +58,7 @@ def train_lm(args, cfg=None):
     if args.model_parallel != 1:
         raise NotImplementedError(
             f"--model-parallel {args.model_parallel}: the port trains on "
-            f"one card; model parallelism comes with the sharding "
-            f"decisions of {_LATER}")
+            f"one card; model parallelism comes with {_SHARDING}")
     if cfg is None:
         cfg = get_arch(args.arch)[0] if args.full else get_reduced(args.arch)
         if not args.full:
@@ -102,8 +105,53 @@ def train_lm(args, cfg=None):
 
 
 def train_other(args):
-    raise NotImplementedError(
-        f"arch {args.arch!r}: GNN and RecSys training come with {_LATER}")
+    """The GAT or a RecSys model, trained on a seeded batch; returns the
+    final ``TrainState``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)[0] if args.full else get_reduced(args.arch)
+    if cfg.family == "gnn":
+        rng = np.random.default_rng(args.seed)
+        N, E, F, C = 256, 1024, 32, 7
+        batch = G.Graph(
+            features=torch.tensor(rng.normal(size=(N, F)),
+                                  dtype=torch.float32, device=dev),
+            src=torch.tensor(rng.integers(0, N, E), dtype=torch.int32,
+                             device=dev),
+            dst=torch.tensor(rng.integers(0, N, E), dtype=torch.int32,
+                             device=dev),
+            edge_mask=torch.ones(E, dtype=torch.bool, device=dev),
+            labels=torch.tensor(rng.integers(0, C, N), dtype=torch.int32,
+                                device=dev),
+            label_mask=torch.tensor(rng.random(N) < 0.3, device=dev))
+        params = G.init_gat(args.seed, cfg, F, C, device=dev)
+        loss_fn = lambda p, b: G.gat_loss(p, cfg, b)
+    else:
+        params = R.INIT[cfg.kind](args.seed, cfg, device=dev)
+        batch = R.make_batch(cfg, ShapeSpec("t", "train",
+                                            dict(batch=args.batch)),
+                             device=dev)
+        loss_fn = lambda p, b: R.TRAIN_LOSS[cfg.kind](p, cfg, b)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"{args.arch}: {n_params / 1e6:.2f}M params "
+          f"(reduced={not args.full}) on {dev}")
+
+    opt = adamw(lr=args.lr)
+    step = make_train_step(loss_fn, opt)
+    state = init_train_state(params, opt)
+    for i in range(1, args.steps + 1):
+        state, m = step(state, batch)
+        if i % args.log_every == 0:
+            print(f"step {i:5d}  loss {float(m['loss']):.4f}")
+    print(f"final loss {float(m['loss']):.4f}")
+    return state
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -35,6 +35,24 @@ def leaf_order(tree: Params) -> List[str]:
     return sorted(tree, key=_path_key)
 
 
+def params_from_numpy(flat: Dict[str, Any], shapes: Dict[str, Tuple[int, ...]],
+                      *, name: str, device) -> Params:
+    """Flat, path-keyed numpy leaves (the reference's checkpoint form) as
+    f32 tensors on ``device``; their keys and shapes must be ``shapes``'."""
+    import numpy as np
+    if set(flat) != set(shapes):
+        raise KeyError(f"{name}: checkpoint keys differ: missing "
+                       f"{sorted(set(shapes) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(shapes))}")
+    out = {}
+    for k, shape in shapes.items():
+        a = np.asarray(flat[k])
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{k}: want {tuple(shape)}, got {a.shape}")
+        out[k] = torch.from_numpy(a.astype(np.float32)).to(device)
+    return out
+
+
 def apply_updates(params: Params, updates: Params) -> Params:
     """An f32 add, then a cast back to each parameter's dtype."""
     return {k: (p.float() + updates[k]).to(p.dtype)

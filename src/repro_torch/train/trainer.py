@@ -3,7 +3,7 @@ accumulation (microbatches), metrics, and a pluggable loss and optimizer.
 Counterpart of ``repro/train/trainer.py``.
 
 Parameters are a flat dict of tensors in the reference's checkpoint form
-(``transformer.stack_params``, ``recsys.init_mlp_params``); the step makes
+(``transformer.stack_params``, ``gnn.init_gat``, ``recsys.INIT``); the step makes
 them leaves that require grad, takes ``torch.autograd.grad`` of the loss,
 and updates them without gradients. A step's metrics stay on the device:
 reading one (``float(m["loss"])``) waits for it.

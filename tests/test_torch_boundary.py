@@ -1,6 +1,6 @@
 """The port's boundaries: it imports nothing of JAX or of the JAX package,
 its config mirrors the reference's, what earlier slices refused now runs,
-and what it does not cover yet raises."""
+and what it does not cover yet (the sharding decisions) raises."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -151,7 +151,11 @@ def test_lm_config_classes_mirror_reference():
             (j.n_params, j.n_active_params, j.head_dim)
 
 
-@pytest.mark.parametrize("arch", DENSE_LMS + MOE_LMS + ("webparf",))
+GNN_RECSYS = ("gat-cora", "bert4rec", "dien", "wide-deep", "dcn-v2")
+
+
+@pytest.mark.parametrize("arch", DENSE_LMS + MOE_LMS + GNN_RECSYS
+                         + ("webparf",))
 def test_ported_arch_configs_mirror_reference(arch):
     from repro import configs as jconfigs
     from repro_torch import configs as tconfigs
@@ -161,20 +165,60 @@ def test_ported_arch_configs_mirror_reference(arch):
         dataclasses.asdict(jconfigs.get_reduced(arch))
     assert [dataclasses.asdict(s) for s in ts] == \
         [dataclasses.asdict(s) for s in js]
-    if arch != "webparf":
+    if tc.family == "lm":
         assert tc.n_params == jc.n_params
+    if tc.family == "recsys":
+        assert tc.total_rows == jc.total_rows
 
 
-@pytest.mark.parametrize("arch", ["gat-cora", "bert4rec", "dien",
-                                  "wide-deep", "dcn-v2"])
+@pytest.mark.parametrize("arch", GNN_RECSYS)
 def test_unported_archs_raise(arch):
-    from repro.configs import ARCH_NAMES
+    """The GNN and RecSys archs earlier slices refused are ported: each
+    resolves, mirrors the reference's config and shapes, and its shape
+    cells resolve by name."""
+    from repro import configs as jconfigs
     from repro_torch import configs as tconfigs
-    assert arch in ARCH_NAMES
-    with pytest.raises(NotImplementedError, match="slice"):
-        tconfigs.get_arch(arch)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tconfigs.get_reduced(arch)
+    assert arch in tconfigs.ARCH_NAMES and arch in jconfigs.ARCH_NAMES
+    (tc, ts), (jc, js) = tconfigs.get_arch(arch), jconfigs.get_arch(arch)
+    assert type(tc).__name__ == type(jc).__name__
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert dataclasses.asdict(tconfigs.get_reduced(arch)) == \
+        dataclasses.asdict(jconfigs.get_reduced(arch))
+    for s in js:
+        assert dataclasses.asdict(tconfigs.get_shape(arch, s.name)) == \
+            dataclasses.asdict(s)
+    with pytest.raises(KeyError, match="no shape"):
+        tconfigs.get_shape(arch, "nope")
+
+
+def test_gnn_recsys_config_classes_mirror_reference():
+    """GNNConfig, RecSysConfig (with ``total_rows``), GNN_SHAPES,
+    RECSYS_SHAPES and the registry's 40 cells, field for field."""
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert fields(tbase.GNNConfig) == fields(jbase.GNNConfig)
+    assert [(f.name, f.default_factory() if f.default_factory
+             is not dataclasses.MISSING else f.default)
+            for f in dataclasses.fields(tbase.RecSysConfig)] == \
+        [(f.name, f.default_factory() if f.default_factory
+          is not dataclasses.MISSING else f.default)
+         for f in dataclasses.fields(jbase.RecSysConfig)]
+    for name in ("GNN_SHAPES", "RECSYS_SHAPES"):
+        assert [dataclasses.asdict(s) for s in getattr(tbase, name)] == \
+            [dataclasses.asdict(s) for s in getattr(jbase, name)]
+    t = tbase.RecSysConfig("x", "dien", 8, tables=dict(a=3, b=4))
+    assert t.total_rows == jbase.RecSysConfig(
+        "x", "dien", 8, tables=dict(a=3, b=4)).total_rows == 7
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
+    assert tconfigs.all_cells() == jconfigs.all_cells()
+    assert len(tconfigs.all_cells()) == 40
+    covered = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/gnn.py", "src/repro_torch/models/recsys.py",
+            "src/repro_torch/data/sampler.py",
+            "src/repro_torch/models/segment.py"} <= covered
 
 
 def test_serve_and_init_lm_need_a_card_by_default():
@@ -269,27 +313,36 @@ def test_training_needs_a_card_by_default():
 
 
 def test_unported_training_raises():
-    """GNN/RecSys training, model parallelism and param resharding name
-    item 18d."""
+    """Model parallelism and param resharding still name item 18d (the
+    sharding decisions). GNN/RecSys training, which this test once
+    refused, now trains, and every name of the reference's recsys module
+    resolves."""
+    from repro.models import recsys as jrecsys
     from repro_torch.launch import train as ttrain
     from repro_torch.models import recsys
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import make_train_step
     base = ["--steps", "1", "--crawl-steps", "1", "--device", "cpu"]
     for arch in ("gat-cora", "dcn-v2", "bert4rec"):
-        with pytest.raises(NotImplementedError, match="18d"):
-            ttrain.main(["--arch", arch] + base)
+        assert ttrain.main(["--arch", arch] + base) == 0
     with pytest.raises(NotImplementedError, match="18d"):
         ttrain.main(["--model-parallel", "2"] + base)
-    with pytest.raises(NotImplementedError, match="18d"):
-        ttrain.train_other(ttrain.build_parser().parse_args(
-            ["--arch", "dcn-v2"]))
+    state = ttrain.train_other(ttrain.build_parser().parse_args(
+        ["--arch", "dcn-v2"] + base))
+    assert int(state.step) == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ttrain.train_other(ttrain.build_parser().parse_args(
+                ["--arch", "dcn-v2", "--steps", "1"]))
     with pytest.raises(NotImplementedError, match="18d"):
         make_train_step(lambda p, b: 0, adamw(),
                         param_resharding=lambda p: p)
-    for name in ("INIT", "TRAIN_LOSS", "make_batch", "init_dcn_v2",
-                 "chunked_topk_scores"):
-        with pytest.raises(NotImplementedError, match="18d"):
-            getattr(recsys, name)
+    public = [n for n in vars(jrecsys) if not n.startswith("__")
+              and n not in ("annotations", "math", "partial", "jax", "jnp",
+                            "lax", "opt_barrier", "shard_map", "RecSysConfig",
+                            "Any", "Dict", "NamedTuple", "Optional",
+                            "Tuple", "Params")]
+    missing = [n for n in public if not hasattr(recsys, n)]
+    assert not missing, missing
     with pytest.raises(AttributeError):
         recsys.no_such_name

@@ -947,3 +947,76 @@ def test_moe_block_on_card_matches_cpu(cuda, arch, factor):
             want_aux)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+GNN_RECSYS = ("gat-cora", "bert4rec", "dien", "wide-deep", "dcn-v2")
+
+
+def zoo_case(arch):
+    """A reduced GNN/RecSys arch's (loss, serve, params on the CPU, train
+    batch, serve batch), the batches as numpy trees."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    cfg = get_reduced(arch)
+    if cfg.family == "gnn":
+        rng = np.random.default_rng(3)
+        N, E, F, C = 64, 256, 16, 4
+        g = G.Graph(rng.normal(size=(N, F)).astype(np.float32),
+                    rng.integers(0, N, E).astype(np.int32),
+                    rng.integers(0, N, E).astype(np.int32),
+                    rng.random(E) < 0.9,
+                    rng.integers(0, C, N).astype(np.int32),
+                    rng.random(N) < 0.5)
+        return (lambda p, b: G.gat_loss(p, cfg, b),
+                lambda p, b: G.gat_forward(p, cfg, b),
+                G.init_gat(0, cfg, F, C, device="cpu"), g, g)
+    shape = lambda kind, b: ShapeSpec(kind, kind, dict(batch=b))
+    return (lambda p, b: R.TRAIN_LOSS[cfg.kind](p, cfg, b),
+            lambda p, b: R.SERVE[cfg.kind](p, cfg, b),
+            R.INIT[cfg.kind](0, cfg, device="cpu"),
+            R.make_batch(cfg, shape("train", 16), numpy=True),
+            R.make_batch(cfg, shape("serve", 8), rng_key=1, numpy=True))
+
+
+@pytest.mark.parametrize("arch", GNN_RECSYS)
+def test_gnn_recsys_on_card_match_cpu(cuda, arch):
+    """The reduced arch in f32 (TF32 off) from the same weights and batches
+    on both devices: 4 AdamW steps' losses within 1e-4, the serve outputs
+    within 1e-5 (BERT4Rec: its top-k scores, and each id valid); then the
+    same 4 steps again on the card, equal to the first run bit for bit
+    (the fixed-order gathers and segment sums of models/segment.py)."""
+    from repro_torch.models.recsys import to_device as tree_to
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss, serve, params, tb, sb = zoo_case(arch)
+        step = make_train_step(loss, adamw(lr=1e-3))
+        runs = []
+        for dev in (cuda, torch.device("cpu"), cuda):
+            st = init_train_state({k: v.to(dev) for k, v in params.items()},
+                                  adamw(lr=1e-3))
+            b, losses = tree_to(tb, dev), []
+            for _ in range(4):
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+            with torch.no_grad():
+                out = serve({k: v.to(dev) for k, v in params.items()},
+                            tree_to(sb, dev))
+            runs.append((losses, st, out))
+        (lc, sc, oc), (lh, _, oh), (_, s2, _) = runs
+        np.testing.assert_allclose(lc, lh, rtol=0, atol=1e-4)
+        oc, oh = (o[0] if isinstance(o, tuple) else o for o in (oc, oh))
+        np.testing.assert_allclose(oc.cpu().numpy(), oh.numpy(), rtol=0,
+                                   atol=1e-5)
+        if isinstance(runs[0][2], tuple):
+            ids = runs[0][2][1]
+            assert bool(((ids >= 0) & (ids < 512)).all())
+        a, b = ckpt.flatten(sc), ckpt.flatten(s2)
+        assert [k for k in a if a[k].tobytes() != b[k].tobytes()] == []
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
