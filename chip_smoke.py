@@ -201,8 +201,9 @@ non-zero):
                x 1,000,000): ms, examples/s, peak GiB, a profile of a
                train step and of a serve_p99 call (idle share, events, the
                top three device ops), each beside its bound; a batch is
-               cut by powers of two only while its peak, reckoned from the
-               code, exceeds 64 GB, and each cut is printed with its bytes;
+               cut by powers of two only while its peak, reckoned by the
+               dry run on meta (launch/dryrun.py), exceeds 60 GiB (3/4 of
+               the card), and each cut is printed with its bytes;
                retrieval ids valid, every output finite.
      gnn_recsys_cpu — the five reduced configs in f32 (TF32 off) on the
                card and the CPU from the same weights and batches: 4 AdamW
@@ -212,6 +213,29 @@ non-zero):
                named otherwise); run_with_failures for dcn-v2 and gat-cora
                with a failure at step 3 against the uninterrupted run.
                No port kernel launches in gnn, recsys (counted).
+     moe_groups — DeepSeekMoE-16B at full width (bf16, 4 x 2048 + 32
+               tokens) served with no mesh and under activation_mesh
+               shapes (4, 1) and (2, 2), where each (data, model) block of
+               tokens routes as a group with its own capacity (the
+               reference's _moe_spmd): layers 0 and 27 held to the plain
+               attention, 28 flash_attention_tc a prefill, prefill ms,
+               decode ms a token, groups and drop shares side by side;
+               the reduced grouped MoE on the card against the CPU (1e-4,
+               routes equal, drops at 0.5); a checkpoint in the
+               reference's format restored and reshard()ed onto the card
+               bit for bit, then a step under (2, 4) on both devices.
+     trace_labels — REPRO_TRACE_KERNELS=1: a profiled CLI-sized crawl
+               (opic_url, backlink) has one kernel/<family>.cuda range per
+               launch of each launched kernel and no other.
+     dryrun  — ``python -m repro_torch.launch.dryrun --all`` (the 40 cells
+               and the crawl cell reckoned on meta, no card): one line a
+               cell (fits, peak GiB, FLOP, bound ms); then the cells this
+               script runs (Qwen2-1.5B prefill 4 x 2048 + 32 and train
+               4 x 4096, DeepSeekMoE-16B prefill, Arctic at 2 layers, the
+               three GAT cells, the four RecSys trains at their cut
+               batches, CONFIG's crawl at 1 and 4 shards) reckoned on meta
+               and run once on the card from zeros: reckoned peak within
+               15% of torch.cuda.max_memory_allocated.
   6. kernels — each kernel's time (CUDA events; for the crawl kernels also
                in a CUDA graph, warm and cold, by the profiler, and per
                launch inside the profiled crawl; dedup_deposit also on the
@@ -249,7 +273,15 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+sys.path.insert(0, str(ROOT / "src"))
+# the card's rates and the reckoners of a run's bound: one copy, the port's
+from repro_torch.launch.dryrun import (cut_batch, gat_cost,  # noqa: E402
+                                       moe_bounds, recsys_cost, tensors)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import HBM_BYTES  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as H100_BF16_FLOPS  # noqa
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as H100_F32_FLOPS  # noqa
+from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as H100_TF32_FLOPS  # noqa
 SEED = 0
 DEV = "cuda"
 SCORE_ULP = 2                       # served TF-IDF scores, card vs CPU
@@ -942,9 +974,6 @@ def phase_flash_parity():
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 4, 2048, 32
 LM_LONG_PROMPT, LM_LONG_GEN = 32768, 8
 LM_CPU_TOL = 1e-4                   # cuda vs cpu logits, reduced f32 model
-H100_BF16_FLOPS = 989e12            # dense tensor-core bf16 peak
-H100_TF32_FLOPS = 495e12            # dense tensor-core TF32 peak
-H100_F32_FLOPS = 67e12              # f32 FMAs on the CUDA cores
 SPLIT_TF32_PASSES = 3               # hi.hi + hi.lo + lo.hi per f32 product
 
 
@@ -1592,9 +1621,7 @@ def phase_examples():
 # of the CUDA cores
 # ---------------------------------------------------------------------------
 
-F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
-CARD_BYTES = 80e9
-CUT_BUDGET = 0.8 * CARD_BYTES   # a batch is halved while its reckoned peak
+CUT_BUDGET = 0.75 * HBM_BYTES  # a batch is halved while its reckoned peak
                                 # exceeds this (the rest: the allocator's
                                 # slack and what the reckoning leaves out)
 GNN_LR, RECSYS_LR = 5e-3, 1e-3  # the reference's cells (launch/specs.py)
@@ -1606,17 +1633,6 @@ SERVE_CALLS, BULK_CALLS, RETRIEVAL_CALLS = 5, 2, 3   # the first warms up
 ZOO_CPU_STEPS = 4
 ZOO_LOSS_TOL, ZOO_OUT_TOL = 1e-4, 1e-5
 ZOO_FAIL_AT = (3,)
-
-
-def bound(nbytes, flops):
-    """The least time: bytes over 3.35 TB/s or FLOP over the f32 peak."""
-    b = 1e3 * nbytes / HBM_BYTES_PER_S
-    f = 1e3 * flops / F32_FLOPS
-    return {"bytes": nbytes, "flop": flops, "bytes_ms": b, "flop_ms": f,
-            "bound_ms": max(b, f),
-            "bound_by": "bytes" if b >= f else "operations",
-            "peaks": "3.35 TB/s; 67 TFLOP/s f32 on the CUDA cores (TF32 "
-                     "off)"}
 
 
 def timed_steps(step, state, batch, n):
@@ -1663,22 +1679,6 @@ def top3(prof):
 def finite(*xs):
     return all(bool(np.isfinite(np.asarray(x, dtype=np.float64)).all())
                for x in xs)
-
-
-def gat_cost(cfg, N, E, F, C):
-    """A GAT train step's bytes (each layer's input read, its projection
-    and output written, the per-edge gathers and the segment sums'
-    scatters, forward; the backward twice that) and FLOP (3x the
-    forward's)."""
-    dims_in = [F] + [cfg.d_hidden * cfg.n_heads] * (cfg.n_layers - 1)
-    dims_out = [cfg.d_hidden] * (cfg.n_layers - 1) + [C]
-    H, b, f = cfg.n_heads, 0, 0
-    for fi, d in zip(dims_in, dims_out):
-        b += 4 * (N * fi + fi * H * d + 2 * N * H * d    # x, w; h and out
-                  + 4 * E * H + E * H * d                # gathers
-                  + E * H + E * H * d)                   # scatters
-        f += 2 * N * fi * H * d + 4 * N * H * d + 12 * E * H + 2 * E * H * d
-    return bound(3 * b, 3 * f)
 
 
 def gat_graph(rng, N, E, F, C, labelled, dev):
@@ -1831,8 +1831,8 @@ def phase_gnn():
           "reckoning": f"{s['n_edges']} edges x {cfg.n_heads} heads x "
                        f"{s['n_classes']} classes x 4 B = {msg / 1e9:.1f} GB"
                        f" of f32 messages in the last layer alone, more "
-                       f"than the card's {CARD_BYTES / 1e9:.0f} GB before "
-                       f"any gradient"})
+                       f"than the card's {HBM_BYTES / 2 ** 30:.0f} GiB "
+                       f"before any gradient"})
     out["launches"] = launch_counts()
     if any(out["launches"].values()):
         raise AssertionError(f"gnn: port kernels launched {out['launches']}")
@@ -1843,135 +1843,12 @@ def phase_gnn():
     return out
 
 
-def is_table(key):
-    return key in ("item", "category", "user", "wide") or \
-        key.startswith("tables/")
-
-
-def recsys_cost(cfg, kind, B, C=0, batch_bytes=0):
-    """The bound of one call at batch B: bytes (the gathered rows, and for
-    a train step their gradients scattered back; the dense weights read,
-    twice in a train step; the batch; a train step adds the table
-    gradients written once and one AdamW pass, p, g, m, v read and p, m,
-    v written: 7 bytes a parameter byte) and FLOP (3x the forward's in a
-    train step). ``C`` candidates for retrieval."""
-    from repro_torch.models import recsys as R
-    shapes = R.param_shapes(cfg)
-    P = 4 * sum(int(np.prod(s)) for s, _ in shapes.values())
-    tables = 4 * sum(int(np.prod(s)) for k, (s, _) in shapes.items()
-                     if is_table(k))
-    dense = P - tables
-    d, k = cfg.embed_dim, cfg.kind
-    if k == "bert4rec":
-        L, H = cfg.seq_len, cfg.n_heads
-        rows = B * L + (B * R.N_MASK + R.N_NEG if kind == "train" else 0)
-        f = cfg.n_blocks * (24 * L * d * d + 4 * L * L * d) * B
-        f += {"train": 2 * B * R.N_MASK * (R.N_NEG + 1) * d,
-              "serve": 2 * B * cfg.tables["item"] * d,
-              "retrieval": 2 * C * d}[kind]
-        row_bytes = 4 * d * rows
-        extra = 4 * cfg.tables["item"] * d if kind == "serve" else 0
-    elif k == "dien":
-        S, gd = cfg.seq_len, cfg.gru_dim
-        rows = B * (2 * S + 3) + 2 * C
-        row_bytes = 4 * d * rows
-        dims = (d + 2 * d + gd,) + tuple(cfg.mlp_dims) + (1,)
-        f = B * (S * (12 * d * gd + 18 * gd * gd) + 2 * S * gd
-                 + 4 * d * gd + sum(2 * a * b for a, b in zip(dims, dims[1:])))
-        f += 4 * C * d
-        extra = 0
-    else:
-        e = cfg.embed_dim
-        if k == "wide_deep":
-            bag = sum(cfg.multi_hot.values())
-            ids = len(cfg.tables) - len(cfg.multi_hot) + bag
-            row_bytes = 4 * (B * (ids * e + R.N_WIDE_CROSS) + C * e)
-            dims = (len(cfg.tables) * e,) + tuple(cfg.mlp_dims) + (1,)
-        else:
-            d0 = cfg.n_dense + cfg.n_sparse * e
-            row_bytes = 4 * (B * cfg.n_sparse * e + C * e)
-            dims = (d0,) + tuple(cfg.mlp_dims)
-            dims_head = cfg.mlp_dims[-1] + d0
-        f = B * sum(2 * a * b for a, b in zip(dims, dims[1:]))
-        if k == "dcn_v2":
-            f += B * (cfg.n_cross_layers * 2 * d0 * d0 + 2 * dims_head)
-        f += 2 * C * e
-        extra = 0
-    if kind == "train":
-        return bound(2 * row_bytes + 2 * dense + tables + 7 * P
-                     + batch_bytes, 3 * f)
-    return bound(row_bytes + dense + extra + batch_bytes, f)
-
-
-def recsys_reckon(cfg, kind, B):
-    """The reckoned peak bytes of one call at batch B, from the code: the
-    parameters (P) and the activations the arch's code holds at once; for
-    a train step the larger of the backward's start (the initial
-    parameters, the state's parameters and AdamW's two moments, 4P, and
-    the saved activations) and the optimizer's end (9P: the functional
-    AdamW holds the old and new moments, the updates, the clipped
-    gradients and the old and new parameters, beside the initial ones;
-    and ~4 temporaries of the largest leaf, its per-leaf arithmetic)."""
-    from repro_torch.models import recsys as R
-    sizes = [4 * int(np.prod(s)) for s, _ in R.param_shapes(cfg).values()]
-    P, big = sum(sizes), max(sizes)
-    d, k = cfg.embed_dim, cfg.kind
-    if k == "bert4rec":
-        L, H = cfg.seq_len, cfg.n_heads
-        att = 4 * B * H * L * L
-        # a block saves ~24 (B, L, d) tensors (the norms' terms, q, k, v,
-        # o, the FFN's 4d hidden twice, the residuals) and its attention
-        # probabilities; the top-k merge holds (B, 16,484) scores, ids
-        # and the sort's buffers
-        if kind == "train":
-            neg = 4 * B * R.N_MASK * (R.N_NEG + 1)
-            act = cfg.n_blocks * (att + 96 * B * L * d) + neg \
-                + max(2 * att, 2 * neg)
-        else:
-            act = 2 * att + 40 * B * L * d + 48 * B * (16384 + 100)
-        parts = {"attention_scores_per_block": att}
-        if kind == "train":
-            parts["negative_logits"] = neg
-    elif k == "dien":
-        S, gd = cfg.seq_len, cfg.gru_dim
-        # a train step saves ~8 state-sized tensors a GRU step and 9 an
-        # AUGRU step, and the stacked states; serving holds the states
-        # twice (list and stack) and the history's rows
-        act = 4 * B * S * ((18 * gd + 4 * d) if kind == "train"
-                           else (2 * gd + 4 * d))
-        parts = {"gru_steps_saved": act}
-    else:
-        e = cfg.embed_dim
-        # a train step saves ~12 floats an example per unit of width (the
-        # rows, the concatenation, the layers' outputs and their
-        # gradients), serving holds ~4
-        width = len(cfg.tables) * e + cfg.n_dense + sum(cfg.mlp_dims)
-        act = 4 * B * (12 if kind == "train" else 4) * width
-        parts = {}
-    total = max(4 * P + act, 9 * P + 4 * big) if kind == "train" \
-        else P + act
-    return {"batch": B, "reckoned_bytes": total, "params_bytes": P,
-            "activations_bytes": act, **parts}
-
-
-def cut_batch(cfg, kind, B):
-    """Halve B while its reckoned peak exceeds CUT_BUDGET: (B, each
-    reckoning)."""
-    steps = [recsys_reckon(cfg, kind, B)]
-    while steps[-1]["reckoned_bytes"] > CUT_BUDGET:
-        if B == 1:
-            raise AssertionError(f"{cfg.name} {kind}: does not fit at "
-                                 f"batch 1: {steps[-1]}")
-        B //= 2
-        steps.append(recsys_reckon(cfg, kind, B))
-    return B, steps
-
-
 def phase_recsys():
     """bert4rec, dien, wide-deep and dcn-v2 at their published configs
     (full tables, f32, TF32 off), seeded weights and make_batch's batches,
     one arch at a time, each freed before the next: train_batch (65,536,
-    cut by powers of two only as far as the reckoned peak forces, each
+    cut by powers of two only as far as the dry run's reckoned peak
+    forces (``cut_batch``), each
     cut printed with its bytes; RECSYS_TRAIN_STEPS AdamW steps: loss, ms,
     examples/s, peak GiB, a profile of one more step), serve_p99 (512:
     SERVE_CALLS calls and a profile of one), serve_bulk (262,144, cut as
@@ -2000,7 +1877,9 @@ def phase_recsys():
                cfg.total_rows, "init_s": time.perf_counter() - t0,
                "params": sum(p.numel() for p in params.values())}
         for s in shapes:
-            B, cuts = cut_batch(cfg, s.kind, s.get("batch", 1))
+            B, cuts = cut_batch(arch, s.name, s.get("batch", 1),
+                                CUT_BUDGET)
+            assert B, f"{arch} {s.name}: does not fit at batch 1: {cuts}"
             if len(cuts) > 1:
                 emit({"phase": "recsys_cut", "arch": arch, "cell": s.name,
                       "reckoned": cuts, "budget_bytes": CUT_BUDGET})
@@ -2364,53 +2243,6 @@ def profile_moe(fn, calls):
                                        per_name.most_common(8)}}
 
 
-def lm_prefill_flops(cfg, B, S, kept=None):
-    """The operations of one prefill of B x S tokens: the projections,
-    the causal attention, the MLPs (an MoE layer's routed experts over
-    its E x C bucket slots, what the bucketed GEMMs compute, or, given
-    ``kept``, over each MoE layer's kept assignments, what the function
-    needs; its shared experts, dense residual and router over every token)
-    and the head on the last position."""
-    from repro_torch.models import layers as L
-    from repro_torch.models.transformer import n_prefix
-    d, hd, T = cfg.d_model, cfg.head_dim, B * S
-    per_layer = (2 * T * d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-                 + 4 * B * cfg.n_heads * hd * (S * (S + 1) // 2))
-    dense = 6 * T * d * cfg.d_ff
-    P = n_prefix(cfg)
-    mlp = P * dense
-    if cfg.moe is None:
-        mlp += (cfg.n_layers - P) * dense
-    else:
-        m = cfg.moe
-        C = L.moe_capacity(m, T)
-        moe = (6 * T * d * m.n_shared * m.d_ff_expert
-               + 2 * T * d * m.n_experts)
-        if m.dense_residual:
-            moe += 6 * T * d * (m.d_ff_dense or cfg.d_ff)
-        slots = ([m.n_experts * C] * (cfg.n_layers - P) if kept is None
-                 else kept)
-        mlp += (cfg.n_layers - P) * moe + sum(6 * n * d * m.d_ff_expert
-                                              for n in slots)
-    return cfg.n_layers * per_layer + mlp + 2 * B * d * cfg.vocab_size
-
-
-def lm_weight_bytes(model):
-    """The bytes of the weights one forward reads: every parameter but an
-    untied embedding table, of which it reads only the tokens' rows."""
-    return sum(p.numel() * p.element_size()
-               for name, p in model.named_parameters()
-               if name != "embed" or model.lm_head is None)
-
-
-def lm_kv_bytes(cfg, B, length):
-    """The bytes of k and v a decode step reads at cache length
-    ``length``, over every layer."""
-    import torch
-    return (2 * cfg.n_layers * B * cfg.n_kv_heads * length * cfg.head_dim
-            * getattr(torch, cfg.dtype).itemsize)
-
-
 def record_serve(model, prompts, gen):
     """One greedy ``serve`` with every MoE call's route recorded (a host
     copy a call, so it is timed nowhere): (tokens, the prefill's
@@ -2425,65 +2257,6 @@ def record_serve(model, prompts, gen):
                              f"want {n_moe * gen}")
     return toks, routes[:n_moe], [routes[i:i + n_moe]
                                   for i in range(n_moe, len(routes), n_moe)]
-
-
-def routed_experts(routes):
-    """The distinct experts that kept assignments reach, per MoE call."""
-    return [len(set(e[k].tolist())) for e, k in routes]
-
-
-def moe_bounds(model, B, P, gen, prefill_routes, decode_routes):
-    """The function's bound, from this run's routes: a prefill takes the
-    larger of its operations (each MoE layer's routed experts over its
-    kept assignments, T x K at most) over 989 TFLOP/s (bf16) and its bytes
-    (every weight but the routed experts, the experts some kept
-    assignment reaches, and the k/v it writes) over 3.35 TB/s; a decode
-    token the bytes of the same weights over that step's experts and the
-    k/v it reads, averaged over the run's decode steps. Beside it
-    (``bucketed_*``) the bound of the bucketed design (ROADMAP P9): the
-    expert GEMMs over E x C slots, every expert's weights for any
-    token, the same bytes otherwise."""
-    import torch
-    cfg, m = model.cfg, model.cfg.moe
-    item = getattr(torch, cfg.dtype).itemsize
-    per_expert = 3 * cfg.d_model * m.d_ff_expert * item
-    wbytes = lm_weight_bytes(model)
-    n_moe = len(prefill_routes)
-    other = wbytes - n_moe * m.n_experts * per_expert
-    kept = [int(k.sum()) for _, k in prefill_routes]
-    flops = lm_prefill_flops(cfg, B, P, kept=kept)
-    pre_bytes = (other + per_expert * sum(routed_experts(prefill_routes))
-                 + lm_kv_bytes(cfg, B, P))
-    dec_bytes = [other + per_expert * sum(routed_experts(r))
-                 + lm_kv_bytes(cfg, B, P + i)
-                 for i, r in enumerate(decode_routes, 1)]
-    t_ops = 1e3 * flops / H100_BF16_FLOPS
-    t_b = 1e3 * pre_bytes / HBM_BYTES_PER_S
-    b_flops = lm_prefill_flops(cfg, B, P)
-    kv = sum(lm_kv_bytes(cfg, B, P + i) for i in range(1, gen)) / (gen - 1)
-    b_ops = 1e3 * b_flops / H100_BF16_FLOPS
-    b_w = 1e3 * (wbytes + lm_kv_bytes(cfg, B, P)) / HBM_BYTES_PER_S
-    return {"prefill_flops": flops, "prefill_bytes": pre_bytes,
-            "prefill_kept_assignments_per_moe_layer": kept,
-            "prefill_routed_experts_per_moe_layer":
-                routed_experts(prefill_routes),
-            "prefill_ops_bound_ms": t_ops, "prefill_bytes_bound_ms": t_b,
-            "prefill_bound_ms": max(t_ops, t_b),
-            "prefill_bound_by": "operations" if t_ops >= t_b else "bytes",
-            "decode_routed_experts_mean": sum(
-                sum(routed_experts(r)) for r in decode_routes)
-                / len(decode_routes) / n_moe,
-            "decode_bytes_mean": sum(dec_bytes) / len(dec_bytes),
-            "decode_bound_ms": 1e3 * sum(dec_bytes) / len(dec_bytes)
-                / HBM_BYTES_PER_S,
-            "decode_bound_by": "bytes",
-            "bucketed_prefill_flops": b_flops, "weight_bytes": wbytes,
-            "bucketed_prefill_ops_bound_ms": b_ops,
-            "bucketed_prefill_bytes_bound_ms": b_w,
-            "bucketed_prefill_bound_ms": max(b_ops, b_w),
-            "bucketed_decode_kv_bytes_mean": kv,
-            "bucketed_decode_bound_ms": 1e3 * (wbytes + kv)
-                / HBM_BYTES_PER_S}
 
 
 def moe_serve(model, prompts, gen, label):
@@ -4712,6 +4485,335 @@ def phase_telemetry_cost(rep0, counts0, prof0):
             "ledger_records": tel.n_records, "metrics": tel.metrics()}
 
 
+# ---------------------------------------------------------------------------
+# The mesh paths' single-card meaning: grouped MoE routing (the reference's
+# _moe_spmd), reshard, the launch labels, and the dry run of every cell
+# ---------------------------------------------------------------------------
+
+MOE_MESHES = (("local", None), ("mesh_4x1", {"data": 4, "model": 1}),
+              ("mesh_2x2", {"data": 2, "model": 2}))
+GROUPED_CPU_MESHES = ({"data": 2, "model": 2}, {"data": 4, "model": 2})
+GROUPED_CPU_SHAPE = (8, 64)     # tokens (B, S) of the reduced grouped MoE
+GROUPED_TOL = 1e-4
+RESHARD_MESH = {"data": 2, "model": 4}
+DRYRUN_JOBS = 8                 # cells reckoned at once, a process each
+PEAK_TOL = 0.15                 # reckoned peak within this of the measured
+TRACE_STEPS = 8                 # crawl steps profiled with the labels on
+
+
+def phase_moe_groups():
+    """DeepSeekMoE-16B at full width (bf16, seeded), MOE_BATCH x
+    MOE_PROMPT prompts and MOE_GEN tokens, routed with no mesh and under
+    each activation mesh shape of MOE_MESHES (the reference's _moe_spmd:
+    each (data, model) block of tokens routes as a group with its own
+    capacity): per shape the captured attention parity of layers 0 and 27
+    (``moe_flash_parity``), the counted ``serve`` (28 flash_attention_tc a
+    prefill, ``moe_serve``), prefill ms, decode ms a token, the groups of
+    a prefill and of a decode step, and each MoE layer's drop share, all
+    in this call. Then the reduced grouped MoE (f32, capacity factor 0.5)
+    on the card against the CPU under GROUPED_CPU_MESHES (outputs within
+    GROUPED_TOL, experts, slots and keeps equal), and a train state saved
+    in the reference's checkpoint format, restored and ``reshard``ed onto
+    the card, equal bit for bit, then stepped once under RESHARD_MESH on
+    the card and the CPU (losses within GROUPED_TOL)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    cfg = get_arch(MOE_ARCH)[0]
+    model = T.init_lm(cfg, seed=SEED, device=DEV)
+    prompts = torch.tensor(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)), device=DEV)
+    out = {"phase": "moe_groups", "arch": MOE_ARCH, "batch": MOE_BATCH,
+           "prompt_len": MOE_PROMPT, "gen": MOE_GEN, "runs": {}}
+    for label, mesh in MOE_MESHES:
+        with rules.activation_mesh(mesh):
+            err = moe_flash_parity(model, prompts, f"moe_groups {label}")
+            toks, t_pre, t_dec, counts, peak = moe_serve(
+                model, prompts, MOE_GEN, f"moe_groups {label}")
+            _, pre, dec = record_serve(model, prompts, MOE_GEN)
+        drops = [float((~keep).float().mean()) for _, keep in pre]
+        out["runs"][label] = {
+            "mesh": mesh, "prefill_ms": 1e3 * t_pre,
+            "decode_ms_per_token": 1e3 * t_dec / (MOE_GEN - 1),
+            "peak_gib": peak, "launches": counts,
+            "captured_flash_max_abs_err": err,
+            "groups_prefill": int(pre[0][1].shape[0]),
+            "groups_decode": int(dec[0][0][1].shape[0]),
+            "prefill_drop_share_per_moe_layer": drops,
+            "prefill_drop_share_mean": sum(drops) / len(drops),
+            "first_tokens": toks[:, :8].tolist()}
+    del model, prompts
+    free_card()
+    want = {"local": (1, 1), "mesh_4x1": (4, 4), "mesh_2x2": (4, 1)}
+    for label, (g_pre, g_dec) in want.items():
+        r = out["runs"][label]
+        if (r["groups_prefill"], r["groups_decode"]) != (g_pre, g_dec):
+            raise AssertionError(f"moe_groups {label}: groups {r}")
+    out["reduced_card_vs_cpu"] = grouped_card_cpu()
+    out["reshard"] = reshard_card()
+    emit(out)
+    return out
+
+
+def grouped_card_cpu():
+    """The reduced f32 MoE blocks of both MoE archs at capacity factor 0.5
+    under each of GROUPED_CPU_MESHES, on the card and the CPU from the
+    same weights and tokens: max |diff| of the outputs and aux, routes
+    equal, and assignments dropped."""
+    import copy
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import rules
+    res = {}
+    for arch in MOE_CPU_ARCHS:
+        base = scaled(get_reduced(arch), dtype="float32")
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=MOE_DROP_FACTOR))
+        p_cpu = L.init_moe(torch.Generator().manual_seed(SEED), cfg,
+                           torch.float32, "cpu")
+        p_card = copy.deepcopy(p_cpu).to(DEV)
+        x = torch.tensor(np.random.default_rng(SEED + 9).standard_normal(
+            GROUPED_CPU_SHAPE + (cfg.d_model,)), dtype=torch.float32)
+        for mesh in GROUPED_CPU_MESHES:
+            got = {}
+            for name, dev, p in (("cpu", "cpu", p_cpu),
+                                 ("card", DEV, p_card)):
+                with rules.activation_mesh(mesh):
+                    (o, aux), routes = record_dispatch(
+                        lambda: L.moe_block(p, cfg, x.to(dev)))
+                got[name] = (o.cpu(), float(aux), routes)
+            (oc, ac, rc), (og, ag, rg) = got["cpu"], got["card"]
+            err = float((oc - og).abs().max())
+            same = all(torch.equal(a, b) for (e1, k1), (e2, k2) in
+                       zip(rc, rg) for a, b in ((e1, e2), (k1, k2)))
+            keep = rc[0][1]
+            key = f"{arch} {mesh['data']}x{mesh['model']}"
+            res[key] = {"max_abs_err": err, "aux_err": abs(ac - ag),
+                        "routes_equal": same, "groups": int(keep.shape[0]),
+                        "drop_share": float((~keep).float().mean())}
+            if err > GROUPED_TOL or not same or bool(keep.all()):
+                raise AssertionError(f"grouped MoE {key}: {res[key]}")
+    return res
+
+
+def reshard_card():
+    """A reduced f32 deepseek-moe-16b train state after one AdamW step
+    under activation_mesh (4, 2) on the CPU, saved in the reference's
+    checkpoint format, restored and ``reshard``ed onto the card: every
+    leaf equal bit for bit. Then one more step under RESHARD_MESH on the
+    card and the CPU: losses within GROUPED_TOL."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as TC
+    from repro_torch.train import fault
+    from repro_torch.train.trainer import init_train_state, make_train_step
+    cfg = scaled(get_reduced(MOE_ARCH), dtype="float32")
+    opt = adamw(lr=1e-3)
+    step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt)
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device="cpu"))
+    toks = torch.tensor(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (8, 16)))
+    batch = (toks, torch.roll(toks, -1, 1))
+    with rules.activation_mesh({"data": 4, "model": 2}):
+        state, _ = step(init_train_state(params, opt), batch)
+    ckpt = ROOT / "build" / "reshard_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        TC.save(str(ckpt), 1, state)
+        target = init_train_state({k: torch.zeros_like(v)
+                                   for k, v in params.items()}, opt)
+        card = fault.reshard(TC.restore(str(ckpt), target), DEV)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want, got = TC.flatten(state), TC.flatten(card)
+    on_card = all(t.is_cuda for t in tensors(card))
+    equal = sorted(want) == sorted(got) and all(
+        np.array_equal(want[k], got[k]) for k in want)
+    with rules.activation_mesh(RESHARD_MESH):
+        _, m_cpu = step(state, batch)
+        _, m_card = step(card, tuple(t.to(DEV) for t in batch))
+    res = {"leaves": len(want), "on_card": on_card, "bit_equal": equal,
+           "next_loss_cpu": float(m_cpu["loss"]),
+           "next_loss_card": float(m_card["loss"]),
+           "mesh_saved": "4x2",
+           "mesh_next": f"{RESHARD_MESH['data']}x{RESHARD_MESH['model']}"}
+    if not (on_card and equal) or abs(res["next_loss_cpu"]
+                                      - res["next_loss_card"]) > GROUPED_TOL:
+        raise AssertionError(f"reshard: {res}")
+    return res
+
+
+def phase_trace_labels():
+    """The launch labels: with ``REPRO_TRACE_KERNELS=1`` (set here, and
+    unset after) TRACE_STEPS profiled steps of the CLI-sized crawl under
+    opic_url (fused dispatch) and backlink: every launched kernel has one
+    ``kernel/<family>.cuda`` range a launch on the host, and its range in
+    the device trace, and no range names a kernel that did not launch."""
+    import os
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import CrawlSession
+    from repro_torch.configs.base import scaled
+    from repro_torch.kernels import launch_counts, registry, reset_launches
+    os.environ["REPRO_TRACE_KERNELS"] = "1"
+    res = {}
+    try:
+        if not registry.annotations_enabled():
+            raise AssertionError("trace_labels: REPRO_TRACE_KERNELS=1 "
+                                 "left the labels off")
+        for ordering in ("opic_url", "backlink"):
+            sess = CrawlSession(scaled(cli_config(), ordering=ordering), DEV)
+            torch.cuda.synchronize()
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                sess.run(TRACE_STEPS)
+                torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            ranges, on_card = Counter(), Counter()
+            for e in prof.events():
+                if e.name.startswith("kernel/"):
+                    (ranges if e.device_type == DeviceType.CPU
+                     else on_card)[e.name] += 1
+            want = {f"kernel/{k}.cuda": v for k, v in counts.items()}
+            res[ordering] = {"launches": counts, "ranges": dict(ranges),
+                             "ranges_in_device_trace": dict(on_card)}
+            if dict(ranges) != want or not counts \
+                    or set(on_card) != set(want):
+                raise AssertionError(f"trace_labels {ordering}: ranges "
+                                     f"{dict(ranges)}, launches {counts}")
+            del sess
+    finally:
+        del os.environ["REPRO_TRACE_KERNELS"]
+    if registry.annotations_enabled():
+        raise AssertionError("trace_labels: labels still on")
+    emit({"phase": "trace_labels", "steps": TRACE_STEPS, **res})
+    return res
+
+
+def peak_cells():
+    """The cells chip_smoke runs, as the dry run sizes them: (label, arch,
+    shape, build_cell keywords)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import scaled
+    arctic = scaled(get_arch(ARCTIC_ARCH)[0], n_layers=ARCTIC_LAYERS)
+    cells = [
+        ("qwen2 prefill 4x2048+32", LM_ARCH, "prefill_32k",
+         dict(batch=LM_BATCH, seq_len=LM_PROMPT,
+              cache_len=LM_PROMPT + LM_GEN)),
+        ("qwen2 train 4x4096", LM_ARCH, "train_4k",
+         dict(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)),
+        ("deepseek-moe prefill 4x2048+32", MOE_ARCH, "prefill_32k",
+         dict(batch=MOE_BATCH, seq_len=MOE_PROMPT,
+              cache_len=MOE_PROMPT + MOE_GEN)),
+        (f"arctic ({ARCTIC_LAYERS} layers) prefill 1x2048+8", ARCTIC_ARCH,
+         "prefill_32k", dict(batch=ARCTIC_BATCH, seq_len=ARCTIC_PROMPT,
+                             cache_len=ARCTIC_PROMPT + ARCTIC_GEN,
+                             cfg=arctic)),
+        ("gat full_graph_sm", "gat-cora", "full_graph_sm", {}),
+        ("gat minibatch_lg", "gat-cora", "minibatch_lg", {}),
+        ("gat molecule", "gat-cora", "molecule", {})]
+    for arch in RECSYS_ARCHS:
+        B, cuts = cut_batch(arch, "train_batch", 65536, CUT_BUDGET)
+        assert B, f"{arch} train_batch: does not fit at batch 1: {cuts}"
+        cells.append((f"{arch} train {B}", arch, "train_batch",
+                      dict(batch=B)))
+    for n in (1, SHARDS):
+        cells.append((f"crawl CONFIG {n} shard(s)", "webparf", "crawl_step",
+                      dict(n_shards=n)))
+    return cells
+
+
+def measured_peak(arch, shape, kw):
+    """One run of the cell built on the card (``specs.build_cell``, zeros
+    of the meta cell's shapes; the crawl's state from ``init_state``, a
+    dispatch step): the peak bytes allocated from before its arguments
+    were made to the end of the run."""
+    import torch
+    from repro_torch.launch import specs
+    free_card()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cell = specs.build_cell(arch, shape, device=DEV, **kw)
+    out = cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, cell
+    free_card()
+    return peak
+
+
+def phase_dryrun():
+    """``python -m repro_torch.launch.dryrun --all`` (the 40 cells and the
+    crawl cell on meta, DRYRUN_JOBS at once, no card): one line a cell,
+    fits, peak GiB, FLOP and bound ms on this card. Then each cell that
+    chip_smoke runs (``peak_cells``) reckoned on meta at chip_smoke's sizes
+    and run once on the card: the reckoned peak within PEAK_TOL of the
+    measured one (``measured_peak``; cuBLAS's workspace made before)."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.launch import dryrun
+    out_dir = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--all", "--jobs", str(DRYRUN_JOBS), "--out",
+                        str(out_dir)], capture_output=True, text=True,
+                       cwd=str(ROOT), timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    all_s = time.time() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"dryrun --all: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    if len(recs) != 41:
+        raise AssertionError(f"dryrun --all: {len(recs)} records")
+    for rec in recs:
+        emit({"phase": "dryrun_cell", "arch": rec["arch"],
+              "shape": rec["shape"], "fits": rec["fits"],
+              "peak_gib": rec["memory"]["total_per_device"] / 2 ** 30,
+              "flops": rec["cost"]["flops"], "bound_ms": rec["bound_ms"],
+              "bound_by": rec["bound_by"],
+              "largest_batch_that_fits": rec.get("largest_batch_that_fits"),
+              **({"peak_gib_4_shards": rec["n_shards_4"]["memory"][
+                  "total_per_device"] / 2 ** 30} if "n_shards_4" in rec
+                 else {})})
+    a = torch.ones(64, 64, device=DEV)
+    (a @ a).sum().item()
+    (a.bfloat16() @ a.bfloat16()).sum().item()
+    checks, bad = [], []
+    for label, arch, shape, kw in peak_cells():
+        n4 = kw.get("n_shards", 1) == SHARDS
+        rec = dryrun.run_cell(arch, shape, **{k: v for k, v in kw.items()
+                                              if k != "n_shards"})
+        reckoned = (rec["n_shards_4"] if n4 else rec)["memory"][
+            "total_per_device"]
+        measured = measured_peak(arch, shape, kw)
+        ratio = reckoned / measured
+        checks.append({"cell": label, "reckoned_gib": reckoned / 2 ** 30,
+                       "measured_gib": measured / 2 ** 30, "ratio": ratio})
+        if abs(ratio - 1) > PEAK_TOL:
+            bad.append(label)
+    out = {"phase": "dryrun", "cells": len(recs), "all_s": all_s,
+           "jobs": DRYRUN_JOBS, "peak_tolerance": PEAK_TOL,
+           "peaks": checks}
+    emit(out)
+    if bad:
+        raise AssertionError(f"dryrun: reckoned peaks off by more than "
+                             f"{PEAK_TOL:.0%}: {bad}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4747,6 +4849,8 @@ def main() -> int:
     modes = phase_coordination((sharded["opic_url"], profs["opic_url"]))
     phase_trajectory()
     free_card()
+    phase_trace_labels()
+    free_card()
     phase_heal()
     free_card()
     serve_counts = phase_serve()
@@ -4774,6 +4878,8 @@ def main() -> int:
     free_card()
     counts_arctic, err_arctic = phase_moe_arctic()
     free_card()
+    phase_moe_groups()
+    free_card()
     moe_f32 = phase_moe_cpu()
     phase_examples()
     free_card()
@@ -4782,6 +4888,8 @@ def main() -> int:
     phase_recsys()
     free_card()
     phase_gnn_recsys_cpu()
+    free_card()
+    phase_dryrun()
     tc_row["max_abs_err"] = max(tc_row["max_abs_err"], err_moe, err_arctic)
     tc_row["launches_per_moe_prefill"] = {
         MOE_ARCH: counts_moe["flash_attention_tc"],

@@ -40,9 +40,11 @@ def identity_map(cfg: CrawlConfig, n_shards: int, device) -> DomainMap:
     slot = (dom // per_dom) * per_slot + dom % per_dom
     domain_of_slot = np.full(ns, -1, np.int32)
     domain_of_slot[slot] = dom
+    # from the numpy arrays, not through a torch copy on the host: on meta
+    # (the dry run) no storage is made
     return DomainMap(
-        slot_of_domain=torch.tensor(slot, dtype=torch.int32, device=device),
-        domain_of_slot=torch.tensor(domain_of_slot, device=device),
+        slot_of_domain=torch.from_numpy(slot.astype(np.int32)).to(device),
+        domain_of_slot=torch.from_numpy(domain_of_slot).to(device),
         shard_alive=torch.ones((n_shards,), dtype=torch.bool, device=device))
 
 
@@ -53,9 +55,12 @@ def shard_of_slot(slot: torch.Tensor, n_slots: int,
 
 def seed_frontier(cfg: CrawlConfig, n_shards: int, device) -> F.Frontier:
     """Gather hub seeds per domain and build the initial prioritized queues
-    at each domain's slot."""
-    dm = identity_map(cfg, n_shards, device)
+    at each domain's slot. On ``meta`` (the dry run) the queues keep their
+    empty shapes: the insert reads the host, and fills no new storage."""
     f = F.init_frontier(cfg.n_slots, cfg.frontier_capacity, device)
+    if torch.device(device).type == "meta":
+        return f
+    dm = identity_map(cfg, n_shards, device)
     seeds = W.hub_seeds(cfg, device)                      # (n_domains, N)
     seed_mask = exact_dedup(seeds, torch.ones(seeds.shape, dtype=torch.bool,
                                               device=device))

@@ -1,4 +1,5 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs: the card unless the caller asks for the CPU, or,
+for the dry run's reckoning, for ``meta`` (shapes and dtypes, no storage)."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -10,12 +11,13 @@ Device = Union[str, torch.device]
 
 def resolve_device(device: Optional[Device] = None) -> torch.device:
     """``None`` means ``cuda``. A CUDA request on a machine without a card
-    raises: the port never falls back to the CPU on its own."""
+    raises: the port never falls back to the CPU on its own. ``meta`` is
+    taken only when the caller names it (``launch/dryrun.py``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on cuda by default, but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"repro_torch runs on cuda, cpu or meta, not {dev}")
     return dev

@@ -2,10 +2,12 @@
 byte-per-bit rows (``probe_insert``) and on packed int32 words
 (``probe_insert_packed``, see ``ref.py`` for the layout).
 
-Dispatch is by device: a CUDA tensor launches the hand-written kernel
-(``csrc/bloom.cu``, which exports both entry points) or raises; a CPU
-tensor takes the plain version (``ref.bloom_ref``, ``ref.bloom_packed_ref``).
-There is no fallback between the two. A URL count that is not a multiple of
+Dispatch is by device (``registry.resolve_impl``): a CUDA tensor launches
+the hand-written kernel (``csrc/bloom.cu``, which exports both entry
+points) or raises; a CPU tensor takes the plain version (``ref.bloom_ref``,
+``ref.bloom_packed_ref``); a meta tensor gets ``seen``'s shape and dtype,
+inserts nothing and records the kernel's work for the dry run. There is no
+fallback between them. A URL count that is not a multiple of
 the tile is handled in both: the last tile is short.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.bloom.ref import bloom_packed_ref, bloom_ref
+from repro_torch.kernels import registry
 from repro_torch.kernels.build import Kernel
 
 # bloom_launch(bits, urls, mask, seen, R, M, k, bits_log2, tile, stream)
@@ -49,20 +52,27 @@ def _run(filt, urls, mask, k, url_tile, *, packed):
         return torch.zeros(urls.shape, dtype=torch.bool, device=urls.device)
     url_tile = min(url_tile, M)
     _check(filt, urls, mask, k, url_tile, packed=packed)
-    if urls.device.type == "cpu":
-        ref = bloom_packed_ref if packed else bloom_ref
-        return ref(filt, urls, mask, k=k, url_tile=url_tile)
-    if urls.device.type != "cuda":
-        raise ValueError(f"bloom: no kernel for {urls.device}")
-    if not (filt.is_contiguous() and urls.is_contiguous()
-            and mask.is_contiguous()):
-        raise ValueError("bloom: tensors must be contiguous")
-    R = urls.shape[0]
-    nbits = filt.shape[1] * (32 if packed else 1)
-    seen = torch.empty((R, M), dtype=torch.bool, device=urls.device)
-    (PACKED if packed else KERNEL).launch(
-        filt.data_ptr(), urls.data_ptr(), mask.data_ptr(), seen.data_ptr(),
-        R, M, k, nbits.bit_length() - 1, url_tile)
+    kern = PACKED if packed else KERNEL
+    impl = registry.resolve_impl(kern.name, urls.device.type)
+    with registry.launch_scope(kern.name, impl):
+        if impl == "ref":
+            ref = bloom_packed_ref if packed else bloom_ref
+            return ref(filt, urls, mask, k=k, url_tile=url_tile)
+        R = urls.shape[0]
+        seen = torch.empty((R, M), dtype=torch.bool, device=urls.device)
+        if impl == "meta":
+            # every lane live: k hashes and probes each, k bits inserted
+            registry.record_meta(kern.name, 2 * k * R * M,
+                                 registry.nbytes(urls, mask, seen)
+                                 + 2 * k * R * M * (4 if packed else 1))
+            return seen
+        if not (filt.is_contiguous() and urls.is_contiguous()
+                and mask.is_contiguous()):
+            raise ValueError("bloom: tensors must be contiguous")
+        nbits = filt.shape[1] * (32 if packed else 1)
+        kern.launch(filt.data_ptr(), urls.data_ptr(), mask.data_ptr(),
+                    seen.data_ptr(), R, M, k, nbits.bit_length() - 1,
+                    url_tile)
     return seen
 
 

@@ -5,10 +5,12 @@ and on a filter packed in int32 words (``dedup_deposit_packed``; see
 reference's ``pallas_packed`` entry: it packs the byte-per-bit filter, runs
 the packed kernel, and unpacks the words back into the bytes.
 
-Dispatch is by device: a CUDA tensor launches the hand-written kernel
-(``csrc/dedup_deposit.cu``, which exports both entry points) or raises; a
-CPU tensor takes the plain version (``ref.dedup_deposit_ref``,
-``ref.dedup_deposit_packed_ref``). There is no fallback between the two.
+Dispatch is by device (``registry.resolve_impl``): a CUDA tensor launches
+the hand-written kernel (``csrc/dedup_deposit.cu``, which exports both
+entry points) or raises; a CPU tensor takes the plain version
+(``ref.dedup_deposit_ref``, ``ref.dedup_deposit_packed_ref``); a meta
+tensor gets the outputs' shapes and dtypes, updates nothing and records
+the kernel's work for the dry run. There is no fallback between them.
 A URL count that is not a multiple of the tile is handled in both: the last
 tile is short.
 """
@@ -19,6 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.bloom.ref import pack_bits, unpack_bits
+from repro_torch.kernels import registry
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.dedup_deposit.ref import (dedup_deposit_packed_ref,
                                                    dedup_deposit_ref)
@@ -72,24 +75,35 @@ def _run(filt, urls, mask, val, f_url, f_valid, table, k, url_tile, *,
     url_tile = min(url_tile, M)
     _check(filt, urls, mask, val, f_url, f_valid, table, k, url_tile,
            packed=packed)
-    if urls.device.type == "cpu":
-        ref = dedup_deposit_packed_ref if packed else dedup_deposit_ref
-        return ref(filt, urls, mask, val, f_url, f_valid, table, k=k,
-                   url_tile=url_tile)
-    if urls.device.type != "cuda":
-        raise ValueError(f"dedup_deposit: no kernel for {urls.device}")
-    if not all(t.is_contiguous() for t in (filt, urls, mask, val, f_url,
-                                           f_valid)) or table.stride(1) != 1:
-        raise ValueError("dedup_deposit: tensors must be contiguous (the "
-                         "table's rows at least)")
-    nbits = filt.shape[1] * (32 if packed else 1)
-    seen = torch.empty((R, M), dtype=torch.bool, device=urls.device)
-    refund = torch.empty((R,), dtype=torch.float32, device=urls.device)
-    (PACKED if packed else KERNEL).launch(
-        filt.data_ptr(), urls.data_ptr(), mask.data_ptr(), val.data_ptr(),
-        f_url.data_ptr(), f_valid.data_ptr(), table.data_ptr(),
-        seen.data_ptr(), refund.data_ptr(), R, M, f_url.shape[1], k,
-        nbits.bit_length() - 1, url_tile, table.stride(0))
+    kern = PACKED if packed else KERNEL
+    impl = registry.resolve_impl(kern.name, urls.device.type)
+    with registry.launch_scope(kern.name, impl):
+        if impl == "ref":
+            ref = dedup_deposit_packed_ref if packed else dedup_deposit_ref
+            return ref(filt, urls, mask, val, f_url, f_valid, table, k=k,
+                       url_tile=url_tile)
+        seen = torch.empty((R, M), dtype=torch.bool, device=urls.device)
+        refund = torch.empty((R,), dtype=torch.float32, device=urls.device)
+        if impl == "meta":
+            # every lane live: k probes and inserts each, every queue cell
+            # read once, each URL's value deposited
+            registry.record_meta(
+                kern.name, 2 * k * R * M + R * f_url.shape[1],
+                registry.nbytes(urls, mask, val, f_url, f_valid, seen,
+                                refund)
+                + 2 * k * R * M * (4 if packed else 1) + 8 * R * M)
+            return seen, refund
+        if not all(t.is_contiguous() for t in (filt, urls, mask, val, f_url,
+                                               f_valid)) \
+                or table.stride(1) != 1:
+            raise ValueError("dedup_deposit: tensors must be contiguous "
+                             "(the table's rows at least)")
+        nbits = filt.shape[1] * (32 if packed else 1)
+        kern.launch(
+            filt.data_ptr(), urls.data_ptr(), mask.data_ptr(), val.data_ptr(),
+            f_url.data_ptr(), f_valid.data_ptr(), table.data_ptr(),
+            seen.data_ptr(), refund.data_ptr(), R, M, f_url.shape[1], k,
+            nbits.bit_length() - 1, url_tile, table.stride(0))
     return seen, refund
 
 

@@ -5,6 +5,9 @@ Dispatch is by device, and on the card by dtype and head dim, as
 :func:`route` states it:
 
 - a CPU tensor takes the plain version (``ref.flash_ref``);
+- a meta tensor gets the output's shape and dtype, and the kernel the card
+  would launch records its operations (the causal count) and bytes for the
+  dry run (``registry.record_meta``);
 - a CUDA bf16 tensor whose head dim is in ``TC_HEAD_DIMS`` (64, 96, 128)
   launches ``flash_attention_tc`` (``csrc/flash_attention_tc.cu``): both
   products on the tensor cores, ``p`` rounded to bf16 for p·v as the
@@ -46,6 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import registry
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_ref
 
@@ -96,11 +100,10 @@ def route(device_type: str, dtype: torch.dtype, hd: int
     """The kernel that ``attention`` launches for a device type, a dtype
     and a head dim: ``None`` on the CPU (the plain version), ``TC_KERNEL``
     for bf16 at ``TC_HEAD_DIMS`` on the card, ``KERNEL`` for the rest of the
-    card's cases. Raises for a device or head dim no kernel takes."""
-    if device_type == "cpu":
+    card's cases; on meta, the kernel the card would launch (its meta
+    route). Raises for a device or head dim no kernel takes."""
+    if registry.resolve_impl(KERNEL.name, device_type) == "ref":
         return None
-    if device_type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {device_type}")
     if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
         return TC_KERNEL
     if hd not in HEAD_DIMS:
@@ -140,15 +143,36 @@ def launch(kernel: Kernel, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def attention_flops(B: int, Hq: int, Sq: int, Skv: int, hd: int,
+                    causal: bool) -> int:
+    """The two products' operations: under ``causal`` (query i at position
+    Skv - Sq + i) only the keys at or before each query's position."""
+    if not causal:
+        return 4 * B * Hq * hd * Sq * Skv
+    first = Skv - Sq + 1
+    return 4 * B * Hq * hd * (Sq * first + Sq * (Sq - 1) // 2)
+
+
 def _forward(q, k, v, causal: bool, block_k: int) -> torch.Tensor:
     B, Hq, Sq, hd = q.shape
     kernel = route(q.device.type, q.dtype, hd)
-    if kernel is None:
-        qg, kf, vf, group = _gqa_fold(q, k, v)
-        out = flash_ref(qg, kf, vf, causal=causal, group=group,
-                        block_k=max(1, min(block_k, k.shape[2])))
-        return out.reshape(B, Hq, Sq, hd)
-    return launch(kernel, q, k, v, causal)
+    impl = registry.resolve_impl(KERNEL.name, q.device.type)
+    with registry.launch_scope(KERNEL.name if kernel is None
+                               else kernel.name, impl):
+        if kernel is None:
+            qg, kf, vf, group = _gqa_fold(q, k, v)
+            out = flash_ref(qg, kf, vf, causal=causal, group=group,
+                            block_k=max(1, min(block_k, k.shape[2])))
+            return out.reshape(B, Hq, Sq, hd)
+        if impl == "meta":
+            out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype,
+                              device=q.device).transpose(1, 2)
+            registry.record_meta(
+                kernel.name,
+                attention_flops(B, Hq, Sq, k.shape[2], hd, causal),
+                registry.nbytes(q, k, v, out))
+            return out
+        return launch(kernel, q, k, v, causal)
 
 
 def flash_backward(q, k, v, o, do, *, causal: bool, block_k: int = 128
@@ -166,7 +190,13 @@ def flash_backward(q, k, v, o, do, *, causal: bool, block_k: int = 128
     (q scaled by 1/sqrt(hd); dq scaled by it once more), dk and dv summed
     over each GQA group. Under ``causal`` a tile reads only the query rows
     at or past its first key: the blocks wholly above the diagonal are
-    skipped, as the forward skips them."""
+    skipped, as the forward skips them.
+
+    On ``meta`` (the dry run) only the first KV tile is walked in each
+    pass: it holds the most query rows, so its temporaries are the largest
+    of any tile's, and every other tile allocates the same tensors or
+    smaller ones; the products of the tiles not walked are counted with
+    ``registry.record_meta`` under ``flash_backward``."""
     B, Hq, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -181,6 +211,13 @@ def flash_backward(q, k, v, o, do, *, causal: bool, block_k: int = 128
     q_pos = torch.arange(Sq, device=q.device)
     n_kv = min(Skv, Sq) if causal else Skv
     tiles = range(0, n_kv, block_k)
+    if q.device.type == "meta":
+        rest = tiles[1:]
+        rows = sum(Sq - (min(k0, Sq) if causal else 0) for k0 in rest)
+        # a tile's products: s in each pass, then dv, dp, dq, dk
+        prods = 7 * 2 * B * Hq * rows * block_k * hd
+        registry.record_meta("flash_backward", prods, 0)
+        tiles = tiles[:1]
 
     def scores(k0):
         """(first query row, this tile's f32 scores (BHkv, G, rows, bk))

@@ -1,10 +1,12 @@
 """The ``frontier_select`` wrappers: the URL allocator's pop, and the pop
 fused with the url-lane cash harvest (``select_harvest``).
 
-Dispatch is by device: a CUDA tensor launches the hand-written kernel
-(``csrc/frontier_select.cu``, which exports both entry points) or raises;
-a CPU tensor takes the plain version (``ref.select_ref``,
-``ref.select_harvest_ref``). There is no fallback between the two.
+Dispatch is by device (``registry.resolve_impl``): a CUDA tensor
+launches the hand-written kernel (``csrc/frontier_select.cu``, which
+exports both entry points) or raises; a CPU tensor takes the plain version
+(``ref.select_ref``, ``ref.select_harvest_ref``); a meta tensor gets
+outputs of the right shapes and dtypes, pops nothing and records the
+kernel's work for the dry run. There is no fallback between them.
 
 The kernel has a vector path (float4 priorities and 32-bit words of four
 flags) and a scalar path (a cell per load); ``vector_path`` picks it from
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import registry
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.frontier_select.ref import (select_harvest_ref,
                                                      select_ref)
@@ -57,24 +60,45 @@ def select(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor, *,
     cells) and returns (sel_url, sel_pri, sel_mask) (R, k), plus the popped
     cell indices (R, k) int64 with ``return_idx``."""
     _check(url, pri, valid, k)
-    if url.device.type == "cpu":
-        return select_ref(url, pri, valid, k=k, return_idx=return_idx)
-    if url.device.type != "cuda":
-        raise ValueError(f"frontier_select: no kernel for {url.device}")
+    impl = registry.resolve_impl(KERNEL.name, url.device.type)
+    with registry.launch_scope(KERNEL.name, impl):
+        if impl == "ref":
+            return select_ref(url, pri, valid, k=k, return_idx=return_idx)
+        out = _outputs(url, k)
+        if impl == "meta":
+            registry.record_meta(KERNEL.name, *_pop_cost(pri, valid, k))
+        else:
+            _launch_select(url, pri, valid, k, out)
+    return out if return_idx else out[:3]
+
+
+def _outputs(url, k, harvest=False):
+    """(sel_url, sel_pri, sel_mask, sel_idx[, cash]) (R, k), uninitialised
+    on url's device."""
+    R, dev = url.shape[0], url.device
+    dts = (torch.int64, torch.float32, torch.bool, torch.int64) + (
+        (torch.float32,) if harvest else ())
+    return tuple(torch.empty((R, k), dtype=dt, device=dev) for dt in dts)
+
+
+def _pop_cost(pri, valid, k, harvest=False):
+    """(operations, bytes) of a pop: k rounds of a compare over each row's
+    flags and priorities; every flag and priority read once, the popped
+    cells' url, priority and flag read and rewritten (and their cash), the
+    outputs written."""
+    R, C = pri.shape
+    per_pop = 8 + 2 * (4 + 1) + 8 + 4 + 1 + 8 + (12 if harvest else 0)
+    return R * C * k, registry.nbytes(pri, valid) + R * k * per_pop
+
+
+def _launch_select(url, pri, valid, k, out):
     if not (url.is_contiguous() and pri.is_contiguous()
             and valid.is_contiguous()):
         raise ValueError("frontier_select: tensors must be contiguous")
     R, C = url.shape
-    sel_url = torch.empty((R, k), dtype=torch.int64, device=url.device)
-    sel_pri = torch.empty((R, k), dtype=torch.float32, device=url.device)
-    sel_mask = torch.empty((R, k), dtype=torch.bool, device=url.device)
-    sel_idx = torch.empty((R, k), dtype=torch.int64, device=url.device)
     KERNEL.launch(url.data_ptr(), pri.data_ptr(), valid.data_ptr(),
-                  sel_url.data_ptr(), sel_pri.data_ptr(), sel_mask.data_ptr(),
-                  sel_idx.data_ptr(), R, C, k, int(vector_path(pri, valid)))
-    if return_idx:
-        return sel_url, sel_pri, sel_mask, sel_idx
-    return sel_url, sel_pri, sel_mask
+                  *(t.data_ptr() for t in out), R, C, k,
+                  int(vector_path(pri, valid)))
 
 
 def select_harvest(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor,
@@ -91,23 +115,22 @@ def select_harvest(url: torch.Tensor, pri: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(url.shape)} on {url.device}, got "
                          f"{table.dtype} {tuple(table.shape)} on "
                          f"{table.device}")
-    if url.device.type == "cpu":
-        return select_harvest_ref(url, pri, valid, table, k=k)
-    if url.device.type != "cuda":
-        raise ValueError(f"select_harvest: no kernel for {url.device}")
-    if not (url.is_contiguous() and pri.is_contiguous()
-            and valid.is_contiguous()) or table.stride(1) != 1:
-        raise ValueError("select_harvest: url/pri/valid must be contiguous "
-                         "and the table's rows contiguous")
-    R, C = url.shape
-    dev = url.device
-    sel_url = torch.empty((R, k), dtype=torch.int64, device=dev)
-    sel_pri = torch.empty((R, k), dtype=torch.float32, device=dev)
-    sel_mask = torch.empty((R, k), dtype=torch.bool, device=dev)
-    sel_idx = torch.empty((R, k), dtype=torch.int64, device=dev)
-    cash = torch.empty((R, k), dtype=torch.float32, device=dev)
-    HARVEST.launch(url.data_ptr(), pri.data_ptr(), valid.data_ptr(),
-                   table.data_ptr(), sel_url.data_ptr(), sel_pri.data_ptr(),
-                   sel_mask.data_ptr(), sel_idx.data_ptr(), cash.data_ptr(),
-                   R, C, k, table.stride(0), int(vector_path(pri, valid)))
-    return sel_url, sel_pri, sel_mask, sel_idx, cash
+    impl = registry.resolve_impl(HARVEST.name, url.device.type)
+    with registry.launch_scope(HARVEST.name, impl):
+        if impl == "ref":
+            return select_harvest_ref(url, pri, valid, table, k=k)
+        out = _outputs(url, k, harvest=True)
+        if impl == "meta":
+            registry.record_meta(HARVEST.name,
+                                 *_pop_cost(pri, valid, k, harvest=True))
+            return out
+        if not (url.is_contiguous() and pri.is_contiguous()
+                and valid.is_contiguous()) or table.stride(1) != 1:
+            raise ValueError("select_harvest: url/pri/valid must be "
+                             "contiguous and the table's rows contiguous")
+        R, C = url.shape
+        HARVEST.launch(url.data_ptr(), pri.data_ptr(), valid.data_ptr(),
+                       table.data_ptr(), *(t.data_ptr() for t in out),
+                       R, C, k, table.stride(0),
+                       int(vector_path(pri, valid)))
+    return out

@@ -1,8 +1,10 @@
 """The ``opic_update`` wrapper: the OPIC cash scatter-add.
 
-Dispatch is by device: a CUDA tensor launches the hand-written kernel
-(``csrc/opic_update.cu``) or raises; a CPU tensor takes the plain version
-(``ref.opic_ref``). There is no fallback between the two. Both update the
+Dispatch is by device (``registry.resolve_impl``): a CUDA tensor launches
+the hand-written kernel (``csrc/opic_update.cu``) or raises; a CPU tensor
+takes the plain version (``ref.opic_ref``); a meta tensor is returned as
+it is, with the kernel's work recorded for the dry run. There is no
+fallback between them. The kernel and the plain version update the
 cash IN PLACE and add each target's contributions in item order, so the
 result depends neither on the device nor on ``tile``: the kernel sorts the
 live items by target (stably) and walks each target's items in order,
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import registry
 from repro_torch.kernels.build import Kernel
 from repro_torch.kernels.opic_update.ref import opic_ref
 
@@ -53,16 +56,23 @@ def scatter_cash(cash: torch.Tensor, rows: torch.Tensor,
     if N == 0 or B == 0:
         return cash
     tile = min(tile, N)
-    if cash.device.type == "cpu":
-        return opic_ref(cash, rows, contrib, mask, tile=tile)
-    if cash.device.type != "cuda":
-        raise ValueError(f"opic_update: no kernel for {cash.device}")
-    if not (rows.is_contiguous() and contrib.is_contiguous()
-            and mask.is_contiguous()) or cash.stride(1) != 1:
-        raise ValueError("opic_update: rows/contrib/mask must be contiguous "
-                         "and cash's rows contiguous")
-    KERNEL.launch(cash.data_ptr(), rows.data_ptr(), contrib.data_ptr(),
-                  mask.data_ptr(), B, cash.shape[1], N, cash.stride(0), tile)
+    impl = registry.resolve_impl(KERNEL.name, cash.device.type)
+    with registry.launch_scope(KERNEL.name, impl):
+        if impl == "ref":
+            return opic_ref(cash, rows, contrib, mask, tile=tile)
+        if impl == "meta":
+            # every item live: one add each, its target read and written
+            registry.record_meta(KERNEL.name, B * N,
+                                 registry.nbytes(rows, contrib, mask)
+                                 + 8 * min(B * N, cash.numel()))
+            return cash
+        if not (rows.is_contiguous() and contrib.is_contiguous()
+                and mask.is_contiguous()) or cash.stride(1) != 1:
+            raise ValueError("opic_update: rows/contrib/mask must be "
+                             "contiguous and cash's rows contiguous")
+        KERNEL.launch(cash.data_ptr(), rows.data_ptr(), contrib.data_ptr(),
+                      mask.data_ptr(), B, cash.shape[1], N, cash.stride(0),
+                      tile)
     return cash
 
 

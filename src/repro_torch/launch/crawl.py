@@ -116,10 +116,11 @@ def main(argv=None):
                         extra_stages=extra)
     # the kernels' route: hand-written on the card, the plain (ref)
     # versions on the CPU
+    from repro_torch.kernels import registry
     print(f"{args.partitioning}: {args.domains} domains over "
           f"{sess.n_shards} shards, ordering={args.ordering}, "
           f"coordination={args.coordination} (kernels: "
-          f"{'cuda' if dev.type == 'cuda' else 'ref'})")
+          f"{registry.resolve_impl('frontier_select', dev.type)})")
 
     # C4 controls fire between run segments, at their exact step (fail
     # before heal when both land on the same step, like the old loop)

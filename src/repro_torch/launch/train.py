@@ -21,8 +21,8 @@ deepseek-moe-16b, ~300 GB) exceed one card's memory. Weights are drawn from
 ``recsys.make_batch``'s batch of ``--batch`` examples, each with AdamW at
 ``--lr``, as the reference's ``train_other``. It runs on cuda unless
 ``--device cpu`` is given, and raises when no card is present.
-``--model-parallel`` other than 1 waits for the sharding decisions of
-ROADMAP Queue 1, item 18d.
+``--model-parallel`` other than 1 raises: the port trains on one card,
+where the reference's ``make_host_mesh`` also takes only 1.
 """
 from __future__ import annotations
 
@@ -32,8 +32,7 @@ import time
 from repro_torch.configs import get_arch, get_reduced
 from repro_torch.configs.base import scaled
 from repro_torch.device import resolve_device
-
-_SHARDING = "the sharding decisions of ROADMAP Queue 1, item 18d"
+from repro_torch.launch.mesh import make_host_mesh
 
 
 def crawl_corpus(crawl_cfg, steps: int, device=None):
@@ -55,10 +54,7 @@ def train_lm(args, cfg=None):
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     dev = resolve_device(args.device)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the port trains on "
-            f"one card; model parallelism comes with {_SHARDING}")
+    make_host_mesh(model=args.model_parallel)
     if cfg is None:
         cfg = get_arch(args.arch)[0] if args.full else get_reduced(args.arch)
         if not args.full:

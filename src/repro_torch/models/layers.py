@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMConfig, MoEConfig
 from repro_torch.core import router
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.sharding import rules
 
 NEG_INF = -1e30
 
@@ -238,8 +239,9 @@ def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
 # The routing of WebParF's URL dispatcher (core/router.py): score -> top-k
 # -> position in the expert's bucket by cumsum -> drop past capacity ->
 # scatter to (E, C) buckets -> expert GEMMs -> gather back -> weighted
-# combine. The reference's mesh path (``_moe_spmd``) is not ported: on one
-# card the reference itself takes ``_moe_local`` (ROADMAP Queue 1, 18d).
+# combine. Under an active mesh shape (``sharding.rules.activation_mesh``)
+# the tokens route in the groups the reference's mesh path (``_moe_spmd``)
+# routes them in, each with its own capacity (``_moe_grouped``).
 
 
 class MoE(nn.Module):
@@ -312,66 +314,110 @@ def moe_dispatch(router_logits: torch.Tensor, m: MoEConfig, capacity: int):
     return top_w, top_e, slot, keep, aux
 
 
-def _moe_scatter(xt, e_idx, slot, keep, E: int, capacity: int):
-    """(T, d) tokens -> (E, C, d) buckets, one k-slice at a time, as the
-    reference's loop. Kept assignments own distinct cells and are copied
-    there; a dropped one goes to a spare slot past each expert's C, which
-    the returned view leaves out. The reference ADDS a dropped assignment
-    as zeros at slot C - 1, so its buckets are the same (a -0.0 token is
-    +0.0 there: compare with ==). Copies, not adds: no atomics, and no
-    write order decides a cell."""
-    T, d = xt.shape
-    buckets = torch.zeros((E * (capacity + 1), d), dtype=xt.dtype,
+def _moe_scatter(xt, e_idx, slot, keep, offset, E: int, n: int):
+    """(G*T, d) tokens of G groups -> (E, n, d) buckets, n = G*C, one
+    k-slice at a time, as the reference's loop. A token's group owns C
+    slots an expert from ``offset`` (G*T, 1) = its g * C on, so an
+    expert's slots run group after group. Kept assignments own distinct
+    cells and are copied there; a dropped one goes to a spare slot past
+    each expert's n, which the returned view leaves out. The reference
+    ADDS a dropped assignment as zeros at slot C - 1, so its buckets are
+    the same (a -0.0 token is +0.0 there: compare with ==). Copies, not
+    adds: no atomics, and no write order decides a cell."""
+    d = xt.shape[1]
+    buckets = torch.zeros((E * (n + 1), d), dtype=xt.dtype,
                           device=xt.device)
     for k in range(e_idx.shape[-1]):
-        s_spare = torch.where(keep[:, k], slot[:, k], capacity)
-        buckets.index_copy_(0, e_idx[:, k] * (capacity + 1) + s_spare, xt)
-    return buckets.view(E, capacity + 1, d)[:, :capacity]
+        s_spare = torch.where(keep[:, k], slot[:, k] + offset[:, 0], n)
+        buckets.index_copy_(0, e_idx[:, k] * (n + 1) + s_spare, xt)
+    return buckets.view(E, n + 1, d)[:, :n]
 
 
-def _moe_combine(y, w, e_idx, slot, keep, capacity: int):
+def _moe_combine(y, w, e_idx, slot, keep, offset, capacity: int):
     """Per-k-slice gather + weighted sum in f32, k = 0..K-1 in order:
-    (E, C, d) -> (T, d). Dropped assignments are gathered too and weighted
-    0, as in the reference; in the backward only those zeros meet at a
-    shared cell, so the gradient is exact in any order."""
+    (E, G*C, d) -> (G*T, d), each token at its group's ``offset`` as in
+    ``_moe_scatter``. Dropped assignments are gathered too, from their
+    group's slot C - 1, and weighted 0, as in the reference; in the
+    backward only those zeros meet at a shared cell, so the gradient is
+    exact in any order."""
     T = e_idx.shape[0]
+    n = y.shape[1]
     yf = y.reshape(-1, y.shape[-1])
     out = torch.zeros((T, y.shape[-1]), dtype=torch.float32,
                       device=y.device)
     for k in range(e_idx.shape[-1]):
         s_safe = torch.where(keep[:, k], slot[:, k], capacity - 1)
-        got = yf.index_select(0, e_idx[:, k] * capacity + s_safe).float()
-        out = out + torch.where(keep[:, k], w[:, k], 0.0)[:, None] * got
+        got = yf.index_select(0, e_idx[:, k] * n + s_safe + offset[:, 0])
+        out = out + torch.where(keep[:, k], w[:, k], 0.0)[:, None] \
+            * got.float()
     return out
 
 
-def _moe_local(p, m: MoEConfig, xt: torch.Tensor):
-    """MoE over (T, d) tokens: route (an f32 GEMM) -> bucket -> expert
-    GEMMs (``bmm`` over the E buckets) -> combine. Returns (out (T, d) in
-    xt's dtype, aux)."""
-    T, d = xt.shape
-    E = m.n_experts
-    logits = xt.float() @ p.router                       # (T, E) f32
-    capacity = moe_capacity(m, T)
-    w, e_idx, slot, keep, aux = moe_dispatch(logits[None], m, capacity)
-    w, e_idx, slot, keep = w[0], e_idx[0], slot[0], keep[0]
-    buckets = _moe_scatter(xt, e_idx, slot, keep, E, capacity)
+def _experts(p, buckets):
+    """The routed experts' SwiGLU over (E, N, d) buckets: ``bmm``s."""
     h = torch.bmm(buckets, p.w_gate)
     u = torch.bmm(buckets, p.w_up)
-    y = torch.bmm(silu(h) * u, p.w_down)
-    out = _moe_combine(y, w, e_idx, slot, keep, capacity)
-    return out.to(xt.dtype), aux
+    return torch.bmm(silu(h) * u, p.w_down)
+
+
+def _group_aux(logits: torch.Tensor, top_e: torch.Tensor, m: MoEConfig):
+    """The load-balancing loss of each group, (G,) f32: ``moe_dispatch``'s
+    formula over one group's (T, E) logits at a time."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.mean(dim=1)
+    ce = torch.nn.functional.one_hot(top_e, E).float().sum(2).mean(dim=1)
+    return (me * ce).sum(-1) * E * m.aux_loss_weight
+
+
+def _moe_grouped(p, m: MoEConfig, x: torch.Tensor, dp: int, tp: int):
+    """MoE over x (B, S, d) routed in dp * tp groups: route (an f32 GEMM)
+    -> bucket -> expert GEMMs -> combine. This is the reference's mesh
+    path (``_moe_spmd``) on one card, and at (1, 1) its local path. Its
+    device (i, j) of a (dp, tp) mesh routes the block ``x[i*B_l:(i+1)*B_l,
+    j*S_l:(j+1)*S_l]``, flattened b-major, with its own capacity
+    ``moe_capacity(m, B_l * S_l)``; its two ``all_to_all``s move buckets
+    between devices and change no value. So here the G = dp * tp blocks
+    route as groups (``moe_dispatch`` over (G, T, E)), one ``bmm`` an
+    expert runs over every group's slots, and aux is the mean of the
+    groups' losses (the reference's ``pmean``), not ``moe_dispatch``'s
+    mean over groups and tokens together, which is the same number only
+    at G = 1. Returns (out (B, S, d) in x's dtype, aux)."""
+    B, S, d = x.shape
+    Bl, Sl = B // dp, S // tp
+    G, T, E, K = dp * tp, Bl * Sl, m.n_experts, m.top_k
+    xg = x.reshape(dp, Bl, tp, Sl, d).transpose(1, 2).reshape(G * T, d)
+    logits = (xg.float() @ p.router).view(G, T, E)
+    capacity = moe_capacity(m, T)
+    w, e_idx, slot, keep, aux = moe_dispatch(logits, m, capacity)
+    if G > 1:
+        aux = _group_aux(logits, e_idx, m).mean()
+    w, e_idx, slot, keep = (t.reshape(G * T, K)
+                            for t in (w, e_idx, slot, keep))
+    offset = (torch.arange(G * T, device=x.device) // T * capacity)[:, None]
+    buckets = _moe_scatter(xg, e_idx, slot, keep, offset, E, G * capacity)
+    y = _experts(p, buckets)
+    out = _moe_combine(y, w, e_idx, slot, keep, offset, capacity)
+    out = out.to(x.dtype).reshape(dp, tp, Bl, Sl, d).transpose(1, 2)
+    return out.reshape(B, S, d), aux
 
 
 def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int = 1):
-    """x (B, S, d) -> (out, aux_loss): the routed experts over all B * S
-    tokens as one group, then the shared experts and the dense residual
-    added in the reference's order. ``n_groups`` is unused, as in the
-    reference. No host sync: every size is known from the shapes."""
+    """x (B, S, d) -> (out, aux_loss): the routed experts, then the shared
+    experts and the dense residual added in the reference's order. The
+    reference's choice between its paths: under an active mesh shape
+    whose data axes divide B and whose model axis divides S and E, its
+    groups (``_moe_grouped`` at (dp, tp)); otherwise all B * S tokens as
+    one group (at (1, 1); decode's S = 1 under a model axis > 1 among
+    them). ``n_groups`` is unused, as in the reference. No host sync:
+    every size is known from the shapes."""
     m = cfg.moe
-    B, S, d = x.shape
-    out, aux = _moe_local(p, m, x.reshape(B * S, d))
-    out = out.reshape(B, S, d)
+    B, S, _ = x.shape
+    groups = rules.active_groups()
+    if groups is None or B % groups[0] or S % groups[1] \
+            or m.n_experts % groups[1]:
+        groups = (1, 1)
+    out, aux = _moe_grouped(p, m, x, *groups)
     if m.n_shared:
         out = out + mlp_block(p.shared, x)
     if m.dense_residual:

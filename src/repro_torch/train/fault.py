@@ -7,10 +7,12 @@
 2. **Crawler domain rebalance (C4)**: ``heal_crawler`` moves a dead
    shard's domains to the survivors and migrates their rows; ``revive``
    brings shards back.
-
-The reference's third mechanism, ``reshard`` (placing a restored state on
-a mesh of another shape), comes with the sharding decisions of ROADMAP
-Queue 1, item 18d.
+3. **Elastic re-mesh**: checkpoints are mesh-free, and ``reshard`` places
+   a restored tree on the device. The reference places it on a mesh of
+   any shape; one card places every leaf whole, so a state saved by the
+   reference on a (4, 2) mesh comes back here as it was, and the next
+   step runs under ``sharding.rules.activation_mesh`` of the new shape
+   (its MoE layers route in that shape's groups).
 """
 from __future__ import annotations
 
@@ -55,6 +57,43 @@ def run_with_failures(step_fn: Callable, state, batches: Iterable, *,
         if i % ckpt_every == 0:
             ckpt.save(ckpt_dir, i, state)
     return state
+
+
+def _replicated(spec) -> bool:
+    """A reference spec that places a leaf whole: None, or a
+    ``PartitionSpec`` (any tuple) of no axis."""
+    return spec is None or (isinstance(spec, tuple)
+                            and all(a is None for a in spec))
+
+
+def reshard(tree, device, spec_tree=None):
+    """Place every tensor leaf of ``tree`` (a restored state: nested
+    dicts, lists, tuples and NamedTuples) on ``device``, values unchanged.
+    The reference's signature with the device in the mesh's place:
+    ``spec_tree`` (the same structure, or None) may only replicate, since
+    one card places nothing; any spec that names a mesh axis raises."""
+    dev = torch.device(device)
+
+    def put(x, spec):
+        if not _replicated(spec):
+            raise ValueError(f"reshard: spec {spec!r} splits a leaf over a "
+                             f"mesh axis, but one card places every leaf "
+                             f"whole; pass None")
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    def walk(x, spec):
+        if isinstance(x, dict):
+            return {k: walk(v, None if spec is None else spec[k])
+                    for k, v in x.items()}
+        if isinstance(x, (list, tuple)) and not isinstance(x, torch.Size):
+            specs = [None] * len(x) if spec is None else spec
+            items = [walk(v, s) for v, s in zip(x, specs)]
+            if hasattr(x, "_fields"):
+                return type(x)(*items)
+            return type(x)(items)
+        return put(x, spec)
+
+    return walk(tree, spec_tree)
 
 
 def heal_crawler(state, cfg, dead_shards: Sequence[int], n_shards: int):

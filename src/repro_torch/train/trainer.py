@@ -61,15 +61,15 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
     """loss_fn(params, batch) -> scalar. Returns step(state, batch) ->
     (state, metrics). With microbatches > 1 the batch's leading axis is
     split, and the losses and gradients are added in f32 in order, then
-    scaled by 1 / microbatches. ``param_resharding`` places parameters on
-    a mesh in the reference; one card has none, so it must be None (the
-    sharding decisions come with ROADMAP Queue 1, item 18d)."""
-    if param_resharding is not None:
-        raise NotImplementedError(
-            "make_train_step: param_resharding has no single-card meaning; "
-            "the sharding decisions come with ROADMAP Queue 1, item 18d")
+    scaled by 1 / microbatches. ``param_resharding`` (optional) is
+    applied to the parameters ONCE a step, before the microbatch loop,
+    and only with microbatches > 1, where the reference applies it (its
+    gather-once layout); the gradients are taken at what it returns and
+    the update applies to the state's parameters."""
 
     def accumulated(params: Params, batch) -> Tuple[torch.Tensor, Params]:
+        if param_resharding is not None:
+            params = param_resharding(params)
         tot = acc = None
         for micro in _split(batch, microbatches):
             loss, grads = _value_and_grad(loss_fn, params, micro)

@@ -1,6 +1,7 @@
 """The port's boundaries: it imports nothing of JAX or of the JAX package,
 its config mirrors the reference's, what earlier slices refused now runs,
-and what it does not cover yet (the sharding decisions) raises."""
+and what has no single-card meaning (model parallelism over a mesh)
+raises or is listed in ROADMAP.md as not ported."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -313,19 +314,21 @@ def test_training_needs_a_card_by_default():
 
 
 def test_unported_training_raises():
-    """Model parallelism and param resharding still name item 18d (the
-    sharding decisions). GNN/RecSys training, which this test once
-    refused, now trains, and every name of the reference's recsys module
-    resolves."""
+    """What this test once refused now runs: GNN/RecSys training, and
+    ``param_resharding`` (applied once a step before the microbatch loop,
+    as the reference applies it). ``--model-parallel`` other than 1 still
+    raises: the port trains on one card, where the reference's
+    ``make_host_mesh`` takes only 1 too. Every name of the reference's
+    recsys module resolves."""
     from repro.models import recsys as jrecsys
     from repro_torch.launch import train as ttrain
     from repro_torch.models import recsys
     from repro_torch.optim import adamw
-    from repro_torch.train.trainer import make_train_step
+    from repro_torch.train.trainer import init_train_state, make_train_step
     base = ["--steps", "1", "--crawl-steps", "1", "--device", "cpu"]
     for arch in ("gat-cora", "dcn-v2", "bert4rec"):
         assert ttrain.main(["--arch", arch] + base) == 0
-    with pytest.raises(NotImplementedError, match="18d"):
+    with pytest.raises(ValueError, match="one card"):
         ttrain.main(["--model-parallel", "2"] + base)
     state = ttrain.train_other(ttrain.build_parser().parse_args(
         ["--arch", "dcn-v2"] + base))
@@ -334,9 +337,13 @@ def test_unported_training_raises():
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.train_other(ttrain.build_parser().parse_args(
                 ["--arch", "dcn-v2", "--steps", "1"]))
-    with pytest.raises(NotImplementedError, match="18d"):
-        make_train_step(lambda p, b: 0, adamw(),
-                        param_resharding=lambda p: p)
+    seen = []
+    step = make_train_step(lambda p, b: (p["w"] * b).sum() ** 2, adamw(),
+                           microbatches=2,
+                           param_resharding=lambda p: seen.append(1) or p)
+    st, m = step(init_train_state({"w": torch.ones(2)}, adamw()),
+                 torch.ones(4, 2))
+    assert seen == [1] and int(st.step) == 1
     public = [n for n in vars(jrecsys) if not n.startswith("__")
               and n not in ("annotations", "math", "partial", "jax", "jnp",
                             "lax", "opt_barrier", "shard_map", "RecSysConfig",
@@ -346,3 +353,57 @@ def test_unported_training_raises():
     assert not missing, missing
     with pytest.raises(AttributeError):
         recsys.no_such_name
+
+
+# the reference's mesh-path modules and their port counterparts
+MESH_MODULES = {"repro.launch.specs": "repro_torch.launch.specs",
+                "repro.launch.dryrun": "repro_torch.launch.dryrun",
+                "repro.launch.mesh": "repro_torch.launch.mesh",
+                "repro.sharding.rules": "repro_torch.sharding.rules",
+                "repro.kernels.registry": "repro_torch.kernels.registry"}
+
+
+def _not_ported() -> set:
+    """The names ``ROADMAP.md`` lists under "Not ported"."""
+    import re
+    text = (ROOT / "ROADMAP.md").read_text()
+    i = text.index("### Not ported")
+    section = text[i:text.index("\n### ", i + 1)]
+    return set(re.findall(r"`([A-Za-z_][A-Za-z0-9_]*)`", section))
+
+
+def _reference_public(ref_name: str) -> list:
+    """The public names a reference module defines (functions, classes and
+    UPPER_CASE constants at its top level), read from its source: the
+    reference's ``launch/dryrun.py`` sets ``XLA_FLAGS`` to 512 host
+    devices when imported, which would change every later JAX test of
+    this process."""
+    path = ROOT / "src" / Path(*ref_name.split(".")).with_suffix(".py")
+    out = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.append(node.name)
+        elif isinstance(node, ast.Assign):
+            out += [t.id for t in node.targets if isinstance(t, ast.Name)
+                    and t.id.isupper()]
+        elif isinstance(node, ast.AnnAssign) and isinstance(
+                node.target, ast.Name) and node.target.id.isupper():
+            out.append(node.target.id)
+    return [n for n in out if not n.startswith("_")]
+
+
+@pytest.mark.parametrize("ref_name", sorted(MESH_MODULES))
+def test_mesh_modules_mirror_reference(ref_name):
+    """The reference's public names resolve in the port's counterpart,
+    apart from those ROADMAP.md lists as not ported (no single-card
+    meaning); the port file imports no JAX (checked above with every
+    file of the package)."""
+    import importlib
+    tmod = importlib.import_module(MESH_MODULES[ref_name])
+    public = _reference_public(ref_name)
+    assert public, ref_name
+    missing = [n for n in public if not hasattr(tmod, n)]
+    assert set(missing) <= _not_ported(), sorted(set(missing)
+                                                 - _not_ported())
+    assert str(ROOT / "src" / Path(*tmod.__name__.split("."))) + ".py" in \
+        {str(p) for p in PORT_FILES}

@@ -147,12 +147,15 @@ def test_wrapper_rejects_what_it_does_not_take(bad):
     ("cuda", "float32", 128, "flash_attention"),
     ("cuda", "float32", 64, "flash_attention"),
     ("cuda", "float32", 8, "flash_attention"),
+    ("meta", "bfloat16", 128, "flash_attention_tc"),
+    ("meta", "float32", 64, "flash_attention"),
 ])
 def test_route_names_the_kernel(device, dtype, hd, want):
     """The route table: bf16 at the tensor-core head dims goes to
     flash_attention_tc, the rest of the card's cases to the CUDA-core
     kernel, the CPU to the plain version (no kernel: None); each kernel
-    counts its own launches."""
+    counts its own launches. On meta (the dry run's route) the kernel the
+    card would launch records its work."""
     got = FA.route(device, getattr(torch, dtype), hd)
     if want == "plain":
         assert got is None
@@ -162,7 +165,7 @@ def test_route_names_the_kernel(device, dtype, hd, want):
 
 @pytest.mark.parametrize("device,dtype,hd", [("cuda", "float32", 48),
                                              ("cuda", "bfloat16", 40),
-                                             ("meta", "float32", 64)])
+                                             ("xpu", "float32", 64)])
 def test_route_refuses_what_no_kernel_takes(device, dtype, hd):
     with pytest.raises(ValueError):
         FA.route(device, getattr(torch, dtype), hd)

@@ -7,7 +7,8 @@ reference's checkpoint form, the ``prefix`` list flattened as
 ``repro.models`` and ``repro_torch.models`` for the reduced
 deepseek-moe-16b (a dense prefix layer, shared experts) and arctic-480b
 (a dense residual beside the experts, GQA group 4). JAX runs without a
-mesh, so its ``moe_block`` takes ``_moe_local``, as the port does.
+mesh, so its ``moe_block`` takes ``_moe_local``, and the port's routes
+every token as one group (``_moe_grouped`` at (1, 1)).
 
 Tolerances, with the measured maxima:
 - ``moe_dispatch`` on the same f32 logits: ``top_e``, ``slot`` and
