@@ -14,6 +14,37 @@ non-zero):
                HGMMA, and flash_attention's HGMMA and HMMA (cuobjdump);
                then bloom_kernel's registers and shared memory (ptxas),
                on a line of their own.
+     dryrun_cell — ``python -m repro_torch.launch.dryrun --all`` (the 40
+               cells and the crawl cell reckoned on meta, in a process
+               that never touches the card): one line a cell (fits in
+               ``launch/mesh.HBM_BYTES``, peak GiB, FLOP, bound ms, the
+               largest batch that fits).
+     lm_zoo  — every LM serving cell of LM_SHAPES that the dry run fits
+               (prefill_32k, decode_32k, long_500k; train_4k is left out),
+               at the dry run's batch, before anything else touches the
+               card, each in a fresh process (``chip_smoke.py --zoo-cell
+               ARCH SHAPE BATCH``) so that its weights meet an empty
+               allocator: the full-width model from the port's seeded
+               init, bf16; RoPE on the card against the CPU (the inverse
+               frequencies bit for bit, apply_rope at 524,272-524,287
+               within 1e-6); a prefill cell through ``launch.serve.serve``
+               (S + 4 cache slots, 4 tokens, after a small warm-up serve):
+               one flash_attention_tc launch a layer and no
+               flash_attention (counts zeroed just before, read just
+               after), finite logits, layer 0's and the last layer's
+               attention captured in that serve (batch row 0, KV head 0's
+               query group, and the kernel's own output) and held to the
+               plain version and tc_plain's bound, the kernel's largest
+               size and stride against int32; a decode cell: 4 greedy
+               decode_steps against a cache of S slots of seeded bf16
+               values, S - 4 valid, layer 0's decode attention of row 0
+               held to the CPU's within 2e-2 (1 + |want|); each cell's
+               measured peak (max_memory_allocated from before the
+               weights) within 15% of the dry run's reckoning of the same
+               cell at the same batch, the allocator's reserved peak
+               beside the dry run's replay of it, the headroom under
+               HBM_BYTES, the ms beside the dry run's bound_ms, and
+               HBM_BYTES no more than the card's reported total.
   2. parity  — each kernel against its plain PyTorch version on the card,
                exact equality, at the main paths' shapes and at small
                shapes with ties, duplicates, ragged tiles and masked rows
@@ -120,10 +151,11 @@ non-zero):
                prefill, in bf16 (flash_attention_tc, also against the
                plain version that rounds p, and flash_attention launched
                directly) and cast to f32 (flash_attention);
-               lm_cpu: the reduced model in f32 on the card and the CPU,
-               logits within 1e-4 over a prefill and 16 teacher-forced
-               decode steps, its prefill launching flash_attention once a
-               layer (its f32 path).
+               lm_cpu: the reduced qwen2-1.5b, phi3-mini-3.8b and
+               deepseek-coder-33b in f32 on the card and the CPU, logits
+               within 1e-4 over a prefill and 16 teacher-forced decode
+               steps, each prefill launching flash_attention once a layer
+               (its f32 path).
      train   — Qwen2-1.5B at full width (bf16, remat on) trained on the
                train CLI's corpus (its crawl of the reduced webparf config,
                60 steps, on the card: frontier_select and bloom launch):
@@ -227,15 +259,12 @@ non-zero):
      trace_labels — REPRO_TRACE_KERNELS=1: a profiled CLI-sized crawl
                (opic_url, backlink) has one kernel/<family>.cuda range per
                launch of each launched kernel and no other.
-     dryrun  — ``python -m repro_torch.launch.dryrun --all`` (the 40 cells
-               and the crawl cell reckoned on meta, no card): one line a
-               cell (fits, peak GiB, FLOP, bound ms); then the cells this
-               script runs (Qwen2-1.5B prefill 4 x 2048 + 32 and train
-               4 x 4096, DeepSeekMoE-16B prefill, Arctic at 2 layers, the
-               three GAT cells, the four RecSys trains at their cut
-               batches, CONFIG's crawl at 1 and 4 shards) reckoned on meta
-               and run once on the card from zeros: reckoned peak within
-               15% of torch.cuda.max_memory_allocated.
+     dryrun  — the cells this script runs (Qwen2-1.5B prefill 4 x 2048
+               + 32 and train 4 x 4096, DeepSeekMoE-16B prefill, Arctic at
+               2 layers, the three GAT cells, the four RecSys trains at
+               their cut batches, CONFIG's crawl at 1 and 4 shards)
+               reckoned on meta and run once on the card from zeros:
+               reckoned peak within 15% of torch.cuda.max_memory_allocated.
   6. kernels — each kernel's time (CUDA events; for the crawl kernels also
                in a CUDA graph, warm and cold, by the profiler, and per
                launch inside the profiled crawl; dedup_deposit also on the
@@ -252,7 +281,8 @@ non-zero):
                products per f32 product, 495 TFLOP/s (f32); the attention
                rows also carry their launches per train step and per MoE
                prefill (28 DeepSeekMoE and 2 Arctic flash_attention_tc;
-               2 flash_attention for each reduced f32 model).
+               2 flash_attention for each reduced f32 model) and
+               flash_attention_tc's per zoo prefill.
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -882,9 +912,7 @@ def flash_pair(q, k, v, causal, label, kernel=None):
     non-finite output, and for flash_attention_tc past the tolerance from
     tc_plain (``tc_share`` above 1); returns (kernel name, max |diff| from
     the plain version, ``tc_share`` or None)."""
-    import torch
     from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.flash_attention.ref import flash_ref
     if kernel is None:
         kernel = FA.route(q.device.type, q.dtype, q.shape[3])
         before = (FA.KERNEL.launches, FA.TC_KERNEL.launches)
@@ -898,6 +926,19 @@ def flash_pair(q, k, v, causal, label, kernel=None):
                                  f"{before} -> {after}")
     else:
         got = FA.launch(kernel, q, k, v, causal)
+    return (kernel.name,) + hold_flash(got, q, k, v, causal,
+                                       f"{kernel.name} {label}",
+                                       tc=kernel is FA.TC_KERNEL)
+
+
+def hold_flash(got, q, k, v, causal, label, tc):
+    """A kernel's output ``got`` on q, k, v held to the plain version:
+    raises past the dtype's tolerance, on a non-finite output, and for
+    flash_attention_tc (``tc``) past the tolerance from tc_plain
+    (``tc_share`` above 1); returns (max |diff|, ``tc_share`` or None)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_ref
     qg, kf, vf, group = FA._gqa_fold(q, k, v)
     want = flash_ref(qg, kf, vf, causal=causal, group=group
                      ).reshape(q.shape)
@@ -905,19 +946,19 @@ def flash_pair(q, k, v, causal, label, kernel=None):
     got, want = got.float(), want.float()
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
     if not torch.isfinite(got).all():
-        raise AssertionError(f"{kernel.name} {label}: non-finite output")
+        raise AssertionError(f"{label}: non-finite output")
     excess = (got - want).abs() - tol * (1 + want.abs())
     if float(excess.max()) > 0:
-        raise AssertionError(f"{kernel.name} {label}: differs from the "
-                             f"plain version beyond {tol}: max |diff| "
+        raise AssertionError(f"{label}: differs from the plain version "
+                             f"beyond {tol}: max |diff| "
                              f"{float((got - want).abs().max())}")
     share = None
-    if kernel is FA.TC_KERNEL:
+    if tc:
         share = tc_share(got, q, k, v, causal)
         if share > 1:
-            raise AssertionError(f"{kernel.name} {label}: {share} times "
-                                 f"the tolerance from tc_plain")
-    return kernel.name, float((got - want).abs().max()), share
+            raise AssertionError(f"{label}: {share} times the tolerance "
+                                 f"from tc_plain")
+    return float((got - want).abs().max()), share
 
 
 def phase_flash_parity():
@@ -974,6 +1015,7 @@ def phase_flash_parity():
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 4, 2048, 32
 LM_LONG_PROMPT, LM_LONG_GEN = 32768, 8
 LM_CPU_TOL = 1e-4                   # cuda vs cpu logits, reduced f32 model
+LM_CPU_ARCHS = (LM_ARCH, "phi3-mini-3.8b", "deepseek-coder-33b")
 SPLIT_TF32_PASSES = 3               # hi.hi + hi.lo + lo.hi per f32 product
 
 
@@ -1188,8 +1230,8 @@ def phase_lm_long(model):
           "launches": counts, "tokens": toks.tolist()})
 
 
-def phase_lm_cpu(steps=16):
-    """The reduced qwen2-1.5b in f32 with the same weights on the card and
+def phase_lm_cpu(arch=LM_ARCH, steps=16):
+    """The reduced ``arch`` in f32 with the same weights on the card and
     on the CPU: a 32-token prefill, then ``steps`` teacher-forced decode
     steps; every step's logits must agree within LM_CPU_TOL. TF32 is off:
     it would round the products to 10 bits (flash_attention's split TF32
@@ -1203,7 +1245,7 @@ def phase_lm_cpu(steps=16):
     from repro_torch.models import transformer as T
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = scaled(get_reduced(LM_ARCH), dtype="float32")
+    cfg = scaled(get_reduced(arch), dtype="float32")
     cpu = T.init_lm(cfg, seed=SEED, device="cpu")
     card = T.params_from_numpy(cfg, T.params_to_numpy(cpu), device=DEV)
     P = 32
@@ -1228,9 +1270,10 @@ def phase_lm_cpu(steps=16):
     a, b = logits["cuda"], logits["cpu"]
     err = float((a - b).abs().max())
     if not torch.isfinite(a).all() or err > LM_CPU_TOL:
-        raise AssertionError(f"lm: cuda and cpu logits differ by {err} > "
-                             f"{LM_CPU_TOL}")
-    emit({"phase": "lm_cpu", "config": dataclasses.asdict(cfg),
+        raise AssertionError(f"lm {arch}: cuda and cpu logits differ by "
+                             f"{err} > {LM_CPU_TOL}")
+    emit({"phase": "lm_cpu", "arch": arch,
+          "config": dataclasses.asdict(cfg),
           "prefill": P, "decode_steps": steps, "max_abs_err": err,
           "tolerance": LM_CPU_TOL, "argmax_equal": bool(torch.equal(
               a.argmax(-1), b.argmax(-1))), "launches": counts})
@@ -4752,17 +4795,14 @@ def measured_peak(arch, shape, kw):
     return peak
 
 
-def phase_dryrun():
+def dryrun_all():
     """``python -m repro_torch.launch.dryrun --all`` (the 40 cells and the
-    crawl cell on meta, DRYRUN_JOBS at once, no card): one line a cell,
-    fits, peak GiB, FLOP and bound ms on this card. Then each cell that
-    chip_smoke runs (``peak_cells``) reckoned on meta at chip_smoke's sizes
-    and run once on the card: the reckoned peak within PEAK_TOL of the
-    measured one (``measured_peak``; cuBLAS's workspace made before)."""
+    crawl cell on meta, DRYRUN_JOBS at once, in a process of its own that
+    never touches the card): one line a cell, fits, peak GiB, FLOP, bound
+    ms on this card and, for a cell that does not fit, the largest batch
+    that does. Returns (the records, the seconds it took)."""
     import os
     import shutil
-    import torch
-    from repro_torch.launch import dryrun
     out_dir = ROOT / "build" / "dryrun_torch"
     shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.time()
@@ -4782,12 +4822,24 @@ def phase_dryrun():
         emit({"phase": "dryrun_cell", "arch": rec["arch"],
               "shape": rec["shape"], "fits": rec["fits"],
               "peak_gib": rec["memory"]["total_per_device"] / 2 ** 30,
+              "segments_gib": rec["memory"]["reserved_needed"] / 2 ** 30,
+              "capacity_gib": HBM_BYTES / 2 ** 30,
               "flops": rec["cost"]["flops"], "bound_ms": rec["bound_ms"],
               "bound_by": rec["bound_by"],
               "largest_batch_that_fits": rec.get("largest_batch_that_fits"),
               **({"peak_gib_4_shards": rec["n_shards_4"]["memory"][
                   "total_per_device"] / 2 ** 30} if "n_shards_4" in rec
                  else {})})
+    return recs, all_s
+
+
+def phase_dryrun(recs, all_s):
+    """Each cell that chip_smoke runs (``peak_cells``) reckoned on meta at
+    chip_smoke's sizes and run once on the card: the reckoned peak within
+    PEAK_TOL of the measured one (``measured_peak``; cuBLAS's workspace
+    made before). ``recs`` and ``all_s`` are ``dryrun_all``'s."""
+    import torch
+    from repro_torch.launch import dryrun
     a = torch.ones(64, 64, device=DEV)
     (a @ a).sum().item()
     (a.bfloat16() @ a.bfloat16()).sum().item()
@@ -4814,6 +4866,327 @@ def phase_dryrun():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM zoo at its published long-context shapes: every LM serving cell of
+# LM_SHAPES (prefill_32k, decode_32k, long_500k) that the dry run fits on
+# the card, at the dry run's batch, each in a process of its own
+# ---------------------------------------------------------------------------
+
+ZOO_GEN = 4                 # a prefill cell's tokens (its cache: prompt + 4);
+                            # a decode cell's steps (its cache: S, S - 4 full)
+ZOO_WARM = (1, 256)         # the warm-up serve's prompts: loads the kernels
+ZOO_ROPE_POS = 524272       # apply_rope on the card against the CPU at
+ZOO_ROPE_TOL = 1e-6         # positions 524272-524287, f32
+DECODE_TOL = FLASH_TOL["bfloat16"]  # decode attention, card vs CPU, bf16
+ZOO_CELL_TIMEOUT = 300      # seconds a cell's process may take
+INT32_MAX = 2 ** 31 - 1
+
+
+def zoo_cells(recs):
+    """(arch, shape, batch) of every LM serving cell that fits: the
+    published batch where the dry run's record fits, else its
+    ``largest_batch_that_fits`` (0: none). train_4k is left out."""
+    out = []
+    for rec in recs:
+        meta = rec["meta"]
+        if meta.get("family") != "lm" or rec["shape"] == "train_4k":
+            continue
+        B = meta["batch"] if rec["fits"] else \
+            rec.get("largest_batch_that_fits")
+        if B:
+            out.append((rec["arch"], rec["shape"], B))
+    return out
+
+
+def phase_lm_zoo(recs):
+    """Each cell of ``zoo_cells`` run by ``zoo_cell`` in a fresh process
+    (``chip_smoke.py --zoo-cell ARCH SHAPE BATCH``), one after another, so
+    that a cell's weights meet an empty allocator: one line a cell, with
+    the card's name and power limit. Runs before anything else of this
+    script touches the card. Returns {cell label: its line}."""
+    cells = zoo_cells(recs)
+    if not cells:
+        raise AssertionError("lm_zoo: the dry run fits no LM cell")
+    card, out, t0 = nvidia_smi(), {}, time.time()
+    for arch, shape, B in cells:
+        t1 = time.time()
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--zoo-cell", arch, shape, str(B)],
+                           capture_output=True, text=True, cwd=str(ROOT),
+                           timeout=ZOO_CELL_TIMEOUT)
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith('{"phase": "lm_zoo"')]
+        if r.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"lm_zoo {arch} {shape} at {B}: rc "
+                                 f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-4000:]}")
+        line = {**json.loads(lines[0]), "process_s": time.time() - t1,
+                "card": card}
+        emit(line)
+        out[f"{arch} {shape}"] = line
+    emit({"phase": "lm_zoo_done", "cells": len(out),
+          "seconds": time.time() - t0, "card": card})
+    return out
+
+
+def zoo_rope(cfg):
+    """RoPE on the card against the CPU for the arch: ``rope_freqs`` bit
+    for bit, ``apply_rope`` in f32 at positions ZOO_ROPE_POS.. +15 within
+    ZOO_ROPE_TOL."""
+    import torch
+    from repro_torch.models import layers as L
+    hd, theta = cfg.head_dim, cfg.rope_theta
+    card = L.rope_freqs(hd, theta, DEV).cpu()
+    host = L.rope_freqs(hd, theta, "cpu")
+    differ = int((card.view(torch.int32) != host.view(torch.int32)).sum())
+    x = torch.tensor(np.random.default_rng(SEED + 12).standard_normal(
+        (2, cfg.n_kv_heads, 16, hd)), dtype=torch.float32)
+    pos = torch.arange(ZOO_ROPE_POS, ZOO_ROPE_POS + 16)
+    err = float((L.apply_rope(x.to(DEV), pos.to(DEV), theta).cpu()
+                 - L.apply_rope(x, pos, theta)).abs().max())
+    if differ or err > ZOO_ROPE_TOL:
+        raise AssertionError(f"rope {cfg.name}: {differ} inverse "
+                             f"frequencies differ from the CPU's; "
+                             f"apply_rope at {ZOO_ROPE_POS}.. differs by "
+                             f"{err} > {ZOO_ROPE_TOL}")
+    return {"freqs_differing": differ, "apply_rope_max_abs_err": err,
+            "positions": [ZOO_ROPE_POS, ZOO_ROPE_POS + 15],
+            "head_dim": hd, "theta": theta}
+
+
+def spy_on(module, attr, keep):
+    """Patches ``module.attr`` with a spy that calls it and hands
+    (call index, args, result) to ``keep``; returns the undo."""
+    import itertools
+    orig, calls = getattr(module, attr), itertools.count()
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        keep(next(calls), args, out)
+        return out
+    setattr(module, attr, spy)
+    return lambda: setattr(module, attr, orig)
+
+
+def int32_extent(*ts):
+    """The largest size and stride of the tensors, against int32 (what
+    ``flash_attention.ops.launch`` takes)."""
+    sizes = max(n for t in ts for n in t.shape)
+    strides = max(st for t in ts for st in t.stride())
+    return {"largest_size": sizes, "largest_stride": strides,
+            "q_elements": ts[0].numel(), "int32_max": INT32_MAX,
+            "within_int32": max(sizes, strides) <= INT32_MAX}
+
+
+def zoo_prefill(model, B, S):
+    """``serve`` of B seeded prompts of S tokens and ZOO_GEN tokens, after
+    a small warm-up serve; counts zeroed just before, read just after. The
+    flash_attention call of layer 0 and of the last layer is captured in
+    that serve: batch row 0 and KV head 0's query group, its inputs and
+    the kernel's own output, held to the plain version after the run."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch.serve import serve
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 13)
+    serve(model, torch.tensor(rng.integers(0, cfg.vocab_size, ZOO_WARM),
+                              device=DEV), 2)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           device=DEV)
+    layers, got, extent = {0, cfg.n_layers - 1}, {}, {}
+
+    def keep(i, args, out):
+        q, k, v = args[:3]
+        if i in layers:
+            g = q.shape[1] // k.shape[1]
+            got[i] = (q[:1, :g].clone(), k[:1, :1].clone(),
+                      v[:1, :1].clone(), out[:1, :g].clone())
+            extent.update(int32_extent(q, k, v, out))
+    undo = spy_on(FA, "attention", keep)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        toks, t_pre, t_dec = serve(model, prompts, ZOO_GEN)
+    finally:
+        undo()
+    counts = launch_counts()
+    check_prefill_launches(counts, cfg.n_layers, f"lm_zoo {cfg.name}")
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    if toks.shape != (B, ZOO_GEN) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"lm_zoo {cfg.name}: tokens malformed: "
+                             f"{tuple(toks.shape)}")
+    flash = {}
+    for i, (q, k, v, out) in sorted(got.items()):
+        e, share = hold_flash(out, q, k, v, True,
+                              f"lm_zoo {cfg.name} layer {i}", tc=True)
+        flash[f"layer_{i}"] = {"max_abs_err": e,
+                               "share_of_tc_plain_tolerance": share,
+                               "slice_q": list(q.shape)}
+    del got
+    return {"prompt_len": S, "cache_len": S + ZOO_GEN, "gen": ZOO_GEN,
+            "prefill_ms": 1e3 * t_pre,
+            "decode_ms_per_token": 1e3 * t_dec / (ZOO_GEN - 1),
+            "prefill_tok_per_s": B * S / t_pre,
+            "generated_tok_per_s": B * ZOO_GEN / (t_pre + t_dec),
+            "launches": counts,
+            "flash_attention_tc_launches": counts[FA.TC_KERNEL.name],
+            "flash_captured": flash,
+            "flash_max_abs_err": max(f["max_abs_err"]
+                                     for f in flash.values()),
+            "flash_int32": extent, "first_tokens": toks[0].tolist()}, peak
+
+
+def zoo_decode(model, B, S):
+    """ZOO_GEN greedy decode steps against a KV cache of S slots filled
+    with seeded bf16 values, S - ZOO_GEN of them counted as valid (the
+    spec's decode cell takes the cache as an input); counts zeroed just
+    before, read just after. Layer 0's decode attention of the first step
+    is captured (batch row 0: q, the cache, its length and the card's
+    output) and held to the CPU's decode_attention after the run."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 14)
+    small = T.init_cache(cfg, 1, 8, device=DEV)
+    for _ in range(2):
+        _, small = T.decode_step(model, torch.zeros(
+            (1, 1), dtype=torch.int64, device=DEV), small)
+    del small
+    cache = T.init_cache(cfg, B, S, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 15)
+    for t in (cache.prefix_k, cache.prefix_v, cache.main_k, cache.main_v):
+        if t is not None:
+            t.normal_(generator=gen)
+    cache = cache._replace(length=torch.full(
+        (B,), S - ZOO_GEN, dtype=torch.int32, device=DEV))
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, (B, 1)), device=DEV)
+    got = {}
+
+    def keep(i, args, out):
+        if i == 0:   # the cache's slots below n are never written again:
+            q, kc, vc, n = args     # later steps write at n and after
+            got.update(q=q[:1].clone(), k=kc[:1], v=vc[:1],
+                       n=n[:1].clone(), out=out[:1].clone())
+    undo = spy_on(L, "decode_attention", keep)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(ZOO_GEN):
+            logits, cache = T.decode_step(model, tok, cache)
+            tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    finally:
+        undo()
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    if not bool(finite):
+        raise FloatingPointError(f"lm_zoo {cfg.name}: non-finite logits")
+    if any(counts.values()) or int(cache.length[0]) != S \
+            or int(tok.min()) < 0 or int(tok.max()) >= cfg.vocab_size:
+        raise AssertionError(f"lm_zoo {cfg.name} decode: launches "
+                             f"{counts}, length {int(cache.length[0])} of "
+                             f"{S}, tokens {tok.flatten().tolist()[:8]}")
+    want = L.decode_attention(*(got[k].cpu() for k in ("q", "k", "v", "n")))
+    have = got["out"].cpu().float()
+    want = want.float()
+    excess = float(((have - want).abs()
+                    - DECODE_TOL * (1 + want.abs())).max())
+    err = float((have - want).abs().max())
+    if excess > 0 or not torch.isfinite(have).all():
+        raise AssertionError(f"lm_zoo {cfg.name}: layer 0's decode "
+                             f"attention differs from the CPU's by {err} "
+                             f"(gate {DECODE_TOL} (1 + |want|))")
+    return {"cache_len": S, "valid_at_start": S - ZOO_GEN,
+            "decode_steps": ZOO_GEN,
+            "decode_ms_per_token": 1e3 * t_dec / ZOO_GEN,
+            "decode_tok_per_s": B * ZOO_GEN / t_dec, "launches": counts,
+            "decode_attention_max_abs_err": err,
+            "decode_attention_live_slots": int(got["n"][0]),
+            "decode_attention_tolerance": f"{DECODE_TOL} (1 + |want|)",
+            "last_tokens": tok[:8, 0].tolist()}, peak
+
+
+def zoo_cell(arch, shape, B):
+    """One zoo cell in this process, on a card nothing else holds: the
+    dry run's record of the same cell at batch B (a prefill's cache S +
+    ZOO_GEN), the weights from the port's seeded init, RoPE on the card
+    against the CPU, then ``zoo_prefill`` or ``zoo_decode``; the measured
+    peak (``max_memory_allocated`` from before the weights, cuBLAS's
+    workspace made before) within PEAK_TOL of the reckoned one, and beside
+    it the segments the allocator reserved (``max_memory_reserved``, the
+    cache emptied first) against the dry run's replay of the allocator.
+    Emits one lm_zoo line."""
+    import torch
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch)[0]
+    spec = get_shape(arch, shape)
+    S = spec["seq_len"]
+    free, total = torch.cuda.mem_get_info()
+    if HBM_BYTES > total:
+        raise AssertionError(f"HBM_BYTES {HBM_BYTES} exceeds the card's "
+                             f"reported total {total}")
+    a = torch.ones(64, 64, device=DEV)
+    (a @ a).sum().item()
+    (a.bfloat16() @ a.bfloat16()).sum().item()
+    del a
+    torch.cuda.empty_cache()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    rope = zoo_rope(cfg)
+    kw = {"cache_len": S + ZOO_GEN} if spec.kind == "prefill" else {}
+    rec = dryrun.run_cell(arch, shape, batch=B, search=False, **kw)
+    reckoned = rec["memory"]["total_per_device"]
+    segments = rec["memory"]["reserved_needed"]
+    t0 = time.time()
+    model = T.init_lm(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    run = zoo_prefill if spec.kind == "prefill" else zoo_decode
+    out, peak = run(model, B, S)
+    measured, reserved = (p - b for p, b in zip(peak, base))
+    ratio = reckoned / measured
+    ms = out["prefill_ms"] if spec.kind == "prefill" else \
+        out["decode_ms_per_token"]
+    line = {"phase": "lm_zoo", "arch": arch, "cell": shape, "batch": B,
+            "n_params": cfg.n_params, "dtype": cfg.dtype, "init_s": init_s,
+            **out, "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "bound_of": "prefill" if spec.kind == "prefill"
+            else "one decode step",
+            "share_of_bound": rec["bound_ms"] / ms,
+            "reckoned_peak_gib": reckoned / 2 ** 30,
+            "measured_peak_gib": measured / 2 ** 30, "peak_ratio": ratio,
+            "capacity_gib": HBM_BYTES / 2 ** 30,
+            "headroom_gib": (HBM_BYTES - measured) / 2 ** 30,
+            "reckoned_segments_needed_gib": segments / 2 ** 30,
+            "reckoned_segments_peak_gib":
+                rec["memory"]["reserved_peak"] / 2 ** 30,
+            "measured_reserved_peak_gib": reserved / 2 ** 30,
+            "segment_headroom_gib": (HBM_BYTES - segments) / 2 ** 30,
+            "card_total_gib": total / 2 ** 30,
+            "card_free_at_start_gib": free / 2 ** 30,
+            "hbm_bytes_within_total": HBM_BYTES <= total, "rope": rope}
+    emit(line)
+    if abs(ratio - 1) > PEAK_TOL:
+        raise AssertionError(f"lm_zoo {arch} {shape}: reckoned peak "
+                             f"{reckoned} is {ratio:.3f} of the measured "
+                             f"{measured}, beyond {PEAK_TOL:.0%}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4822,7 +5195,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:2] == ["--zoo-cell"]:
+        arch, shape, batch = sys.argv[2:5]
+        zoo_cell(arch, shape, int(batch))
+        return 0
     phase_build()
+    recs, dryrun_s = dryrun_all()
+    zoo = phase_lm_zoo(recs)
     errs = phase_parity()
     rows_, sharded, checked, profs = {}, {}, {}, {}
     sess, counts, main1 = phase_main("opic_url")
@@ -4866,6 +5245,8 @@ def main() -> int:
     err_lm = {name: max(max(e.values()), err_captured[name])
               for name, e in flash["max_abs_err"].items()}
     counts_f32 = phase_lm_cpu()
+    for arch in LM_CPU_ARCHS[1:]:
+        phase_lm_cpu(arch)
     rows_["lm"] = kernels_lm(captured, counts_lm, err_lm, counts_f32)
     tc_row, core_row = rows_["lm"]
     del captured
@@ -4889,8 +5270,13 @@ def main() -> int:
     free_card()
     phase_gnn_recsys_cpu()
     free_card()
-    phase_dryrun()
-    tc_row["max_abs_err"] = max(tc_row["max_abs_err"], err_moe, err_arctic)
+    phase_dryrun(recs, dryrun_s)
+    tc_row["max_abs_err"] = max(tc_row["max_abs_err"], err_moe, err_arctic,
+                                *(c["flash_max_abs_err"] for c in zoo.values()
+                                  if "flash_max_abs_err" in c))
+    tc_row["launches_per_zoo_prefill"] = {
+        f"{label} (batch {c['batch']})": c["flash_attention_tc_launches"]
+        for label, c in zoo.items() if "flash_attention_tc_launches" in c}
     tc_row["launches_per_moe_prefill"] = {
         MOE_ARCH: counts_moe["flash_attention_tc"],
         f"{ARCTIC_ARCH} ({ARCTIC_LAYERS} layers)":

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +239,9 @@ class CrawlConfig:
     @property
     def n_slots(self) -> int:
         return self.n_domains * self.slot_factor
+
+
+ArchConfig = Union[LMConfig, GNNConfig, RecSysConfig, CrawlConfig]
 
 
 def scaled(cfg, **overrides):

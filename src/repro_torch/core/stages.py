@@ -665,6 +665,9 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     return with_frontier(state, fr), carry, delta
 
 
+DEFAULT_PIPELINE: Tuple[Stage, ...] = (allocate, fetch_analyze, extract_stage)
+
+
 def assemble_pipeline(ctx: StageContext,
                       extra_stages: Sequence[Stage] = ()
                       ) -> Tuple[Stage, ...]:

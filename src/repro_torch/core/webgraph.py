@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.base import CrawlConfig
 
 M32 = 0xFFFFFFFF
+U32 = torch.int64       # the dtype that carries the reference's uint32 ids
 U32Like = Union[torch.Tensor, int]
 
 

@@ -54,3 +54,7 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(BHq, Sq, hd).to(q.dtype)
+
+
+# the reference's name for its plain attention, of the same contract
+attention_ref = flash_ref

@@ -11,7 +11,9 @@ outputs' shapes and dtypes and allocates nothing, and
   each new storage when an op makes it and frees it when the last tensor
   on it dies, rounded up to 512 bytes as the card's caching allocator
   rounds, so its peak is what ``torch.cuda.max_memory_allocated`` would
-  read over the step's own allocations;
+  read over the step's own allocations; the same allocations and frees,
+  after the arguments', replay the card's caching allocator
+  (``CachingAllocator``), whose segments are what runs out on the card;
 - ``torch.utils.flop_counter.FlopCounterMode`` counts the matmuls'
   operations, and the kernels' meta routes (``kernels.registry``) add the
   work of the hand-written kernels, which it does not see;
@@ -25,10 +27,12 @@ The record keeps the reference's fields where they have a meaning here:
 ``arch``, ``shape``, ``variant``, ``n_devices`` (1), ``meta``,
 ``memory`` (``argument_size_in_bytes``, ``output_size_in_bytes``,
 ``temp_size_in_bytes``, ``total_per_device``, as ``_mem_dict``),
-``cost.flops`` and ``hbm_bytes_est``; and adds ``devices`` (those of the
-arguments and of every op's results: ``["meta"]``), ``bound_ms``, ``fits``
-(``total_per_device`` against the card's 80 GiB) and, when a cell does
-not fit, ``largest_batch_that_fits`` (halving its batch).
+``cost.flops`` and ``hbm_bytes_est``; and adds ``memory.reserved_needed``
+and ``memory.reserved_peak`` (the allocator's segments), ``devices``
+(those of the arguments and of every op's results: ``["meta"]``),
+``bound_ms``, ``fits`` (``reserved_needed`` against ``mesh.HBM_BYTES``,
+the 78.48 GiB a cell can allocate on the card) and, when a cell does not
+fit, ``largest_batch_that_fits`` (halving its batch).
 
 The crawl cell (``webparf crawl_step`` at ``webparf.CONFIG``, 1 and 4
 shards) reckons its state on meta exactly; its step reads the host
@@ -54,6 +58,7 @@ reports (``bound``, ``gat_cost``, ``recsys_cost``, ``lm_prefill_flops``,
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 import time
@@ -105,22 +110,114 @@ def storage_bytes(x) -> Dict[int, int]:
     return out
 
 
+# the card's caching allocator (PyTorch's CUDACachingAllocator, default
+# settings): blocks of up to SMALL_SIZE bytes come from segments of
+# SMALL_BUFFER; larger ones below MIN_LARGE_ALLOC from segments of
+# LARGE_BUFFER; the rest from a segment of their size rounded up to
+# ROUND_LARGE
+SMALL_SIZE, SMALL_BUFFER = 1 << 20, 2 << 20
+MIN_LARGE_ALLOC, LARGE_BUFFER, ROUND_LARGE = 10 << 20, 20 << 20, 2 << 20
+
+
+class CachingAllocator:
+    """The card's caching allocator replayed on a cell's allocations, to
+    reckon the segments it must hold, which the allocated bytes alone
+    understate: each request rounded to 512 bytes takes the smallest free
+    block of its pool (small: at most 1 MiB) that holds it, the lowest
+    address first among equals, and splits off the rest when that is at
+    least 512 bytes (small pool) or more than 1 MiB (large); with none, a
+    new segment (``segment_size``); a freed block merges with free
+    neighbours of its segment, and segments stay cached. The card frees
+    its cached, wholly free segments only when a new one does not fit, so
+    a step fits when the segments that hold a live block fit at every
+    moment: ``needed`` is the largest sum of them. ``reserved_peak`` is
+    the largest sum of all segments, cached ones included, which is what
+    ``torch.cuda.max_memory_reserved`` reads on a card with room."""
+
+    def __init__(self):
+        self.pools = {True: [], False: []}     # small? -> sorted free blocks
+        self.blocks: Dict[int, tuple] = {}     # key -> (seg, addr, size)
+        self.segments: Dict[int, list] = {}    # seg -> [size, small, blocks]
+        self.seg_free: Dict[int, set] = {}     # seg -> its free blocks
+        self.reserved = self.in_use = self.needed = self.reserved_peak = 0
+
+    @staticmethod
+    def segment_size(size: int) -> int:
+        if size <= SMALL_SIZE:
+            return SMALL_BUFFER
+        if size < MIN_LARGE_ALLOC:
+            return LARGE_BUFFER
+        return -(-size // ROUND_LARGE) * ROUND_LARGE
+
+    def _put(self, blk, small):
+        bisect.insort(self.pools[small], blk)
+        self.seg_free[blk[2]].add(blk)
+
+    def alloc(self, key: int, nbytes: int) -> None:
+        if nbytes == 0:
+            return
+        size = _round(nbytes)
+        small = size <= SMALL_SIZE
+        pool = self.pools[small]
+        i = bisect.bisect_left(pool, (size, -1, -1))
+        if i < len(pool):
+            blk = pool.pop(i)
+            self.seg_free[blk[2]].discard(blk)
+            bsize, addr, seg = blk
+        else:
+            seg, addr, bsize = len(self.segments), 0, self.segment_size(size)
+            self.segments[seg] = [bsize, small, 0]
+            self.seg_free[seg] = set()
+            self.reserved += bsize
+            self.reserved_peak = max(self.reserved_peak, self.reserved)
+        rest = bsize - size
+        if (rest >= ROUND) if small else (rest > SMALL_SIZE):
+            self._put((rest, addr + size, seg), small)
+        else:
+            size = bsize
+        sg = self.segments[seg]
+        if sg[2] == 0:
+            self.in_use += sg[0]
+            self.needed = max(self.needed, self.in_use)
+        sg[2] += 1
+        self.blocks[key] = (seg, addr, size)
+
+    def free(self, key: int) -> None:
+        if key not in self.blocks:      # a storage of 0 bytes took none
+            return
+        seg, addr, size = self.blocks.pop(key)
+        sg = self.segments[seg]
+        for blk in [b for b in self.seg_free[seg]
+                    if b[1] + b[0] == addr or addr + size == b[1]]:
+            self.seg_free[seg].discard(blk)
+            self.pools[sg[1]].remove(blk)
+            addr, size = min(addr, blk[1]), size + blk[0]
+        self._put((size, addr, seg), sg[1])
+        sg[2] -= 1
+        if sg[2] == 0:
+            self.in_use -= sg[0]
+
+
 class LiveBytes(TorchDispatchMode):
     """The bytes of the storages ops make while the mode is on: ``cur``
     (alive now) and ``peak``; ``traffic`` adds every op's operand and
     result bytes (view ops move none); ``devices`` the device types of
     the results (``meta`` alone when nothing was allocated; ``lift_fresh``
     is passed over: it hands on a host constant that already exists, as
-    ``torch.tensor`` of a Python number makes, before ``.to("meta")``)."""
+    ``torch.tensor`` of a Python number makes, before ``.to("meta")``).
+    Each allocation and free also goes to ``pool``, a
+    ``CachingAllocator``."""
 
-    def __init__(self):
+    def __init__(self, pool: CachingAllocator):
         super().__init__()
         self.live: Dict[int, int] = {}
         self.cur = self.peak = self.traffic = self.ops = 0
         self.devices = set()
+        self.pool = pool
 
     def _free(self, key):
         self.cur -= self.live.pop(key)
+        self.pool.free(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -144,6 +241,7 @@ class LiveBytes(TorchDispatchMode):
             self.live[key] = nb
             self.cur += nb
             self.peak = max(self.peak, self.cur)
+            self.pool.alloc(key, st.nbytes())
             weakref.finalize(st, self._free, key)
         return out
 
@@ -175,16 +273,22 @@ MB_WALKED = (2, 3)      # microbatches walked for a train step of more
 
 def trace(cell: specs.Cell) -> dict:
     """Run the cell's step on meta: {args, out, peak_new, traffic, ops,
-    torch_flops, devices, kernels} (bytes, FLOP; ``devices`` those of the
-    arguments and of every op's results; ``kernels`` the meta routes'
-    {name: {calls, flops, bytes}})."""
+    torch_flops, devices, kernels, pool} (bytes, FLOP; ``devices`` those
+    of the arguments and of every op's results; ``kernels`` the meta
+    routes' {name: {calls, flops, bytes}}; ``pool`` the
+    ``CachingAllocator`` that took the arguments, then the step)."""
     arg = storage_bytes(cell.args)
+    pool = CachingAllocator()
+    for t in tensors(cell.args):
+        st = t.untyped_storage()
+        if st._cdata not in pool.blocks:
+            pool.alloc(st._cdata, st.nbytes())
     raw = {"args": sum(arg.values()), "out": 0, "peak_new": 0,
-           "traffic": 0, "ops": 0, "torch_flops": 0,
+           "traffic": 0, "ops": 0, "torch_flops": 0, "pool": pool,
            "devices": {t.device.type for t in tensors(cell.args)}}
     with registry.meta_costs() as kern:
         if cell.fn is not None:
-            fc, lb = FlopCounterMode(display=False), LiveBytes()
+            fc, lb = FlopCounterMode(display=False), LiveBytes(pool)
             with fc, lb:
                 res = cell.fn(*cell.args)
             raw.update(out=sum(v for k, v in storage_bytes(res).items()
@@ -237,6 +341,8 @@ def reckon(cell: specs.Cell, **rebuild) -> dict:
         temps = crawl_temporaries(specs.CrawlConfig(**cell.meta["config"]),
                                   cell.meta["n_shards"])
         raw["peak_new"] = sum(temps.values())
+        for i, nb in enumerate(temps.values()):
+            raw["pool"].alloc(-1 - i, nb)
         extra.update(crawl_temporaries=temps, reckoning=(
             "state on meta exactly; the step reads the host, so its "
             "temporaries are reckoned from CrawlConfig's buffer sizes"))
@@ -244,6 +350,7 @@ def reckon(cell: specs.Cell, **rebuild) -> dict:
     kbytes = sum(e["bytes"] for e in raw["kernels"].values())
     flops = raw["torch_flops"] + kflops
     total = raw["args"] + raw["peak_new"]
+    needed = raw["pool"].needed
     min_bytes = raw["args"] + raw["out"]
     t_b = 1e3 * min_bytes / HBM_BW
     t_f = 1e3 * flops / _peak_flops(cell.meta)
@@ -251,7 +358,9 @@ def reckon(cell: specs.Cell, **rebuild) -> dict:
                        "output_size_in_bytes": raw["out"],
                        "temp_size_in_bytes": max(0, raw["peak_new"]
                                                  - raw["out"]),
-                       "total_per_device": total},
+                       "total_per_device": total,
+                       "reserved_needed": needed,
+                       "reserved_peak": raw["pool"].reserved_peak},
             "cost": {"flops": flops, "flops_torch": raw["torch_flops"],
                      "flops_kernels": kflops, "kernels": raw["kernels"]},
             "hbm_bytes_est": raw["traffic"] + kbytes,
@@ -259,15 +368,16 @@ def reckon(cell: specs.Cell, **rebuild) -> dict:
             "bound_by": "bytes" if t_b >= t_f else "operations",
             "ops_traced": raw["ops"], "devices": sorted(raw["devices"]),
             "time_trace_s": time.time() - t0,
-            "fits": total <= HBM_BYTES, **extra}
+            "fits": needed <= HBM_BYTES, **extra}
 
 
 def cut_batch(arch: str, shape: str, B: int, budget: int = HBM_BYTES,
               variant: str = "baseline", **kw):
-    """Halve a cell's batch B while its peak, reckoned by the dry run
-    (``run_cell`` on meta), exceeds ``budget`` bytes: (the batch, 0 when
-    not even 1 fits, and each step's {batch, reckoned_bytes}). A batch
-    whose arguments alone exceed the budget is not traced (its
+    """Halve a cell's batch B while the segments the card's allocator must
+    hold for it, reckoned by the dry run (``run_cell`` on meta,
+    ``reserved_needed``), exceed ``budget`` bytes: (the batch, 0 when not
+    even 1 fits, and each step's {batch, reckoned_bytes}). A batch whose
+    arguments alone exceed the budget is not traced (its
     ``reckoned_bytes`` are the arguments')."""
     steps = []
     while B >= 1:
@@ -278,7 +388,7 @@ def cut_batch(arch: str, shape: str, B: int, budget: int = HBM_BYTES,
         if need <= budget:
             need = run_cell(arch, shape, variant=variant, search=False,
                             **{**kw, "batch": B})[
-                "memory"]["total_per_device"]
+                "memory"]["reserved_needed"]
         steps.append({"batch": B, "reckoned_bytes": need})
         if need <= budget:
             return B, steps
@@ -324,11 +434,14 @@ def run_cell(arch: str, shape: str, out_dir: Optional[str] = None,
 
 
 def summary(rec: dict) -> str:
-    """One line: fits, peak GiB, FLOP, bound ms on this card."""
+    """One line: fits, peak and reserved GiB, FLOP, bound ms on this
+    card."""
     mem = rec["memory"]["total_per_device"] / 2 ** 30
+    res = rec["memory"]["reserved_needed"] / 2 ** 30
     line = (f"{rec['arch']:20s} {rec['shape']:15s} "
             f"{'fits' if rec['fits'] else 'DOES NOT FIT':12s} "
-            f"peak {mem:9.2f} GiB  {rec['cost']['flops']:.3e} FLOP  "
+            f"peak {mem:9.2f} GiB (segments {res:9.2f})  "
+            f"{rec['cost']['flops']:.3e} FLOP  "
             f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     if "largest_batch_that_fits" in rec:
         line += f"  largest batch that fits: {rec['largest_batch_that_fits']}"

@@ -7,7 +7,8 @@ memory, which the dry run (``launch/dryrun.py``) and ``chip_smoke.py``
 bound every cell with:
 
   989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor cores (dense),
-  67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s HBM, 80 GiB of HBM.
+  67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s HBM; of its 80 GiB of
+  HBM, ``HBM_BYTES`` is what a cell's own allocations can take.
 
 ``make_production_mesh`` is not ported: one card has no pod to lay out
 (``ROADMAP.md`` lists it). ``make_host_mesh`` returns the mesh shape of
@@ -21,7 +22,14 @@ PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 on the tensor cores
 PEAK_FLOPS_TF32 = 495e12        # FLOP/s, dense TF32 on the tensor cores
 PEAK_FLOPS_F32 = 67e12          # FLOP/s, f32 FMAs on the CUDA cores
 HBM_BW = 3.35e12                # B/s
-HBM_BYTES = 80 * 2 ** 30        # the card's memory, against which a cell fits
+# The bytes a cell can allocate, against which it fits: what
+# ``torch.cuda.mem_get_info()`` reports free on an ``NVIDIA H100 80GB HBM3,
+# 700.00 W`` (total 85,017,493,504 B, 79.18 GiB) in a fresh process after
+# its CUDA context (552,402,944 B), cuBLAS's handle and 32 MiB workspace and
+# the LM path's kernel modules are loaded: 78.48 GiB, measured by
+# ``tools/card_capacity.py``. A constant, so the dry run on meta needs no card;
+# ``chip_smoke.py`` checks it against the card's reported total.
+HBM_BYTES = 84_263_763_968
 
 
 def make_host_mesh(model: int = 1) -> Dict[str, int]:

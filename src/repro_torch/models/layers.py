@@ -59,9 +59,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies, shape (head_dim // 2,)."""
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """Inverse frequencies, shape (head_dim // 2,), f32: the reference's
+    three f32 steps (``i / head_dim``, ``theta ** e``, ``1 / p``), each
+    taken in f64 and rounded to f32, so each is the correctly rounded f32
+    value on either device. Torch's f32 ``pow`` is 1 ulp off for some
+    exponents (qwen2's index 37, phi3's 20) and ``pos * inv`` multiplies
+    that by the position; the card divides by a scalar as a product with
+    its reciprocal, inexact at head_dim 96. XLA's f32 ``pow`` is not
+    correctly rounded everywhere either (head_dim 112, theta 1e6, index
+    16), but it is at every configured (head_dim, theta)."""
+    e = (torch.arange(0, head_dim, 2, dtype=torch.float64, device=device)
+         / head_dim).float()
+    p = (theta ** e.double()).float()
+    return (1.0 / p.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

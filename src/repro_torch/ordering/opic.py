@@ -121,6 +121,12 @@ def opic_update(ctx, state, carry):
     return state, carry._replace(link_cash=remote, links=links), {}
 
 
+def make_opic_update_stage():
+    """The OPIC spend step as a pipeline stage (between fetch_analyze and
+    extract; ``core/stages.assemble_pipeline`` slots it in by itself)."""
+    return opic_update
+
+
 OPIC = register_ordering(OrderingPolicy(
     "opic", True, init_opic, make_opic_score_fn, opic_update))
 

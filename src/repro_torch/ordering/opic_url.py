@@ -112,6 +112,12 @@ def opic_url_update(ctx, state, carry):
                                  url_cash=torch.zeros_like(carry.url_cash)), {}
 
 
+def make_opic_url_update_stage():
+    """The per-URL OPIC spend step as a pipeline stage (between
+    fetch_analyze and extract)."""
+    return opic_url_update
+
+
 OPIC_URL = register_ordering(OrderingPolicy(
     "opic_url", True, init_opic_url, make_opic_url_score_fn,
     opic_url_update, url_lane=True))

@@ -107,14 +107,18 @@ def all_steps(ckpt_dir: str) -> List[int]:
     return sorted(out)
 
 
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = all_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
 def load(ckpt_dir: str, *, step: Optional[int] = None
          ) -> Dict[str, np.ndarray]:
     """The numpy leaves of checkpoint ``step`` (the latest by default)."""
-    steps = all_steps(ckpt_dir)
     if step is None:
-        if not steps:
+        step = latest_step(ckpt_dir)
+        if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-        step = steps[-1]
     path = os.path.join(ckpt_dir, f"step_{step:010d}", "arrays.npz")
     with np.load(path) as data:
         return {k: data[k] for k in data.files}

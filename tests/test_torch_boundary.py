@@ -355,55 +355,124 @@ def test_unported_training_raises():
         recsys.no_such_name
 
 
-# the reference's mesh-path modules and their port counterparts
-MESH_MODULES = {"repro.launch.specs": "repro_torch.launch.specs",
-                "repro.launch.dryrun": "repro_torch.launch.dryrun",
-                "repro.launch.mesh": "repro_torch.launch.mesh",
-                "repro.sharding.rules": "repro_torch.sharding.rules",
-                "repro.kernels.registry": "repro_torch.kernels.registry"}
+def _module_name(path: Path, package: str) -> str:
+    rel = path.relative_to(ROOT / "src" / package).with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    return ".".join((package,) + parts)
 
 
-def _not_ported() -> set:
-    """The names ``ROADMAP.md`` lists under "Not ported"."""
+# every module of the reference that has a port file at the same place, and
+# that file: the Pallas kernel bodies (ported as csrc/*.cu) and compat.py
+# have none
+MODULES = {_module_name(p, "repro"): p for p in sorted(
+    (ROOT / "src" / "repro").rglob("*.py"))
+    if (ROOT / "src" / "repro_torch" / p.relative_to(
+        ROOT / "src" / "repro")).exists()}
+
+
+def _not_ported(ref_name: str) -> set:
+    """The names ``ROADMAP.md`` lists under "Not ported" for the module: a
+    bullet whose first line names the module's path (``launch/mesh.py``)
+    names them."""
     import re
     text = (ROOT / "ROADMAP.md").read_text()
     i = text.index("### Not ported")
     section = text[i:text.index("\n### ", i + 1)]
-    return set(re.findall(r"`([A-Za-z_][A-Za-z0-9_]*)`", section))
+    rel = MODULES[ref_name].relative_to(ROOT / "src" / "repro").as_posix()
+    out = set()
+    for bullet in re.split(r"\n- ", section)[1:]:
+        if f"`{rel}`" in bullet.split("\n")[0]:
+            out |= set(re.findall(r"`([A-Za-z_][A-Za-z0-9_]*)`", bullet))
+    return out
 
 
 def _reference_public(ref_name: str) -> list:
-    """The public names a reference module defines (functions, classes and
-    UPPER_CASE constants at its top level), read from its source: the
-    reference's ``launch/dryrun.py`` sets ``XLA_FLAGS`` to 512 host
-    devices when imported, which would change every later JAX test of
-    this process."""
-    path = ROOT / "src" / Path(*ref_name.split(".")).with_suffix(".py")
+    """The public names a reference module defines at its top level
+    (functions, classes, constants and type aliases; a package's
+    ``__init__`` also what it imports from the package), read from its
+    source: the reference's ``launch/dryrun.py`` sets ``XLA_FLAGS`` to 512
+    host devices when imported, which would change every later JAX test
+    of this process."""
     out = []
-    for node in ast.parse(path.read_text()).body:
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+    init = MODULES[ref_name].name == "__init__.py"
+    for node in ast.parse(MODULES[ref_name].read_text()).body:
+        if init and isinstance(node, ast.ImportFrom) and (
+                node.level or node.module.split(".")[0] == "repro"):
+            out += [a.asname or a.name for a in node.names]
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             out.append(node.name)
         elif isinstance(node, ast.Assign):
-            out += [t.id for t in node.targets if isinstance(t, ast.Name)
-                    and t.id.isupper()]
+            out += [t.id for t in node.targets if isinstance(t, ast.Name)]
         elif isinstance(node, ast.AnnAssign) and isinstance(
-                node.target, ast.Name) and node.target.id.isupper():
+                node.target, ast.Name):
             out.append(node.target.id)
     return [n for n in out if not n.startswith("_")]
 
 
-@pytest.mark.parametrize("ref_name", sorted(MESH_MODULES))
+def test_every_module_has_a_counterpart():
+    """Each reference file without a port file at the same place is a
+    Pallas kernel body (ported as ``csrc/*.cu``) or ``compat.py``, which
+    ROADMAP.md lists as not ported."""
+    ref = ROOT / "src" / "repro"
+    rest = {p.relative_to(ref).as_posix() for p in ref.rglob("*.py")} - {
+        MODULES[m].relative_to(ref).as_posix() for m in MODULES}
+    assert {p for p in rest if p.startswith("kernels/")
+            and (ref / p).read_text().count("pl.pallas_call(")} | {
+        "compat.py"} == rest
+    assert len(MODULES) > 60
+
+
+@pytest.mark.parametrize("ref_name", sorted(MODULES))
 def test_mesh_modules_mirror_reference(ref_name):
     """The reference's public names resolve in the port's counterpart,
-    apart from those ROADMAP.md lists as not ported (no single-card
-    meaning); the port file imports no JAX (checked above with every
-    file of the package)."""
+    for every module (the name is from when only the five mesh-path
+    modules were checked), apart from those ROADMAP.md lists as not
+    ported for that module (no single-card meaning); the port file imports
+    no JAX (checked above with every file of the package)."""
     import importlib
-    tmod = importlib.import_module(MESH_MODULES[ref_name])
+    port_path = ROOT / "src" / "repro_torch" / MODULES[ref_name].relative_to(
+        ROOT / "src" / "repro")
+    tmod = importlib.import_module(_module_name(port_path, "repro_torch"))
     public = _reference_public(ref_name)
-    assert public, ref_name
     missing = [n for n in public if not hasattr(tmod, n)]
-    assert set(missing) <= _not_ported(), sorted(set(missing)
-                                                 - _not_ported())
-    assert str(ROOT / "src" / Path(*tmod.__name__.split("."))) + ".py" in \
-        {str(p) for p in PORT_FILES}
+    assert set(missing) <= _not_ported(ref_name), sorted(
+        set(missing) - _not_ported(ref_name))
+    assert port_path in PORT_FILES
+
+
+def test_latest_step_reads_as_the_reference(tmp_path):
+    """``train/checkpoint.latest_step``: the newest complete checkpoint of
+    a directory, None when there is none, as the reference reads it."""
+    import numpy as np
+    from repro.train import checkpoint as jckpt
+    from repro_torch.train import checkpoint as tckpt
+    d = str(tmp_path / "ckpt")
+    assert tckpt.latest_step(d) is None is jckpt.latest_step(d)
+    for step in (3, 12, 7):
+        tckpt.save(d, step, {"w": np.arange(4, dtype=np.float32)})
+    (tmp_path / "ckpt" / f"step_{99:010d}").mkdir()      # no manifest
+    assert tckpt.latest_step(d) == jckpt.latest_step(d) == 12
+    assert tckpt.load(d)["w"].tolist() == [0.0, 1.0, 2.0, 3.0]
+
+
+def test_default_pipeline_and_opic_stages_mirror_reference():
+    """``core/stages.DEFAULT_PIPELINE`` names the reference's stages in its
+    order; the OPIC stage factories return the stages their orderings
+    register; ``U32`` carries a uint32 id; ``ArchConfig`` covers every
+    family's config."""
+    import typing
+    from repro.core import stages as jstages
+    from repro_torch.configs import get_arch
+    from repro_torch.core import stages, webgraph
+    from repro_torch.ordering import get_ordering, opic, opic_url
+    assert [f.__name__ for f in stages.DEFAULT_PIPELINE] == \
+        [f.__name__ for f in jstages.DEFAULT_PIPELINE]
+    assert opic.make_opic_update_stage() is \
+        get_ordering("opic").update_stage
+    assert opic_url.make_opic_url_update_stage() is \
+        get_ordering("opic_url").update_stage
+    assert torch.tensor([0xFFFFFFFF], dtype=webgraph.U32).item() == \
+        0xFFFFFFFF
+    kinds = typing.get_args(tbase.ArchConfig)
+    for arch in ("qwen2-1.5b", "gat-cora", "dien", "webparf"):
+        assert isinstance(get_arch(arch)[0], kinds), arch

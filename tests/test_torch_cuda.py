@@ -711,6 +711,23 @@ def test_lm_on_card_matches_cpu(cuda):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+@pytest.mark.parametrize("theta", [1e4, 1e5, 5e5, 1e6])
+@pytest.mark.parametrize("hd", [8, 16, 64, 96, 128])
+def test_rope_on_card_equals_cpu(cuda, hd, theta):
+    """RoPE's inverse frequencies on the card equal the CPU's bit for bit
+    (which equal the reference's, tests/test_torch_lm.py), and apply_rope
+    in f32 at positions 524,272-524,287 agrees within 1e-6."""
+    from repro_torch.models import layers as L
+    card = L.rope_freqs(hd, theta, cuda).cpu()
+    host = L.rope_freqs(hd, theta, "cpu")
+    assert torch.equal(card.view(torch.int32), host.view(torch.int32))
+    x = torch.tensor(np.random.default_rng(hd).standard_normal(
+        (2, 2, 16, hd)), dtype=torch.float32)
+    pos = torch.arange(524272, 524288)
+    got = L.apply_rope(x.to(cuda), pos.to(cuda), theta).cpu()
+    assert float((got - L.apply_rope(x, pos, theta)).abs().max()) <= 1e-6
+
+
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("R,M,C,b,tile,fill", TWIN_CASES)
 def test_dedup_deposit_twins_on_card(cuda, R, M, C, b, tile, fill, packed):

@@ -199,6 +199,62 @@ def test_largest_batch_search_and_train_walks():
         big, n_layers=2), batch=2 * b, search=False)["fits"]
 
 
+MiB = 1 << 20
+
+
+@pytest.mark.parametrize("nbytes,segment", [
+    (1, 2 * MiB), (MiB, 2 * MiB), (MiB + 1, 20 * MiB),
+    (10 * MiB - 512, 20 * MiB), (10 * MiB, 10 * MiB),
+    (11 * MiB + 1, 12 * MiB)])
+def test_allocator_segment_sizes(nbytes, segment):
+    """A request takes a segment of the card allocator's size for it: 2
+    MiB for the small pool (at most 1 MiB), 20 MiB below 10 MiB, else its
+    size rounded up to 2 MiB."""
+    pool = dryrun.CachingAllocator()
+    pool.alloc(1, nbytes)
+    assert pool.reserved == pool.needed == pool.reserved_peak == segment
+
+
+def test_allocator_splits_merges_and_fragments():
+    """Freed blocks merge with their free neighbours and are reused best
+    fit, without a new segment; a hole smaller than a request is passed
+    over for a new segment, so the segments needed exceed the bytes
+    allocated; a wholly free segment is not counted as needed."""
+    pool = dryrun.CachingAllocator()
+    for key in range(3):                       # 3 x 6 MiB in one 20 MiB
+        pool.alloc(key, 6 * MiB)
+    assert pool.reserved == 20 * MiB
+    pool.free(0)
+    pool.free(1)                               # merged: 12 MiB free
+    pool.alloc(3, 11 * MiB)                    # fits the merged hole
+    assert pool.reserved == 20 * MiB and pool.blocks[3][1] == 0
+    pool.free(3)
+    pool.alloc(4, 5 * MiB)                     # best fit: the 2 MiB tail
+    pool.alloc(5, 13 * MiB)                    # is too small: 12 MiB free
+    assert pool.blocks[4][1] == 0 and pool.reserved == 20 * MiB + 14 * MiB
+    assert pool.needed == 34 * MiB > 24 * MiB  # allocated: 6 + 5 + 13
+    for key in (2, 4, 5):
+        pool.free(key)
+    assert pool.in_use == 0 and pool.reserved == 34 * MiB
+    pool.alloc(6, 600)                         # small pool: its own segment
+    assert pool.needed == 34 * MiB and pool.in_use == 2 * MiB
+
+
+def test_fits_by_the_segments_the_allocator_needs():
+    """A cell fits when the allocator's segments fit, which are at least
+    the allocated peak; the reckoning is the same on every call."""
+    cfg = scaled(get_arch("deepseek-moe-16b")[0], n_layers=2)
+    rec = dryrun.run_cell("deepseek-moe-16b", "prefill_32k", cfg=cfg,
+                          batch=1, seq_len=2048, search=False)
+    mem = rec["memory"]
+    assert mem["reserved_peak"] >= mem["reserved_needed"] >= \
+        mem["total_per_device"]
+    assert rec["fits"] == (mem["reserved_needed"] <= dryrun.HBM_BYTES)
+    again = dryrun.run_cell("deepseek-moe-16b", "prefill_32k", cfg=cfg,
+                            batch=1, seq_len=2048, search=False)
+    assert again["memory"] == mem
+
+
 def test_launch_labels_name_each_call():
     """With the labels on (``REPRO_TRACE_KERNELS``, here through
     ``set_annotations``), each wrapper call runs under one

@@ -73,6 +73,20 @@ def test_plain_flash_matches_pallas_interpret(B, Hq, Hkv, S, hd, causal,
     check(got, want, dtype)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 3])
+def test_attention_ref_matches_reference(group, causal):
+    """``ref.attention_ref``, the reference's name for its plain attention
+    on folded heads (BH, S, hd), against the reference's own."""
+    from repro.kernels.flash_attention.ref import attention_ref as jref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    (jq, jk, jv), (tq, tk, tv) = inputs(1, 2 * group, 2, 96, 32,
+                                         "float32", 11)
+    want = jref(jq[0], jk[0], jv[0], causal=causal, group=group)
+    got = attention_ref(tq[0], tk[0], tv[0], causal=causal, group=group)
+    check(got, want, "float32")
+
+
 def test_plain_flash_block_size_invariance():
     _, (q, k, v) = inputs(1, 2, 2, 256, 32, "float32", 7)
     a = FA.attention(q, k, v, causal=True, block_q=64, block_k=64)

@@ -3,13 +3,19 @@
 The same weights (JAX's ``init_lm``, carried by ``params_from_numpy`` in the
 reference's checkpoint form) and the same numpy inputs go through
 ``repro.models`` and ``repro_torch.models``, for the reduced qwen2-1.5b (QKV
-bias, tied head, GQA group 2) and phi3-mini-3.8b (untied head, group 1).
+bias, tied head, GQA group 2), phi3-mini-3.8b (untied head, group 1) and
+deepseek-coder-33b (untied head, group 4, head dim 8).
 
 Tolerances:
 - float32: logits within 1e-4 and greedy tokens equal. Measured: at most
   2.4e-6 (different summation orders; logits of magnitude ~3).
 - bfloat16: logits within 0.1 abs. Measured: at most 0.047 (qwen2) and
-  0.039 (phi3). The reference's ``chunked_attention`` rounds the scaled q
+  0.039 (phi3).
+- RoPE: the inverse frequencies equal bit for bit for every LM config's
+  (head_dim, rope_theta) and a grid of both; ``apply_rope`` in f32 within
+  1e-6 at positions near 32k and 512k, where ``pos * inv`` multiplies any
+  error in the frequencies by the position (an f32 ``pow`` 1 ulp off gave
+  2.66e-3 for phi3 at 524,272-524,287). The reference's ``chunked_attention`` rounds the scaled q
   and ``p`` to bf16; the port keeps both in f32, as the TPU kernel does
   (ROADMAP Queue 3), and JAX bf16 against JAX f32 already differs by
   ~0.04 here. Tokens are not compared in bf16: qwen2-smoke's top-2 margin
@@ -23,6 +29,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_arch as jarch  # noqa: E402
 from repro.configs import get_reduced as jget  # noqa: E402
 from repro.configs.base import scaled as jscaled  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
@@ -35,7 +42,15 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.train import checkpoint as TC  # noqa: E402
 
-ARCHS = ("qwen2-1.5b", "phi3-mini-3.8b")
+ARCHS = ("qwen2-1.5b", "phi3-mini-3.8b", "deepseek-coder-33b")
+LM_ARCHS = ("qwen2-1.5b", "phi3-mini-3.8b", "deepseek-coder-33b",
+            "deepseek-moe-16b", "arctic-480b")
+# (head_dim, rope_theta) of every LM config, full and reduced, then a grid
+ROPE_PAIRS = sorted({(c.head_dim, c.rope_theta) for a in LM_ARCHS
+                     for c in (jarch(a)[0], jget(a))} | {
+    (hd, theta) for hd in (8, 16, 64, 96, 128)
+    for theta in (1e4, 1e5, 5e5, 1e6)})
+ROPE_POSITIONS = (32752, 524272)    # 16 positions from each
 TOL = {"float32": 1e-4, "bfloat16": 0.1}
 B, S = 2, 24
 
@@ -81,6 +96,28 @@ def test_rms_norm_and_rope_match_reference(dtype):
     for theta in (1e4, 1e6):
         _close(JL.apply_rope(jx, jnp.asarray(pos)[:, None, :], theta),
                TL.apply_rope(tx, torch.tensor(pos)[:, None, :], theta), tol)
+
+
+@pytest.mark.parametrize("hd,theta", ROPE_PAIRS,
+                         ids=[f"hd{hd}-theta{t:g}" for hd, t in ROPE_PAIRS])
+def test_rope_freqs_equal_reference_bit_for_bit(hd, theta):
+    want = np.asarray(JL.rope_freqs(hd, theta))
+    got = TL.rope_freqs(hd, theta).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), \
+        np.nonzero(got != want)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_apply_rope_at_long_positions_matches_reference(arch):
+    cfg = jarch(arch)[0]
+    x = np.random.default_rng(5).standard_normal(
+        (1, 2, 32, cfg.head_dim)).astype(np.float32)
+    pos = np.concatenate([np.arange(p, p + 16) for p in ROPE_POSITIONS]
+                         ).astype(np.float32)
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), cfg.rope_theta)
+    got = TL.apply_rope(torch.tensor(x), torch.tensor(pos), cfg.rope_theta)
+    _close(want, got, 1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
