@@ -130,6 +130,25 @@ non-zero):
                recall and the crawl identical (scores within 2 ulp); then
                CrawlSession(score_fn=ranker.score_urls) on the card equal
                to the default crawl in every leaf.
+     dist    — the crawl group, one crawl process a card
+               (``repro_torch.dist``; every card of the machine, W = 1
+               on one): webparf.CONFIG at N = 4 for backlink 32 steps,
+               opic_url 64, the four modes under opic_url 32 and one
+               serve interval, first as one-card 4-shard sessions (and
+               1-shard ones for backlink and opic_url) in this process,
+               then in W fresh processes over NCCL (``chip_smoke.py
+               --dist-rank OUT``, a failed or hung rank fails the phase):
+               every report and every leaf of the final state equal to
+               the one-card session's bit for bit on every rank (the
+               Bloom filter by two 64-bit digests a shard); each rank's
+               launches zeroed just before each run and read just after;
+               on the profiled paths, device events, host syncs, idle and
+               collective time a step, and each crawl kernel's next call
+               on each rank held to its plain version; pages/s beside the
+               one-card 4- and 1-shard sessions', step ms, the
+               all_to_all's ms a dispatch in the crawl and alone, peak
+               GiB. ``chip_smoke.py --dist`` runs the build and this phase
+               alone, on every card of the machine.
   5. lm      — flash_parity: both attention kernels against the plain
                version on small cases (every head dim, GQA groups 1/3/6,
                lengths 32, 192 and 256, causal on and off, f32 and bf16),
@@ -282,7 +301,8 @@ non-zero):
                rows also carry their launches per train step and per MoE
                prefill (28 DeepSeekMoE and 2 Arctic flash_attention_tc;
                2 flash_attention for each reduced f32 model) and
-               flash_attention_tc's per zoo prefill.
+               flash_attention_tc's per zoo prefill; the crawl kernels'
+               rows also carry their launches on each rank of ``dist``.
 
 Then the card's name and power limit as nvidia-smi gives them, and last the
 line {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1055,7 +1075,9 @@ def profile_device(fn, calls):
     """``fn()`` (``calls`` calls of the path) under torch.profiler: the
     device's busy time over the wall time (the profiler's own overhead
     included), so its idle share, the device events, the kernels that took
-    most of the time and the host's runtime calls, each per call."""
+    most of the time and the host's runtime calls, each per call. NCCL
+    kernels count as events, and their time (mostly the wait for the
+    other ranks) as ``collective_ms_per_call``, not as busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1067,11 +1089,17 @@ def profile_device(fn, calls):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     per_name, n, runtime, port = {}, 0, Counter(), {}
+    coll_us = 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             us = e.time_range.elapsed_us()
-            per_name[e.name] = per_name.get(e.name, 0.0) + us
             n += 1
+            if "nccl" in e.name.lower():
+                # a collective's kernel spins until its peers arrive: its
+                # span is waiting, not work, and is reported on its own
+                coll_us += us
+                continue
+            per_name[e.name] = per_name.get(e.name, 0.0) + us
             if any(f in e.name for f in PORT_KERNEL_FNS):
                 c = port.setdefault(e.name[:120], [0, 0.0])
                 c[0] += 1
@@ -1089,6 +1117,7 @@ def profile_device(fn, calls):
                                        for k, v in top},
             "runtime_calls_per_call": {k: v / calls
                                        for k, v in runtime.items()},
+            "collective_ms_per_call": coll_us / 1e3 / calls,
             "port_kernels": {k: {"launches": c, "ms_per_launch": us / 1e3 / c}
                              for k, (c, us) in port.items()}}
 
@@ -2714,6 +2743,22 @@ def free_card():
     torch.cuda.empty_cache()
 
 
+def step_ms(sess, n):
+    """Mean fetch- and dispatch-step ms over ``n`` eager steps, each
+    between device syncs."""
+    import torch
+    fetch, disp = [], []
+    iv = sess.cfg.dispatch_interval
+    for _ in range(n):
+        d = (sess.t + 1) % iv == 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess.step()
+        torch.cuda.synchronize()
+        (disp if d else fetch).append(1e3 * (time.perf_counter() - t))
+    return float(np.mean(fetch)), float(np.mean(disp))
+
+
 def phase_main(ordering, n_shards=1):
     """One crawl path at the full config over ``n_shards`` shards: counts
     zeroed just before the run and read just after it; the path's kernels
@@ -2762,19 +2807,10 @@ def phase_main(ordering, n_shards=1):
                    cash_rel_drift=(cash - cash0) / cash0,
                    cash_rtol=CASH_RTOL)
     # per-step times, eager, after the run (not part of the launch counts)
-    fetch_ms, disp_ms = [], []
-    iv = cfg.dispatch_interval
-    for _ in range(3 * iv):
-        d = (sess.t + 1) % iv == 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        sess.step()
-        torch.cuda.synchronize()
-        (disp_ms if d else fetch_ms).append(1e3 * (time.perf_counter() - t))
+    fetch_ms, disp_ms = step_ms(sess, 3 * cfg.dispatch_interval)
     out.update(init_s=init_s, seconds=rep.seconds,
                pages_per_s=rep.pages_per_sec, fetched=rep.fetched,
-               fetch_step_ms=float(np.mean(fetch_ms)),
-               dispatch_step_ms=float(np.mean(disp_ms)),
+               fetch_step_ms=fetch_ms, dispatch_step_ms=disp_ms,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                url_dup=rep.overlap["url_dup"],
                content_dup=rep.overlap["content_dup"],
@@ -5187,6 +5223,371 @@ def zoo_cell(arch, shape, B):
                              f"{measured}, beyond {PEAK_TOL:.0%}")
 
 
+# ---------------------------------------------------------------------------
+# the crawl group: one crawl process a card (repro_torch.dist)
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4             # N: the shards the group splits, L = N / W a rank
+# (case, ordering, coordination, steps): CONFIG crawls, comm_quota
+# COORD_QUOTA under batched
+DIST_CASES = (("backlink", "backlink", "exchange", 32),
+              ("opic_url", "opic_url", "exchange", 64),
+              ("mode_exchange", "opic_url", "exchange", 32),
+              ("mode_firewall", "opic_url", "firewall", 32),
+              ("mode_crossover", "opic_url", "crossover", 32),
+              ("mode_batched", "opic_url", "batched", 32))
+DIST_PROFILED = ("backlink", "opic_url")   # profiled, kernels held to plain
+DIST_A2A_CALLS = 20         # back-to-back all_to_alls timed on their own
+DIST_TIMEOUT_S = 420        # the group's whole run, every rank
+DIST_GROUP_TIMEOUT_S = 300  # one collective's wait before the group fails
+DIGEST_CHUNK = 1 << 24      # words of a Bloom shard hashed at once
+DIGEST_KEYS = (0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F)
+
+
+def dist_config(ordering, coordination):
+    from repro_torch.configs import webparf
+    from repro_torch.configs.base import scaled
+    return scaled(webparf.CONFIG, ordering=ordering,
+                  coordination=coordination,
+                  comm_quota=COORD_QUOTA if coordination == "batched" else -1)
+
+
+def bloom_digests(bits, n):
+    """(n, 2) int64: each of ``n`` equal runs of rows of a Bloom filter (a
+    shard's) hashed by two keys: the sum over its bytes read as int64
+    words w_i of w_i times an odd multiplier drawn from i and the key, mod
+    2^64. A differing word changes both sums; the 8 GiB filter is not
+    copied to compare it."""
+    import torch
+    words = bits.reshape(n, -1).view(torch.int64)
+    keys = [k - (1 << 64) if k >= 1 << 63 else k for k in DIGEST_KEYS]
+    out = torch.zeros((n, 2), dtype=torch.int64, device=bits.device)
+    for s in range(n):
+        for lo in range(0, words.shape[1], DIGEST_CHUNK):
+            w = words[s, lo:lo + DIGEST_CHUNK]
+            i = torch.arange(lo, lo + w.shape[0], dtype=torch.int64,
+                             device=bits.device)
+            for j, key in enumerate(keys):
+                out[s, j] += (w * ((i * key + keys[1 - j]) | 1)).sum()
+    return out
+
+
+def dist_records(sess, rep, group):
+    """What a crawl must agree on, as numpy on every rank: the report
+    (urls, per-step counts, stats per shard, comm), every state leaf but
+    the Bloom filter whole (gathered), and the filter's shard digests."""
+    from repro_torch.core.stages import CrawlState, state_specs
+    rec = {"urls": rep.urls, "per_step": rep.per_step,
+           "comm": np.array(json.dumps(rep.comm, sort_keys=True))}
+    for k, v in rep.stats_per_shard.items():
+        rec[f"stats.{k}"] = np.asarray(v)
+    specs = state_specs()
+    for name in CrawlState._fields:
+        leaf = getattr(sess.state, name)
+        if name == "bloom_bits":
+            leaf = group.gather(bloom_digests(leaf, leaf.shape[0] // (
+                sess.cfg.n_slots // DIST_SHARDS)))
+        elif getattr(specs, name) is not None:
+            leaf = group.gather(leaf)
+        rec[f"state.{name}"] = leaf.cpu().numpy()
+    return rec
+
+
+def serve_records(rep):
+    """What a serve interval must agree on: the answers, lags, recall,
+    the index's counts and the crawl's pages."""
+    rec = {f: getattr(rep, f) for f in ("top_urls", "top_scores",
+                                        "lag_steps")}
+    rec["recall"] = np.float64(rep.recall_at_k)
+    rec["index"] = np.array(json.dumps(rep.index, sort_keys=True))
+    rec["crawl.urls"] = rep.crawl.urls
+    rec["crawl.per_step"] = rep.crawl.per_step
+    return rec
+
+
+def dist_warm(dev):
+    """One dispatch interval of each ordering's path, so that the timed
+    crawls find the kernels' libraries loaded."""
+    from repro_torch.api import CrawlSession
+    for ordering in ("backlink", "opic_url"):
+        sess = CrawlSession(dist_config(ordering, "exchange"), device=dev,
+                            n_shards=DIST_SHARDS)
+        sess.run(sess.cfg.dispatch_interval)
+        del sess
+        free_card()
+
+
+def dist_serve(dev):
+    from repro_torch.serve import QueryLoad, ServeSession
+    cfg = dist_config("backlink", "exchange")
+    load = QueryLoad(cfg, qps=SERVE_QPS, seed=SEED, burst_mult=SERVE_BURST)
+    return ServeSession(cfg, dev, n_shards=DIST_SHARDS, load=load,
+                        **SERVE_KW)
+
+
+def dist_one_card(out):
+    """The parent's half: the one-card sessions of N shards for every
+    case (their records to ``out``) and of 1 shard for the profiled paths;
+    returns {case: {"one_card_<n>_shards": pages/s and step ms}}."""
+    import torch
+    from repro_torch.api import CrawlSession
+    from repro_torch.dist import CrawlGroup
+    dist_warm(DEV)
+    one = CrawlGroup()
+    times = {name: {} for name, _, _, _ in DIST_CASES}
+    for name, ordering, mode, steps in DIST_CASES:
+        for n in ((DIST_SHARDS, 1) if name in DIST_PROFILED
+                  else (DIST_SHARDS,)):
+            sess = CrawlSession(dist_config(ordering, mode), device=DEV,
+                                n_shards=n)
+            torch.cuda.synchronize()
+            rep = sess.run(steps)
+            torch.cuda.synchronize()
+            if n == DIST_SHARDS:
+                np.savez(out / f"{name}.one.npz",
+                         **dist_records(sess, rep, one))
+            f_ms, d_ms = step_ms(sess, 3 * sess.cfg.dispatch_interval)
+            times[name][f"one_card_{n}_shards"] = {
+                "pages_per_s": rep.pages_per_sec, "fetch_step_ms": f_ms,
+                "dispatch_step_ms": d_ms}
+            del sess
+            free_card()
+    srv = dist_serve(DEV)
+    np.savez(out / "serve.one.npz", **serve_records(srv.run(
+        srv.cfg.dispatch_interval)))
+    del srv
+    free_card()
+    return times
+
+
+def dist_rank(out):
+    """One rank of the crawl group (``chip_smoke.py --dist-rank OUT``,
+    started by ``phase_dist`` with RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
+    and MASTER_PORT): every case over NCCL on its own card, each run with
+    the launch counts zeroed just before and read just after, the
+    all_to_all timed by CUDA events; the profiled paths profiled, and one
+    captured call of each of their kernels held to its plain version. Its
+    records to ``out/<case>.r<rank>.npz``, its numbers to
+    ``out/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import CrawlSession
+    from repro_torch.core import dedup, frontier, router, stages
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.bloom.ops import probe_insert
+    from repro_torch.kernels.bloom.ref import bloom_ref
+    from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
+    from repro_torch.kernels.dedup_deposit.ref import dedup_deposit_ref
+    from repro_torch.kernels.frontier_select.ops import select, select_harvest
+    from repro_torch.kernels.frontier_select.ref import (select_harvest_ref,
+                                                         select_ref)
+    from repro_torch.kernels.opic_update.ops import scatter_cash
+    from repro_torch.kernels.opic_update.ref import opic_ref
+    from repro_torch.launch.mesh import init_crawl_group
+    # on the card (DEV "cuda") the group is NCCL's and the rank's device
+    # its own card, which ``device=None`` names
+    group = init_crawl_group(None if DEV == "cuda" else DEV,
+                             timeout_s=DIST_GROUP_TIMEOUT_S)
+    dev = None if DEV == "cuda" else DEV
+    # each profiled path's kernels: (name, the module the path calls it
+    # through, the attribute it calls, the launching wrapper, the plain
+    # version)
+    checks = {"backlink": (
+        ("frontier_select", frontier, "_kernel_select", select, select_ref),
+        ("bloom", dedup, "_kernel_probe", probe_insert, bloom_ref)),
+        "opic_url": (
+        ("select_harvest", frontier, "_kernel_harvest", select_harvest,
+         select_harvest_ref),
+        ("dedup_deposit", stages, "dedup_deposit", dedup_deposit,
+         dedup_deposit_ref),
+        ("opic_update", stages, "scatter_cash", scatter_cash, opic_ref))}
+    a2a, last = [], []
+    exchange = router.exchange
+
+    def timed_exchange(buckets, group):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = exchange(buckets, group)
+        stop.record()
+        a2a.append((start, stop))
+        last[:] = [buckets]
+        return got
+
+    lines = []
+    try:
+        dist_warm(dev)
+        for name, ordering, mode, steps in DIST_CASES:
+            sess = CrawlSession(dist_config(ordering, mode), device=dev,
+                                n_shards=DIST_SHARDS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a2a.clear()
+            router.exchange = timed_exchange
+            reset_launches()
+            try:
+                rep = sess.run(steps)
+                torch.cuda.synchronize()
+            finally:
+                router.exchange = exchange
+            counts = launch_counts()
+            line = {
+                "case": name, "steps": steps, "seconds": rep.seconds,
+                "pages_per_s": rep.pages_per_sec, "fetched": rep.fetched,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "dispatches": len(a2a),
+                "all_to_all_ms_per_dispatch": float(np.mean(
+                    [a.elapsed_time(b) for a, b in a2a])) if a2a else None,
+                "launches": {k: counts[k] for k in PORT_KERNEL_FNS},
+                "fetched_per_shard": rep.stats_per_shard["fetched"].tolist()}
+            missing = [k for k in PATHS[ordering][1] if counts[k] < 1]
+            if missing:
+                raise AssertionError(f"rank {group.rank} {name}: {missing} "
+                                     f"never launched: {counts}")
+            if last:
+                # the last dispatch's buckets exchanged again, back to
+                # back after a barrier: the collective without the wait
+                # for a slower rank's host
+                group.barrier()
+                line.update(
+                    all_to_all_bytes=last[0].numel() * last[0].element_size(),
+                    all_to_all_isolated_ms=cuda_ms(
+                        lambda: exchange(last[0], group), DIST_A2A_CALLS))
+                last.clear()
+            np.savez(out / f"{name}.r{group.rank}.npz",
+                     **dist_records(sess, rep, group))
+            f_ms, d_ms = step_ms(sess, 3 * sess.cfg.dispatch_interval)
+            line.update(fetch_step_ms=f_ms, dispatch_step_ms=d_ms)
+            if name in DIST_PROFILED:
+                iv = sess.cfg.dispatch_interval
+                prof = profile_device(
+                    lambda: [sess.step() for _ in range(2 * iv)], 2 * iv)
+                n_sync, _ = count_syncs(sess, 2 * iv)
+                line.update(
+                    device_events_per_step=prof["device_events_per_call"],
+                    device_busy_ms_per_step=prof["device_busy_ms_per_call"],
+                    collective_ms_per_step=prof["collective_ms_per_call"],
+                    device_idle_share=prof["device_idle_share"],
+                    host_syncs_per_step=n_sync / (2 * iv))
+                # each kernel's next call (the same step on every rank)
+                # against its plain version
+                errs = line["plain_max_abs_err"] = {}
+                for kname, module, attr, kern, plain in checks[ordering]:
+                    (args, kw), = capture_calls([module], attr, sess.step, 1,
+                                                layout=True)
+                    errs[kname] = hold_to_plain(f"rank {group.rank} {kname}",
+                                                kern, plain, args, kw)
+                    del args
+            lines.append(line)
+            del sess, rep
+            free_card()
+        srv = dist_serve(dev)
+        np.savez(out / f"serve.r{group.rank}.npz", **serve_records(
+            srv.run(srv.cfg.dispatch_interval)))
+        del srv
+        free_card()
+        group.barrier()
+    finally:
+        dist.destroy_process_group()
+    (out / f"rank{group.rank}.json").write_text(json.dumps(
+        {"rank": group.rank, "world": group.world,
+         "device": torch.cuda.get_device_name(), "cases": lines}))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(world=None):
+    """The crawl group at webparf.CONFIG, N = DIST_SHARDS: the one-card
+    N-shard sessions first (``dist_one_card``), then ``world`` fresh
+    processes (default: every card), rank r on card r over NCCL
+    (``dist_rank``), waited for at most DIST_TIMEOUT_S; a failed or hung
+    rank fails the phase. Every rank's final state and reports must equal
+    the one-card session's bit for bit (the Bloom filter by its shard
+    digests), and its kernels their plain versions. Prints a line a rank
+    and a ``dist`` line. Returns {rank: its numbers}."""
+    import os
+    import shutil
+    import torch
+    world = world or torch.cuda.device_count()
+    out = ROOT / "build" / f"dist_{os.getpid()}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.time()
+    one = dist_one_card(out)
+    port = free_port()
+    procs = []
+    try:
+        for r in range(world):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(port)}
+            env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+            log = open(out / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+                 str(out)], env=env, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        deadline = time.time() + DIST_TIMEOUT_S
+        while any(p.poll() is None for p, _ in procs):
+            if time.time() > deadline or any(
+                    p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tail = (out / f"rank{bad[0]}.log").read_text()[-4000:]
+        raise AssertionError(f"dist: ranks {bad} of {world} failed or hung "
+                             f"(rc {[procs[r][0].returncode for r in bad]})"
+                             f":\n{tail}")
+    ranks = {r: json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)}
+    for name in [c[0] for c in DIST_CASES] + ["serve"]:
+        with np.load(out / f"{name}.one.npz") as z:
+            want = dict(z)
+        for r in range(world):
+            with np.load(out / f"{name}.r{r}.npz") as z:
+                got = dict(z)
+            diff = sorted(k for k in set(want) | set(got)
+                          if k not in want or k not in got
+                          or want[k].dtype != got[k].dtype
+                          or want[k].shape != got[k].shape
+                          or want[k].tobytes() != got[k].tobytes())
+            if diff:
+                raise AssertionError(f"dist: rank {r} of {world}, {name}: "
+                                     f"{diff} differ from the one-card "
+                                     f"{DIST_SHARDS}-shard session")
+    card = nvidia_smi()
+    for r, rk in ranks.items():
+        for line in rk["cases"]:
+            emit({"phase": "dist_rank", "world": world, "rank": r,
+                  "card": card, **line})
+    pages = {}
+    for name, _, _, _ in DIST_CASES:
+        got = [c["pages_per_s"] for r in range(world)
+               for c in ranks[r]["cases"] if c["case"] == name]
+        pages[name] = {f"{world}_cards": got[0],
+                       f"{world}_cards_slowest_rank": min(got),
+                       **{k: v["pages_per_s"] for k, v in one[name].items()}}
+    shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "dist", "world": world, "n_shards": DIST_SHARDS,
+          "config": "webparf.CONFIG", "card": card,
+          "bit_equal_to_one_card": [c[0] for c in DIST_CASES] + ["serve"],
+          "pages_per_s": pages, "one_card": one,
+          "seconds": time.time() - t0})
+    return ranks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5198,6 +5599,18 @@ def main() -> int:
     if sys.argv[1:2] == ["--zoo-cell"]:
         arch, shape, batch = sys.argv[2:5]
         zoo_cell(arch, shape, int(batch))
+        return 0
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(Path(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--dist"]:
+        # the crawl group alone, on every card of the machine
+        phase_build()
+        phase_dist()
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
     phase_build()
     recs, dryrun_s = dryrun_all()
@@ -5235,6 +5648,8 @@ def main() -> int:
     serve_counts = phase_serve()
     free_card()
     phase_serve_trajectory()
+    free_card()
+    dist_ranks = phase_dist()
     free_card()
     flash = phase_flash_parity()
     model, captured, counts_lm = phase_lm_serve()
@@ -5301,6 +5716,12 @@ def main() -> int:
             r["checked_on_mode_calls"] = {
                 k: chk[r["name"]] for k, (_, chk) in modes.items()
                 if r["name"] in chk}
+        if r["name"] in PORT_KERNEL_FNS:
+            r[f"launches_dist_{len(dist_ranks)}_cards_per_rank"] = {
+                c["case"]: [next(x for x in rk["cases"] if x["case"] ==
+                                 c["case"])["launches"][r["name"]]
+                            for rk in dist_ranks.values()]
+                for c in dist_ranks[0]["cases"]}
         if r["name"] in per_train_step:
             r["launches_per_train_step"] = per_train_step[r["name"]]
             r["train_path"] = (

@@ -10,24 +10,36 @@ import numpy as np
 import torch
 
 from repro_torch.core.stages import STATS, FetchReport
+from repro_torch.dist import CrawlGroup
 
 
 def stats_dict(state) -> Dict[str, int]:
     """Sum the per-shard stat counters into one named dict, plus the
-    frontier's FIFO rebase events."""
-    s = state.stats.cpu().numpy().sum(0)
-    out = {n: int(v) for n, v in zip(STATS, s)}
-    out["fifo_rebase"] = int(state.f_rebased.sum())
-    return out
+    frontier's FIFO rebase events. Under a crawl group every rank calls
+    it and gets every shard's sums."""
+    per = stats_per_shard(state)
+    return {n: int(v.sum()) for n, v in per.items()}
 
 
 def stats_per_shard(state) -> Dict[str, np.ndarray]:
-    """Each counter as an ``(n_shards,)`` int64 vector."""
-    s = state.stats.cpu().numpy().astype(np.int64)
+    """Each counter as an ``(n_shards,)`` int64 vector, every shard's in
+    shard order (gathered from every rank under a crawl group)."""
+    g = CrawlGroup.current()
+    s = g.gather(state.stats).cpu().numpy().astype(np.int64)
     out = {n: s[:, i].copy() for i, n in enumerate(STATS)}
-    out["fifo_rebase"] = state.f_rebased.cpu().numpy().astype(
+    out["fifo_rebase"] = g.gather(state.f_rebased).cpu().numpy().astype(
         np.int64).reshape(s.shape[0], -1).sum(1)
     return out
+
+
+def gather_report(rep: FetchReport) -> FetchReport:
+    """A step's ((n_local * r, k) leaves) or a chunk's ((steps,
+    n_local * r, k)) FetchReport with every rank's rows, in shard order:
+    the whole crawl's report on every rank of a crawl group, the report
+    itself in one process."""
+    g = CrawlGroup.current()
+    return FetchReport(g.gather(rep.fetched_urls, dim=-2),
+                       g.gather(rep.fetched_mask, dim=-2))
 
 
 def overlap_metrics(urls: np.ndarray, cfg) -> Dict[str, float]:

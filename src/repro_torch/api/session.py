@@ -8,7 +8,14 @@
 
 ``n_shards`` is the JAX session's mesh size: the shards are batched along
 the state's leading axis on one device, and a step launches each kernel
-once for all of them.
+once for all of them. Under a crawl group (``launch.mesh.init_crawl_group``:
+W processes, one a card) every rank builds the session with the same
+arguments and holds its own L = N / W shards; the exchange, the reports'
+gathers and the checkpoint are the group's collectives, so every rank
+makes the same calls in the same order and gets the same reports, in
+global shard order. ``heal`` and the load-driven rebalance move rows
+between shards, which under W > 1 would cross cards: they raise
+``NotImplementedError`` there.
 
 With telemetry on (``cfg.telemetry`` or ``REPRO_TELEMETRY=1``) every step
 also takes a ledger row of every shard (``obs/ledger.py``): an eager step
@@ -36,15 +43,17 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.api.report import (CrawlReport, harvest, stats_dict,
-                                    stats_per_shard)
+from repro_torch.api.report import (CrawlReport, gather_report, harvest,
+                                    stats_dict, stats_per_shard)
 from repro_torch.configs.base import CrawlConfig
 from repro_torch.core import classifier as CLS
 from repro_torch.core import crawler as CR
 from repro_torch.core.stages import (CrawlState, FetchReport,
                                      dispatch_exchange, init_state,
+                                     join_state, local_state,
                                      state_from_numpy, state_to_numpy)
 from repro_torch.device import Device, resolve_device
+from repro_torch.dist import CrawlGroup
 
 Events = Dict[int, Callable]   # step index -> state transform, applied
                                # BEFORE that step executes
@@ -55,7 +64,8 @@ _OBS_DIR = "obs"               # ledger checkpoints live beside the state
 class CrawlSession:
     """Owns the device, the step function, the crawl state and the step
     counter of ``n_shards`` crawl processes (any count that divides the
-    config's domains and slots)."""
+    config's domains and slots, and the crawl group's size): under a
+    group, of this rank's share of them."""
 
     def __init__(self, cfg: CrawlConfig, device: Optional[Device] = None, *,
                  n_shards: int = 1, score_fn: Optional[Callable] = None,
@@ -74,9 +84,12 @@ class CrawlSession:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_shards = n_shards
+        self.group = CrawlGroup.current()
         self.telemetry = obs.telemetry_enabled(cfg)
         self._rebalance = None
         if cfg.rebalance_threshold > 0:
+            self.group.refuse_moves("maybe_rebalance (rebalance_threshold "
+                                    "> 0)")
             if not self.telemetry:
                 raise ValueError(
                     "rebalance_threshold > 0 needs telemetry=True: the "
@@ -114,7 +127,12 @@ class CrawlSession:
         return self
 
     def step(self) -> FetchReport:
-        """Advance ONE cycle; fetch vs dispatch follows the step counter."""
+        """Advance ONE cycle; fetch vs dispatch follows the step counter.
+        The report holds every shard's rows (gathered under a group)."""
+        return gather_report(self._step())
+
+    def _step(self) -> FetchReport:
+        """``step`` with this rank's rows of the report."""
         dispatch = (self._t + 1) % self.cfg.dispatch_interval == 0
         if not self.telemetry:
             self.state, rep = self._step_fn(self.state, dispatch=dispatch)
@@ -124,7 +142,7 @@ class CrawlSession:
         with self.tracer.span(name, "stage", t=self._t):
             self.state, rep = self._step_fn(self.state, dispatch=dispatch)
             # the copy waits for the step's work on the device
-            row = self._snapshot(dispatch).cpu().numpy()
+            row = self.group.gather(self._snapshot(dispatch)).cpu().numpy()
         self._t += 1
         self.ledger.append(self._t, row)
         if dispatch:
@@ -134,17 +152,22 @@ class CrawlSession:
 
     def run_chunk(self) -> FetchReport:
         """Advance one dispatch interval and return its stacked FetchReport
-        (leading time axis). The step counter must sit on an interval
-        boundary, so that the chunk's last step is the dispatch step. With
-        telemetry on, the interval's ledger rows are stacked on the device
-        and copied to the host once."""
+        (leading time axis), every shard's rows. The step counter must sit
+        on an interval boundary, so that the chunk's last step is the
+        dispatch step. With telemetry on, the interval's ledger rows are
+        stacked on the device and copied to the host once."""
+        return gather_report(self.run_chunk_local())
+
+    def run_chunk_local(self) -> FetchReport:
+        """``run_chunk`` with this rank's rows of the report (every row in
+        one process), as the serve path's index fold takes them."""
         iv = self.cfg.dispatch_interval
         if self._t % iv:
             raise ValueError(
                 f"run_chunk: step counter t={self._t} is not aligned to "
                 f"dispatch_interval={iv}; use .step() to reach a boundary")
         if not self.telemetry:
-            reps = [self.step() for _ in range(iv)]
+            reps = [self._step() for _ in range(iv)]
             return FetchReport(*(torch.stack(x) for x in zip(*reps)))
         reps, rows = [], []
         with self.tracer.span("run_chunk", "stage", t=self._t, interval=iv):
@@ -154,7 +177,7 @@ class CrawlSession:
                                                 dispatch=dispatch)
                 reps.append(rep)
                 rows.append(self._snapshot(dispatch))
-            rows = torch.stack(rows).cpu().numpy()
+            rows = self.group.gather(torch.stack(rows), dim=1).cpu().numpy()
         t0, self._t = self._t, self._t + iv
         self.ledger.append_block(range(t0 + 1, t0 + iv + 1), rows)
         self._emit_counters()
@@ -164,8 +187,9 @@ class CrawlSession:
     # -- telemetry ----------------------------------------------------------
 
     def _snapshot(self, dispatch: bool) -> torch.Tensor:
-        from repro_torch.obs.ledger import snapshot
-        return snapshot(self.cfg, self.state, dispatch)
+        """This rank's shards' ledger rows."""
+        from repro_torch.obs.ledger import snapshot_local
+        return snapshot_local(self.cfg, self.state, dispatch)
 
     def _emit_counters(self) -> None:
         """Counter events at each dispatch boundary: the ledger's tail as
@@ -246,7 +270,9 @@ class CrawlSession:
 
     def inject_failure(self, shards: Union[int, Sequence[int]]
                        ) -> "CrawlSession":
-        """Mark crawl process(es) dead (wraps ``crawler.mark_dead``)."""
+        """Mark crawl process(es) dead (wraps ``crawler.mark_dead``); under
+        a crawl group every rank marks them in its copy of
+        ``shard_alive``."""
         shards = [shards] if isinstance(shards, int) else list(shards)
         self.state = CR.mark_dead(self.state, shards)
         if self.telemetry:
@@ -258,8 +284,10 @@ class CrawlSession:
              ) -> "CrawlSession":
         """Rebalance dead shards' domains onto the survivors (wraps
         ``train.fault.heal_crawler``). Defaults to every shard dead in
-        ``state.shard_alive``."""
+        ``state.shard_alive``. Refused under a group of more than one
+        process."""
         from repro_torch.train.fault import heal_crawler
+        self.group.refuse_moves("heal")
         if shards is None:
             shards = [int(s) for s in
                       np.flatnonzero(~self.state.shard_alive.cpu().numpy())]
@@ -331,15 +359,17 @@ class CrawlSession:
 
     def checkpoint(self, ckpt_dir: str, *, keep: int = 3) -> str:
         """Write the full crawl state atomically in the JAX package's
-        checkpoint format; returns the path. With telemetry on, the ledger
-        is written beside it (an ``obs/`` directory), as the JAX session
+        checkpoint format; returns the path. Under a crawl group the state
+        is gathered and rank 0 writes it: the same files a one-process
+        session of ``n_shards`` writes. With telemetry on, the ledger is
+        written beside it (an ``obs/`` directory), as the JAX session
         writes it."""
         from repro_torch.train import checkpoint as ckpt
         if not self.telemetry:
-            return ckpt.save(ckpt_dir, self._t, state_to_numpy(self.state),
+            return ckpt.save(ckpt_dir, self._t, self._whole_arrays(),
                              keep=keep)
         with self.tracer.span("checkpoint", "io", step=self._t):
-            path = ckpt.save(ckpt_dir, self._t, state_to_numpy(self.state),
+            path = ckpt.save(ckpt_dir, self._t, self._whole_arrays(),
                              keep=keep)
             steps, rows = self.ledger.arrays()
             ckpt.save(os.path.join(ckpt_dir, _OBS_DIR), self._t,
@@ -366,6 +396,12 @@ class CrawlSession:
                 self.ledger.clear()
         return self
 
+    def _whole_arrays(self):
+        """Every leaf of the whole state as numpy on rank 0 (gathered
+        under a group); None on the other ranks, which write nothing."""
+        whole = join_state(self.state)
+        return state_to_numpy(whole) if self.group.rank == 0 else None
+
     def _restore_state(self, ckpt_dir: str, step: Optional[int]) -> None:
         from repro_torch.train import checkpoint as ckpt
         arrays = ckpt.load(ckpt_dir, step=step)
@@ -373,5 +409,8 @@ class CrawlSession:
             raise ValueError(f"restore: the checkpoint holds "
                              f"{arrays['stats'].shape[0]} shards, the "
                              f"session {self.n_shards}")
-        self.state = state_from_numpy(arrays, self.device)
+        # this rank's share, cut by state_specs: a checkpoint of N shards
+        # restores at any world size
+        self.state = state_from_numpy(local_state(arrays, self.n_shards),
+                                      self.device)
         self._t = int(self.state.step)

@@ -6,7 +6,8 @@ Four ``CrawlState`` leaves shaped like the staging buffer,
     outbox_url (n_shards, B) int64 holding uint32   outbox_val (n_shards, B)
     outbox_src (n_shards, B) int32                  outbox_n   (n_shards,)
 
-with ``B = cfg.dispatch_capacity``. A parked URL keeps its source-page
+with ``B = cfg.dispatch_capacity``, for the shards the process holds (a
+rank's own under a crawl group). A parked URL keeps its source-page
 domain and its ordering value; its destination is recomputed from the live
 domain map at every retry, so after a C4 heal it follows its domain to the
 new owner.

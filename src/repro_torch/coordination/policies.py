@@ -3,9 +3,11 @@
 
 Each ``plan`` assigns every item of every shard's candidate pool exactly
 one fate (ship / keep / defer / drop, or a refund when none applies). The
-item tensors are (n_shards, P) and ``shard`` is each item's sending shard,
-(n_shards, 1); the policy's flags decide which machinery the dispatch
-stage runs at all.
+item tensors are (n_local, P), a row for each shard the process holds
+(every shard in one process, a rank's own under a crawl group), and
+``shard`` is each item's sending shard as a global id, (n_local, 1); the
+policy's flags decide which machinery the dispatch stage runs at all.
+Only ``exchange`` and ``batched`` communicate.
 """
 from __future__ import annotations
 

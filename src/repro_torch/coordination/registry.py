@@ -33,9 +33,10 @@ class DispatchPlan(NamedTuple):
 class CoordinationPolicy(NamedTuple):
     """One coordination mode. The flags decide what the dispatch stage
     runs; ``plan`` is (ctx, state, shard, u, src, val, dest, staged, valid)
-    -> DispatchPlan, for every shard's staged items at once: the item
-    tensors are (n_shards, S) and ``shard`` is each item's sending shard,
-    (n_shards, 1), so that a mode can test ``dest != shard``."""
+    -> DispatchPlan, for the staged items of every shard the process
+    holds at once: the item tensors are (n_local, S) and ``shard`` is each
+    item's sending shard as a global id, (n_local, 1), so that a mode can
+    test ``dest != shard``."""
     name: str
     communicates: bool
     uses_outbox: bool

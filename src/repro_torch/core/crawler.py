@@ -1,9 +1,12 @@
 """The crawl step composer. Counterpart of ``repro/core/crawler.py``.
 
-``make_crawl_step`` builds the step of the whole state, every shard at
-once: the stage pipeline (allocate -> fetch_analyze -> extract_stage) and,
-on exchange steps, ``dispatch_exchange``, batched along the leading shard
-axis where the JAX package runs one shard_mapped program a device.
+``make_crawl_step`` builds the step of the process's state, every shard
+it holds at once: the stage pipeline (allocate -> fetch_analyze ->
+extract_stage) and, on exchange steps, ``dispatch_exchange``, batched
+along the leading shard axis where the JAX package runs one shard_mapped
+program a device. Under a crawl group (``repro_torch.dist.CrawlGroup``)
+each rank builds the same step over its own shards, and the dispatch
+exchanges through the group: the JAX package's shard_map over W cards.
 ``score_fn``, ``stages`` and ``dispatch_stage`` thread through as in the
 JAX package. ``make_spmd_crawler`` is the counterpart of the JAX
 package's entry of the same name. ``mark_dead`` simulates a crawl
@@ -25,6 +28,7 @@ from repro_torch.core.stages import (CrawlState, FetchReport, NSTAT, SIDX,
                                      STATS, Stage, frontier_view, init_state,
                                      with_frontier)
 from repro_torch.device import resolve_device
+from repro_torch.dist import CrawlGroup
 from repro_torch.kernels.rowsum import row_sum
 from repro_torch.ordering.policies import ORD_WIDTH
 
@@ -41,8 +45,9 @@ def make_crawl_step(cfg: CrawlConfig, *, n_shards: int, device,
                     stages: Optional[Sequence[Stage]] = None,
                     extra_stages: Sequence[Stage] = (),
                     dispatch_stage: Stage = ST.dispatch_exchange):
-    """Build the step of all ``n_shards`` shards: fn(state, *, dispatch)
-    -> (state, FetchReport).
+    """Build the step of this process's shards of ``n_shards`` (all of
+    them without a crawl group): fn(state, *, dispatch) -> (state,
+    FetchReport), the report of the process's rows.
 
     ``score_fn`` (stateless ``(urls, cfg)``) overrides the ordering
     registry's scorer; by default ``cfg.ordering`` decides.
@@ -84,9 +89,11 @@ def make_crawl_step(cfg: CrawlConfig, *, n_shards: int, device,
 
 def make_spmd_crawler(cfg: CrawlConfig, *, n_shards: int, device=None,
                       **kw):
-    """The JAX package's shard_mapped crawler over ``n_shards`` shards,
-    batched on one device. Returns (init_fn, step_fetch, step_dispatch),
-    each step a fn(state) -> (state, FetchReport)."""
+    """The JAX package's shard_mapped crawler over ``n_shards`` shards:
+    batched on one device, or, under a crawl group, this rank's share of
+    them on its card, the group passed to the stages through their
+    context. Returns (init_fn, step_fetch, step_dispatch), each step a
+    fn(state) -> (state, FetchReport) of the rank's rows."""
     dev = resolve_device(device)
     step = make_crawl_step(cfg, n_shards=n_shards, device=dev, **kw)
     return (partial(init_state, cfg, n_shards, dev),
@@ -117,7 +124,10 @@ def apply_rebalance(state: CrawlState, cfg: CrawlConfig,
     overwrites (a displaced row) refunds its cash into the incoming row's
     slot cash; a domain merged into an occupied slot (no free slot
     anywhere) refunds its cash into the sharing slot; and a vacated row on
-    a live shard is cleared, so that no live shard crawls a twin queue."""
+    a live shard is cleared, so that no live shard crawls a twin queue.
+    Refused under a crawl group of more than one process: rows would
+    cross cards."""
+    CrawlGroup.current().refuse_moves("apply_rebalance")
     old_dm = PT.DomainMap(state.slot_of_domain, state.slot_domain,
                           state.shard_alive)
     moved = PT.migrate_rows({k: getattr(state, k) for k in MIGRATED_ROWS},

@@ -55,9 +55,14 @@ def shard_of_slot(slot: torch.Tensor, n_slots: int,
 
 def seed_frontier(cfg: CrawlConfig, n_shards: int, device) -> F.Frontier:
     """Gather hub seeds per domain and build the initial prioritized queues
-    at each domain's slot. On ``meta`` (the dry run) the queues keep their
-    empty shapes: the insert reads the host, and fills no new storage."""
-    f = F.init_frontier(cfg.n_slots, cfg.frontier_capacity, device)
+    at each domain's slot: under a crawl group, the rank's own rows only,
+    each equal to the one-process row. On ``meta`` (the dry run) the
+    queues keep their empty shapes: the insert reads the host, and fills
+    no new storage."""
+    from repro_torch.dist import CrawlGroup
+    group = CrawlGroup.current()
+    n_rows = group.split(n_shards)[0] * (cfg.n_slots // n_shards)
+    f = F.init_frontier(n_rows, cfg.frontier_capacity, device)
     if torch.device(device).type == "meta":
         return f
     dm = identity_map(cfg, n_shards, device)
@@ -71,6 +76,9 @@ def seed_frontier(cfg: CrawlConfig, n_shards: int, device) -> F.Frontier:
     mask = torch.zeros((cfg.n_slots, seeds.shape[1]), dtype=torch.bool,
                        device=device)
     mask[slots] = seed_mask
+    # every row is seeded on its own: the rank's rows are a slice
+    by_slot = group.local(by_slot, n_shards)
+    mask = group.local(mask, n_shards)
     scores = ranker.score_urls(by_slot, cfg)
     return F.insert(f, by_slot, scores, mask,
                     n_buckets=cfg.n_priority_buckets)

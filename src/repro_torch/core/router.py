@@ -5,8 +5,9 @@ Counterpart of ``repro/core/router.py``.
 bucket (arrival order kept; items past ``capacity`` drop), ``pack_buckets``
 scatters the items into (n_dest, capacity) buckets, each source shard its
 own when the items carry a leading shard axis, and ``exchange`` is the
-all_to_all of the JAX module written over that leading shard axis: a
-transpose. ``moe_capacity`` sizes an MoE layer's expert buckets
+all_to_all of the JAX module: over a crawl group (``repro_torch.dist``)
+an ``all_to_all_single`` between its ranks, within one process a
+transpose of the leading shard axes. ``moe_capacity`` sizes an MoE layer's expert buckets
 (``models/layers.moe_block`` routes through ``position_in_bucket``).
 """
 from __future__ import annotations
@@ -71,13 +72,31 @@ def pack_buckets(payload: torch.Tensor, dest: torch.Tensor, n_dest: int,
     return buckets, mask, dropped
 
 
-def exchange(buckets: torch.Tensor) -> torch.Tensor:
-    """All-to-all over a leading shard axis: ``buckets`` is
-    (n_src, n_dest, capacity, ...); shard i's bucket j goes to shard j's
-    row i, i.e. a transpose of the two leading axes. Shard j then holds
-    every source's bucket j in source order, as the JAX package's tiled
-    ``all_to_all`` (``concat_axis=0``) leaves it."""
-    return buckets.transpose(0, 1).contiguous()
+def exchange(buckets: torch.Tensor, group=None) -> torch.Tensor:
+    """All-to-all over the shards: ``buckets`` is (n_src, n_dest,
+    capacity, ...), this process's source shards' buckets for every
+    destination shard; shard i's bucket j goes to shard j's row i. Shard
+    j then holds every source's bucket j in source order, as the JAX
+    package's tiled ``all_to_all`` (``concat_axis=0``) leaves it. Within
+    one process (``group`` None or of one rank) that is a transpose of the
+    two leading axes. Over a crawl group of W ranks, each holding L source
+    and L destination shards, rank r sends ``buckets[:, q*L:(q+1)*L]`` to
+    rank q in one ``all_to_all_single`` (every split the same size: the
+    capacity is fixed) and gets (L, N, capacity, ...) back."""
+    if group is None or group.world == 1:
+        return buckets.transpose(0, 1).contiguous()
+    import torch.distributed as dist
+    L, N = buckets.shape[:2]
+    rest = tuple(buckets.shape[2:])
+    W = group.world
+    # (W_dst, L_src, L_dst, ...): the chunk for rank q first
+    send = buckets.reshape((L, W, N // W) + rest).transpose(0, 1)
+    send = send.contiguous()
+    recv = torch.empty_like(send)              # (W_src, L_src, L_dst, ...)
+    dist.all_to_all_single(recv, send)
+    # -> (L_dst, W_src, L_src, ...) = (L_dst, N_src, ...)
+    return recv.permute((2, 0, 1) + tuple(range(3, recv.dim()))
+                        ).reshape((N // W, W * L) + rest).contiguous()
 
 
 def moe_capacity(n_items: int, top_k: int, n_dest: int,

@@ -31,11 +31,20 @@ The shards are batched along the leading axis. The mesh's shard axis of
 the JAX package becomes the state's own layout: row-indexed leaves hold
 every shard's rows (shard s owns rows [s * r, (s + 1) * r)) and
 shard-indexed leaves one row per shard. Every stage runs once for all
-shards: a kernel sees all n_slots rows (the spend scatter all n_shards
-rows) in one launch, per-shard work (the fetch budget, exact dedup,
-staging, the exchange's buckets) runs along a leading shard axis, and
-``lax.axis_index`` becomes the shard vector ``StageContext.shard``. Stat
-deltas are (n_shards,) vectors, or scalars that every shard adds.
+shards: a kernel sees all the process's rows (the spend scatter all its
+shards' rows) in one launch, per-shard work (the fetch budget, exact
+dedup, staging, the exchange's buckets) runs along a leading shard axis,
+and ``lax.axis_index`` becomes the shard vector ``StageContext.shard``.
+Stat deltas are (n_local,) vectors, or scalars that every shard adds.
+
+Under a crawl group of W processes (``repro_torch.dist.CrawlGroup``, one a
+card) the state is this rank's share: its L = N / W shards' rows and
+shard rows (``state_specs`` says which leaves split and which every rank
+copies). ``StageContext.n_shards`` stays the global N, which routing and
+the exchange's bucket size read; ``n_local`` and ``shard0`` are the
+rank's own, and every shard id is global. The exchange is
+``core/router.exchange`` over the group (an ``all_to_all``; at W = 1 the
+one-card transpose).
 
 Coordination is the fourth registry (``repro_torch/coordination``):
 ``ctx.coord`` decides what ``dispatch_exchange`` does with each staged
@@ -66,6 +75,7 @@ from repro_torch.core import partitioner as PT
 from repro_torch.core import router as RT
 from repro_torch.core import webgraph as W
 from repro_torch.device import resolve_device
+from repro_torch.dist import CrawlGroup
 from repro_torch.kernels.dedup_deposit.ops import dedup_deposit
 from repro_torch.kernels.dedup_deposit.ref import first_twin, sorted_queue
 from repro_torch.kernels.opic_update.ops import (scatter_cash,
@@ -87,7 +97,8 @@ StatsDelta = Dict[str, torch.Tensor]
 
 
 class CrawlState(NamedTuple):
-    # row-indexed (n_slots, ...)
+    # row-indexed (n_slots, ...): under a crawl group, the rank's own rows
+    # (n_local * r, ...), and shard-indexed leaves its own shards' rows
     f_url: torch.Tensor          # int64 holding uint32 URL ids
     f_pri: torch.Tensor
     f_valid: torch.Tensor
@@ -151,8 +162,9 @@ def state_to_numpy(state: CrawlState) -> Dict[str, np.ndarray]:
 class StageContext(NamedTuple):
     """Static per-build inputs every stage shares."""
     cfg: CrawlConfig
-    n_shards: int
-    shard: torch.Tensor          # (n_slots,) int64: the shard of each row
+    n_shards: int                # N, every process's shards together
+    shard: torch.Tensor          # (n_local * r,) int64: the global shard
+                                 # of each of this process's rows
     score_fn: Callable           # (urls, cfg, state, val=None) -> [0, 1)
     classify_accuracy: float
     cumw: torch.Tensor           # static Zipf cumulative weights
@@ -164,6 +176,9 @@ class StageContext(NamedTuple):
     coord: object                # resolved from cfg.coordination
     url_lane: bool = False       # the ordering keeps a cell-aligned
                                  # per-URL value lane in order_state[:, 2:]
+    n_local: int = 0             # L, the shards this process owns
+    shard0: int = 0              # the first of them (a global id)
+    group: CrawlGroup = CrawlGroup()
 
 
 class StepCarry(NamedTuple):
@@ -197,13 +212,15 @@ Stage = Callable[[StageContext, CrawlState, Optional[StepCarry]],
 
 def check_supported(cfg: CrawlConfig, n_shards: int) -> None:
     """Refuse what the port cannot run: unknown ordering or coordination
-    names, a shard count that does not divide the domains and slots, and
-    a kernel knob other than ``auto``."""
+    names, a shard count that does not divide the domains and slots, a
+    crawl group whose size does not divide the shards, and a kernel knob
+    other than ``auto``."""
     get_ordering(cfg.ordering)            # unknown names raise
     get_coordination(cfg.coordination)
     if n_shards < 1 or cfg.n_domains % n_shards or cfg.n_slots % n_shards:
         raise ValueError(f"{cfg.n_domains} domains / {cfg.n_slots} slots do "
                          f"not split over {n_shards} shards")
+    CrawlGroup.current().split(n_shards)               # raises ValueError
     if cfg.kernel_impl != "auto":
         raise ValueError(
             f"kernel_impl={cfg.kernel_impl!r}: the port dispatches by device "
@@ -246,11 +263,12 @@ def ledger_view(state: CrawlState) -> Dict[str, object]:
 def add_to_rows(slot_cash: torch.Tensor, rows: torch.Tensor,
                 vals: torch.Tensor, mask: torch.Tensor, n_shards: int
                 ) -> None:
-    """slot_cash (n_slots,) += the masked values at their rows, in item
-    order (the ``opic_update`` kernel, one launch for all shards); the JAX
-    stages' ``.at[...].add`` with masked items dropped. rows/vals/mask hold
-    each shard's items along a leading axis (n_shards, ...), and a row is
-    local to its shard, so a shard's items reach only its own rows."""
+    """slot_cash (n_shards * r,) += the masked values at their rows, in
+    item order (the ``opic_update`` kernel, one launch for all shards); the
+    JAX stages' ``.at[...].add`` with masked items dropped. rows/vals/mask
+    hold each shard's items along a leading axis (n_shards, ...), and a
+    row is local to its shard, so a shard's items reach only its own rows.
+    ``n_shards`` counts the shards ``slot_cash`` holds (a process's own)."""
     scatter_cash(slot_cash.view(n_shards, -1),
                  rows.reshape(n_shards, -1).to(torch.int64).contiguous(),
                  vals.reshape(n_shards, -1).contiguous(),
@@ -258,12 +276,12 @@ def add_to_rows(slot_cash: torch.Tensor, rows: torch.Tensor,
 
 
 def per_shard(ctx: StageContext, x: torch.Tensor) -> torch.Tensor:
-    """Count a row-indexed mask (n_slots, ...) per shard: (n_shards,)."""
-    return x.reshape(ctx.n_shards, -1).sum(1)
+    """Count a row-indexed mask (n_local * r, ...) per shard: (n_local,)."""
+    return x.reshape(ctx.n_local, -1).sum(1)
 
 
 def apply_delta(state: CrawlState, delta: StatsDelta) -> CrawlState:
-    """Fold a stage's stat increments into the stats rows: an (n_shards,)
+    """Fold a stage's stat increments into the stats rows: an (n_local,)
     vector adds per shard, a scalar to every shard."""
     for name, val in delta.items():
         state.stats[:, SIDX[name]] += torch.as_tensor(
@@ -272,49 +290,95 @@ def apply_delta(state: CrawlState, delta: StatsDelta) -> CrawlState:
 
 
 def init_state(cfg: CrawlConfig, n_shards: int, device) -> CrawlState:
-    """The initial crawl state on ``device`` (``None`` means cuda; a CUDA
-    request without a card raises). The seeds are registered in the Bloom
-    filters through the ``bloom`` kernel."""
+    """The initial crawl state of ``n_shards`` shards on ``device``
+    (``None`` means cuda; a CUDA request without a card raises): under a
+    crawl group, this rank's share of it (``state_specs``), whose rows
+    equal the one-process state's bit for bit. The seeds are registered
+    in the Bloom filters through the ``bloom`` kernel."""
     check_supported(cfg, n_shards)
     dev = resolve_device(device)
+    group = CrawlGroup.current()
+    n_local, _ = group.split(n_shards)
     f = PT.seed_frontier(cfg, n_shards, dev)
     dm = PT.identity_map(cfg, n_shards, dev)
-    bloom = DD.init_bloom(cfg.n_slots, cfg.bloom_bits_log2, dev)
+    bloom = DD.init_bloom(f.url.shape[0], cfg.bloom_bits_log2, dev)
     DD.probe_insert(bloom, f.url, f.valid, k=cfg.bloom_hashes)
     S = cfg.dispatch_capacity
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    order = get_ordering(cfg.ordering).init_state(cfg, n_shards, dev)
     return CrawlState(
         f_url=f.url, f_pri=f.priority, f_valid=f.valid, f_arrival=f.arrival,
         f_dropped=f.n_dropped, f_inserted=f.n_inserted, f_rebased=f.n_rebased,
-        bloom_bits=bloom.bits, slot_domain=dm.domain_of_slot,
-        order_state=get_ordering(cfg.ordering).init_state(cfg, n_shards, dev),
-        staging_url=zeros((n_shards, S), torch.int64),
-        staging_src=zeros((n_shards, S), torch.int32),
-        staging_val=zeros((n_shards, S), torch.float32),
-        staging_n=zeros((n_shards,), torch.int32),
-        **OB.init_outbox(cfg, n_shards, dev),
-        stats=zeros((n_shards, NSTAT), torch.int32),
+        bloom_bits=bloom.bits,
+        slot_domain=group.local(dm.domain_of_slot, n_shards),
+        order_state=group.local(order, n_shards),
+        staging_url=zeros((n_local, S), torch.int64),
+        staging_src=zeros((n_local, S), torch.int32),
+        staging_val=zeros((n_local, S), torch.float32),
+        staging_n=zeros((n_local,), torch.int32),
+        **OB.init_outbox(cfg, n_local, dev),
+        stats=zeros((n_local, NSTAT), torch.int32),
         slot_of_domain=dm.slot_of_domain, shard_alive=dm.shard_alive,
         step=zeros((), torch.int32))
+
+
+def state_specs(axes="data") -> CrawlState:
+    """Which leaves a crawl group splits: ``axes`` (the mesh axis the
+    shards lie on) for a leaf cut along its leading axis, row-indexed
+    leaves by their shard's rows and shard-indexed leaves by shard; None
+    for a leaf every rank holds whole (the reference's ``P()``):
+    ``slot_of_domain``, ``shard_alive`` and ``step``. ``local_state`` and
+    ``join_state`` apply it."""
+    return CrawlState(**{
+        name: None if name in ("slot_of_domain", "shard_alive", "step")
+        else axes for name in CrawlState._fields})
+
+
+def local_state(arrays: Dict[str, object],
+                n_shards: int) -> Dict[str, object]:
+    """This rank's share of a whole state's leaves (tensors or numpy
+    arrays keyed by field name, e.g. a checkpoint's), cut by
+    ``state_specs``: every rank restores any checkpoint of ``n_shards``
+    shards, whatever the world that wrote it."""
+    group = CrawlGroup.current()
+    specs = state_specs()
+    return {name: arrays[name] if getattr(specs, name) is None
+            else group.local(arrays[name], n_shards)
+            for name in CrawlState._fields}
+
+
+def join_state(state: CrawlState) -> CrawlState:
+    """The whole state on every rank: each split leaf gathered from every
+    rank in shard order (``state_specs``); the copied leaves as they
+    are. The one-process state is its own whole."""
+    group = CrawlGroup.current()
+    specs = state_specs()
+    return CrawlState(**{
+        name: getattr(state, name) if getattr(specs, name) is None
+        else group.gather(getattr(state, name))
+        for name in CrawlState._fields})
 
 
 def make_context(cfg: CrawlConfig, *, n_shards: int, device,
                  score_fn: Optional[Callable] = None,
                  classify_accuracy: float) -> StageContext:
-    """The static inputs of the stages of all ``n_shards`` shards. A
-    ``score_fn`` override (stateless ``(urls, cfg)``, e.g. a learned
-    scorer) wins over the registry; by default ``cfg.ordering`` names the
-    scorer."""
+    """The static inputs of the stages of this process's shards of
+    ``n_shards`` (all of them without a crawl group). A ``score_fn``
+    override (stateless ``(urls, cfg)``, e.g. a learned scorer) wins over
+    the registry; by default ``cfg.ordering`` names the scorer."""
     check_supported(cfg, n_shards)
     dev = resolve_device(device)
-    r_local = cfg.n_slots // n_shards
+    group = CrawlGroup.current()
+    r_local = cfg.n_slots // n_shards          # rows a shard owns
+    n_local, shard0 = group.split(n_shards)
     S = cfg.dispatch_capacity
     ordering = get_ordering(cfg.ordering)
-    shard = PT.shard_of_slot(torch.arange(cfg.n_slots, device=dev),
-                             cfg.n_slots, n_shards)
+    shard = PT.shard_of_slot(
+        torch.arange(shard0 * r_local, (shard0 + n_local) * r_local,
+                     device=dev), cfg.n_slots, n_shards)
     score = (as_score_fn(score_fn) if score_fn is not None else
              ordering.make_score_fn(cfg, n_shards=n_shards, shard=shard))
     return StageContext(
@@ -324,7 +388,8 @@ def make_context(cfg: CrawlConfig, *, n_shards: int, device,
         k_row=max(1, cfg.fetch_batch // r_local), S=S,
         cap_ex=max(8, -(-S // n_shards) * 2),
         policy=PT.get_policy(cfg.partitioning), ordering=ordering,
-        coord=get_coordination(cfg.coordination), url_lane=ordering.url_lane)
+        coord=get_coordination(cfg.coordination), url_lane=ordering.url_lane,
+        n_local=n_local, shard0=shard0, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -338,8 +403,8 @@ def allocate(ctx: StageContext, state: CrawlState,
     shard's fetch budget over its own rows; candidates beyond it go back to
     their queues, and a dead shard gives back all its pops. On the url lane
     each pop harvests its cell's cash, and a give-back re-deposits it."""
-    cfg, n = ctx.cfg, ctx.n_shards
-    alive = state.shard_alive[ctx.shard]                 # (n_slots,)
+    cfg, n = ctx.cfg, ctx.n_local
+    alive = state.shard_alive[ctx.shard]                 # (n_local * r,)
     fr = frontier_view(state)
     url_cash = slot_cash = None
     if ctx.url_lane:
@@ -418,10 +483,10 @@ def extract_stage(ctx: StageContext, state: CrawlState, carry: StepCarry
     buffer. On the value channel each link's value is staged beside it,
     and the value of a link dropped here (batch dedup, staging overflow)
     refunds to its source row's slot cash."""
-    cfg, S, n = ctx.cfg, ctx.S, ctx.n_shards
+    cfg, S, n = ctx.cfg, ctx.S, ctx.n_local
     links = (W.outlinks(carry.urls, cfg, ctx.cumw) if carry.links is None
              else carry.links)                                # (R, k, O)
-    # each shard's links in its rows' order: (n_shards, r_local * k * O)
+    # each shard's links in its rows' order: (n_local, r_local * k * O)
     flat_u = links.reshape(n, -1)
     lmask = carry.sel[..., None].expand(links.shape).reshape(n, -1)
     flat_s = carry.true_dom[..., None].expand(links.shape).reshape(n, -1)
@@ -494,12 +559,14 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     delivered, parked or refunded: to the receiving row's slot cash
     (``opic``), or into the cell its URL wins or its queued twin holds
     (``opic_url``)."""
-    cfg, S, n = ctx.cfg, ctx.S, ctx.n_shards
+    cfg, S, n, nl = ctx.cfg, ctx.S, ctx.n_shards, ctx.n_local
     coord = ctx.coord
     valued = ctx.ordering.stateful
     u, src, val = state.staging_url, state.staging_src, state.staging_val
     r_slots = cfg.n_slots // n                     # rows a shard owns
-    sid = torch.arange(n, device=u.device)[:, None]  # each item's shard
+    n_rows = nl * r_slots                          # this process's rows
+    # each item's shard, a global id
+    sid = torch.arange(ctx.shard0, ctx.shard0 + nl, device=u.device)[:, None]
 
     # the candidate pool: the staging batch, after the parked outbox for
     # modes that carry one (retries first)
@@ -507,7 +574,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
     if coord.uses_outbox:
         u, src, val, staged, _ = OB.merge_pool(state, u, src, val, staged)
     # a dead process sends nothing (the batched mode still parks)
-    valid = staged & state.shard_alive[:, None]
+    valid = staged & state.shard_alive[ctx.shard0:ctx.shard0 + nl, None]
     pred = CLS.predict_domain(u, src, cfg, step=state.step,
                               accuracy=ctx.classify_accuracy)
     # outbox retries route through the live domain map
@@ -536,8 +603,9 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
             torch.stack(lanes, dim=-1), dest, n, ctx.cap_ex,
             valid=plan.ship, return_keep=True)
         delta["staging_drop"] = dropped
-        # shard j receives every source's bucket j, in source order
-        recv = RT.exchange(buckets).reshape(n, -1, len(lanes))
+        # shard j receives every source's bucket j, in source order: the
+        # crawl group's all_to_all (a transpose within one process)
+        recv = RT.exchange(buckets, ctx.group).reshape(nl, -1, len(lanes))
         r_u = recv[..., 0]
         r_pred = recv[..., 1]
         r_has = recv[..., 2] > 0
@@ -567,7 +635,7 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
         leftover = staged & ~sent & ~plan.keep
         if coord.uses_outbox:
             leftover = leftover & ~parked_ok
-        add_to_rows(slot_cash, own_row, val, leftover, n)
+        add_to_rows(slot_cash, own_row, val, leftover, nl)
 
     delta["dispatch_recv"] = r_has.sum(1)
     r_m = DD.exact_dedup(r_u, r_has)
@@ -594,22 +662,22 @@ def dispatch_exchange(ctx: StageContext, state: CrawlState, carry: StepCarry
         rbp, rbmask, rdrop, rkeep = RT.pack_buckets(
             torch.stack([r_u, _f32_bits(r_val), *extra], dim=-1), row,
             r_slots, M, valid=r_m, return_keep=True)
-        rv = _from_bits(rbp[..., 1]).reshape(cfg.n_slots, M)
-        add_to_rows(slot_cash, row, r_val, r_has & ~rkeep, n)
+        rv = _from_bits(rbp[..., 1]).reshape(n_rows, M)
+        add_to_rows(slot_cash, row, r_val, r_has & ~rkeep, nl)
     else:
         if valued:
             # the receiver half: every received value goes to its row
             # before dedup
-            add_to_rows(slot_cash, row, r_val, r_has, n)
+            add_to_rows(slot_cash, row, r_val, r_has, nl)
         payload = (r_u[..., None] if not extra
                    else torch.stack([r_u, *extra], dim=-1))
         rbp, rbmask, rdrop = RT.pack_buckets(payload, row, r_slots, M,
                                              valid=r_m)
-    # (n_dest, r_slots, M) -> one row-aligned (n_slots, M) batch
-    rb = rbp[..., 0].reshape(cfg.n_slots, M).contiguous()
+    # (n_local, r_slots, M) -> one row-aligned (n_rows, M) batch
+    rb = rbp[..., 0].reshape(n_rows, M).contiguous()
     rbf = None if r_foreign is None else \
-        (rbp[..., -1] > 0).reshape(cfg.n_slots, M)
-    rbmask = rbmask.reshape(cfg.n_slots, M)
+        (rbp[..., -1] > 0).reshape(n_rows, M)
+    rbmask = rbmask.reshape(n_rows, M)
     delta["frontier_drop"] = rdrop
 
     fr = frontier_view(state)

@@ -9,17 +9,25 @@ the source and the flags, so a changed source is never served a stale
 library. Nothing is compiled when a module is imported: the first launch
 builds its kernel, and :func:`build_all` builds every kernel at once, one
 ``nvcc`` per source, all started together.
+
+Several processes may reach a kernel's first launch at once (the crawl
+group's ranks, one a card, in one checkout). A library is built under an
+exclusive ``fcntl`` lock on ``<library>.lock`` beside it: the first process
+compiles, the others wait on the lock, find the library and load it. The
+operating system releases the lock when its holder exits, so a build cut
+off midway leaves no lock held.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,25 +74,42 @@ class Kernel:
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.stem}-{h.hexdigest()[:16]}.so"
 
-    def start_build(self) -> Optional[subprocess.Popen]:
-        """Start ``nvcc`` for this kernel unless its library exists."""
-        if self.library.exists():
+    def start_build(self) -> Optional["_Build"]:
+        """Start ``nvcc`` for this kernel unless its library exists. Waits
+        for the library's lock first: a process that finds the library
+        built by another returns None."""
+        library = self.library
+        if library.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
-        return subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        library.parent.mkdir(parents=True, exist_ok=True)
+        lock = open(library.with_name(library.name + ".lock"), "w")
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if library.exists():
+                lock.close()
+                return None
+            tmp = library.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except BaseException:
+            lock.close()
+            raise
+        return _Build(proc, tmp, library, lock)
 
-    def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
-        if proc is None:
+    def finish_build(self, build: Optional["_Build"]) -> None:
+        """Wait for ``nvcc``, move its library into place and release the
+        lock; raises when it failed."""
+        if build is None:
             return
-        out, _ = proc.communicate()
-        self.build_log = out
-        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
-        os.replace(tmp, self.library)
+        try:
+            out, _ = build.proc.communicate()
+            self.build_log = out
+            if build.proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+            os.replace(build.tmp, build.library)
+        finally:
+            build.lock.close()
 
     def _load(self):
         if self._fn is None:
@@ -109,6 +134,15 @@ class Kernel:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc} ({self._err(rc).decode()})")
         self.launches += 1
+
+
+class _Build(NamedTuple):
+    """One running ``nvcc``: its process, the file it writes, the library
+    that file becomes, and the held lock."""
+    proc: subprocess.Popen
+    tmp: Path
+    library: Path
+    lock: object
 
 
 def build_all(kernels: Iterable[Kernel]) -> Dict[str, float]:

@@ -13,12 +13,13 @@ import os
 
 from repro_torch.obs.health import CrawlTelemetry, ServeTelemetry
 from repro_torch.obs.ledger import (LEDGER_BASE, LedgerBuffer,
-                                    ledger_metrics, snapshot)
+                                    ledger_metrics, snapshot, snapshot_local)
 from repro_torch.obs.trace import Event, Tracer, validate_chrome_trace
 
 __all__ = [
     "CrawlTelemetry", "ServeTelemetry", "Event", "Tracer",
     "LEDGER_BASE", "LedgerBuffer", "ledger_metrics", "snapshot",
+    "snapshot_local",
     "telemetry_enabled", "validate_chrome_trace",
 ]
 

@@ -1,11 +1,13 @@
 """The per-shard load ledger. Counterpart of ``repro/obs/ledger.py``.
 
-``snapshot`` is the device half: every shard's ledger row at once,
-``(n_shards, n_metrics)`` f32, reduced from what
-``core.stages.ledger_view`` exposes. It only reads the state, so a crawl
-with telemetry on follows the same trajectory as one with it off; the
-eager step and the chunk take the same snapshot, so their ledgers are
-identical too. The session keeps a chunk's rows on the device and copies
+``snapshot_local`` is the device half: the ledger rows of the shards
+whose state this process holds, ``(n_local, n_metrics)`` f32, reduced
+from what ``core.stages.ledger_view`` exposes (every shard in one
+process; a rank's own under a crawl group, the reference's shard-local
+row); ``snapshot`` gathers every rank's rows in shard order. It only
+reads the state, so a crawl with telemetry on follows the same
+trajectory as one with it off; the eager step and the chunk take the
+same snapshot, so their ledgers are identical too. The session keeps a chunk's rows on the device and copies
 them to the host once a chunk.
 
 A dead shard's row is zeroed at the source (multiplied by its
@@ -31,6 +33,7 @@ import torch
 from repro_torch.configs.base import CrawlConfig
 from repro_torch.core import frontier as F
 from repro_torch.core import stages as ST
+from repro_torch.dist import CrawlGroup
 from repro_torch.kernels.rowsum import tree_sum
 from repro_torch.ordering.policies import ORD_URL0
 
@@ -64,8 +67,18 @@ def ledger_metrics(cfg: CrawlConfig) -> Tuple[str, ...]:
 def snapshot(cfg: CrawlConfig, state: ST.CrawlState,
              dispatch: bool = False) -> torch.Tensor:
     """Every shard's ledger row, ``(n_shards, n_metrics)`` f32, on the
-    state's device; no host sync. ``dispatch`` flags the records taken
-    after an exchange step."""
+    state's device, in shard order; no host sync in one process (under a
+    crawl group every rank calls it, and the rows are gathered).
+    ``dispatch`` flags the records taken after an exchange step."""
+    return CrawlGroup.current().gather(snapshot_local(cfg, state, dispatch))
+
+
+def snapshot_local(cfg: CrawlConfig, state: ST.CrawlState,
+                   dispatch: bool = False) -> torch.Tensor:
+    """The ledger rows of the shards this process holds, ``(n_local,
+    n_metrics)`` f32, on the state's device; no host sync. The
+    reference's ``snapshot_local`` is one shard's row inside its
+    ``shard_map``; a process here holds L shards, one row each."""
     view = ST.ledger_view(state)
     stats = view["stats"]
     n = stats.shape[0]
@@ -89,7 +102,8 @@ def snapshot(cfg: CrawlConfig, state: ST.CrawlState,
             torch.full_like(depth, 1.0 if dispatch else 0.0)]
     occ = F.bucket_occupancy(fr.priority, fr.valid, cfg.n_priority_buckets,
                              groups=n)
-    alive = view["shard_alive"].to(torch.float32)
+    # shard_alive is every shard's: this process's run of it
+    alive = CrawlGroup.current().local(view["shard_alive"]).to(torch.float32)
     return torch.cat([torch.stack(cols, dim=1), occ], dim=1) * alive[:, None]
 
 

@@ -53,23 +53,35 @@ def local_rows(urls: torch.Tensor, cfg: CrawlConfig, state, shard,
 
 
 def slot_importance(state, n_shards: int) -> torch.Tensor:
-    """cash + history of every slot, relative to the largest of its own
-    shard (the JAX package's ``imp.max()`` over a shard's local rows)."""
+    """cash + history of every slot of the state, relative to the largest
+    of its own shard (the JAX package's ``imp.max()`` over a shard's local
+    rows); ``n_shards`` counts the shards the state holds."""
     imp = (state.order_state[:, 0] + state.order_state[:, 1]).view(
         n_shards, -1)
     top = torch.clamp(imp.max(dim=1, keepdim=True).values, min=1e-6)
     return (imp / top).reshape(-1)
 
 
+def first_row(shard, r_slots: int) -> int:
+    """The global slot of the state's first row: under a crawl group the
+    state holds the rows of its own shards, from the first of ``shard``
+    (an int, or the global shard of each of the state's rows) on. Read
+    once, when a scorer is built."""
+    return int(torch.as_tensor(shard).reshape(-1)[0]) * r_slots
+
+
 def make_opic_score_fn(cfg: CrawlConfig, *, n_shards: int, shard=0):
-    """``shard``: the shard of each row of the URLs to score (rows first),
-    or one int for all."""
+    """``shard``: the global shard of each row of the URLs to score (rows
+    first), or one int for all."""
     r_slots = cfg.n_slots // n_shards
+    base = first_row(shard, r_slots)
 
     def score(urls, cfg, state, val=None):
         sh = row_shard(shard, urls)
         row, local = local_rows(urls, cfg, state, sh, r_slots)
-        s_imp = slot_importance(state, n_shards)[sh * r_slots + row]
+        imp = slot_importance(state, state.order_state.shape[0] // r_slots)
+        slot = sh * r_slots + row
+        s_imp = imp[slot - base if base else slot]
         pop = W.popularity(urls, cfg)
         # URLs whose domain row lives on another shard fall back to the
         # static blend
@@ -83,7 +95,7 @@ def make_opic_score_fn(cfg: CrawlConfig, *, n_shards: int, shard=0):
 def opic_update(ctx, state, carry):
     """The OPIC spend step, a pipeline stage between fetch_analyze and
     extract. Writes the slot columns of ``order_state`` in place."""
-    cfg, n = ctx.cfg, ctx.n_shards
+    cfg, n = ctx.cfg, ctx.n_local
     os_ = state.order_state
     cash, hist = os_[:, 0], os_[:, 1]
     r_slots = cash.shape[0] // n
@@ -145,7 +157,12 @@ def total_cash(state) -> float:
     """Total OPIC cash: slot cash, the per-URL lane when the ordering keeps
     one (``opic_url``, order_state columns 2:), cash in transit in the
     staging buffers, and cash parked in the outbox. Conserved up to f32
-    rounding in the spend split."""
+    rounding in the spend split. Under a crawl group every rank calls it:
+    the f32 leaves are gathered from every rank (as bits, never reduced
+    across ranks) and added in the one-process order, so every rank gets
+    the one-process sum."""
+    from repro_torch.core.stages import join_state
+    state = join_state(state)
     os_ = state.order_state.cpu().numpy().astype(np.float64)
     return (float(os_[:, 0].sum() + os_[:, ORD_WIDTH:].sum())
             + _in_transit(state.staging_val, state.staging_n)
@@ -154,5 +171,7 @@ def total_cash(state) -> float:
 
 def total_wealth(state) -> float:
     """cash + history + in-transit — grows only by banked history."""
+    from repro_torch.core.stages import join_state
     return total_cash(state) + float(
-        state.order_state[:, 1].cpu().numpy().astype(np.float64).sum())
+        join_state(state).order_state[:, 1].cpu().numpy().astype(
+            np.float64).sum())

@@ -30,7 +30,8 @@ from repro_torch.core import partitioner as PT
 from repro_torch.core import ranker
 from repro_torch.core import webgraph as W
 from repro_torch.kernels.rowsum import row_sum
-from repro_torch.ordering.opic import local_rows, row_shard, slot_importance
+from repro_torch.ordering.opic import (first_row, local_rows, row_shard,
+                                       slot_importance)
 from repro_torch.ordering.policies import (ORD_WIDTH, OrderingPolicy,
                                            register_ordering)
 
@@ -55,14 +56,17 @@ def url_cash_table(state) -> torch.Tensor:
 
 
 def make_opic_url_score_fn(cfg: CrawlConfig, *, n_shards: int, shard=0):
-    """``shard``: the shard of each row of the URLs to score (rows first),
-    or one int for all."""
+    """``shard``: the global shard of each row of the URLs to score (rows
+    first), or one int for all."""
     r_slots = cfg.n_slots // n_shards
+    base = first_row(shard, r_slots)
 
     def score(urls, cfg, state, val=None):
         sh = row_shard(shard, urls)
         row, local = local_rows(urls, cfg, state, sh, r_slots)
-        s_imp = slot_importance(state, n_shards)[sh * r_slots + row]
+        imp = slot_importance(state, state.order_state.shape[0] // r_slots)
+        slot = sh * r_slots + row
+        s_imp = imp[slot - base if base else slot]
         pop = W.popularity(urls, cfg)
         # within-queue rank: the URL's cash relative to its row's mean
         # delivery (val is row-aligned 2-D at every stage call site)

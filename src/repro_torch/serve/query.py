@@ -3,7 +3,11 @@ serving. Counterpart of ``repro/serve/query.py``.
 
 The index is ``n_shards`` independent ``Index`` blocks along a leading
 axis of every leaf, as the crawl state's shards are, and each step below
-runs once for all of them (no loop over shards):
+runs once for all of them (no loop over shards). Under a crawl group a
+rank holds its own shards' blocks (``index_specs``), and the reference's
+collectives are the group's: ``psum`` of df and N an integer
+``all_reduce``, and the winners' ``all_gather`` a gather in shard order,
+so that every rank serves the same answers:
 
   * **incremental add** (:func:`make_index_add`): a dispatch interval's
     stacked FetchReport folds into the index, each shard's pages into its
@@ -31,6 +35,7 @@ import torch
 from repro_torch.configs.base import CrawlConfig
 from repro_torch.core import index as IX
 from repro_torch.core.stages import FetchReport
+from repro_torch.dist import CrawlGroup
 
 
 def init_sharded_index(n_shards: int, cap_shard: int, doc_len: int,
@@ -38,6 +43,13 @@ def init_sharded_index(n_shards: int, cap_shard: int, doc_len: int,
     """An ``Index`` whose every leaf carries a leading (n_shards,) axis."""
     return IX.init_index(cap_shard, doc_len, vocab, blocks=n_shards,
                          device=device)
+
+
+def index_specs(axes="data") -> IX.Index:
+    """Which index leaves a crawl group splits: every one, along its
+    leading shard axis (``axes``, as the reference's ``P(axes)``); a rank
+    holds its own shards' blocks."""
+    return IX.Index(*([axes] * len(IX.Index._fields)))
 
 
 def make_index_add(cfg: CrawlConfig) -> Callable:
@@ -62,19 +74,25 @@ def make_query_fn(cfg: CrawlConfig, *, n_terms: int, k: int) -> Callable:
     """``(index, seeds (B,), domains (B,)) -> (scores, urls)``, each
     (B, k). Terms are generated on the device from the descriptors
     (``core/index.query_terms``)."""
+    group = CrawlGroup.current()
+
     def query(idx: IX.Index, seeds: torch.Tensor, doms: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         n, cap = idx.doc_url.shape
         vocab = idx.df.shape[-1]
-        # global corpus statistics: shard-local tf, corpus-wide idf
-        df_g = idx.df.sum(0, dtype=torch.int32)
-        n_g = idx.n_docs.sum(dtype=torch.int32)
+        # global corpus statistics: shard-local tf, corpus-wide idf (the
+        # integer sums of every rank's blocks)
+        df_g = group.sum_int(idx.df.sum(0, dtype=torch.int32))
+        n_g = group.sum_int(idx.n_docs.sum(dtype=torch.int32))
         terms = IX.query_terms(seeds, n_terms, vocab, doms, cfg)   # (B, Q)
         B = terms.shape[0]
         scores = IX.score_docs(idx, terms[None], n_total=n_g, df=df_g)
         k_l = min(k, cap)
         s_l, i_l = IX.top_k(scores, k_l)                       # (n, B, k_l)
         u_l = torch.gather(idx.doc_url[:, None].expand(n, B, cap), 2, i_l)
+        # every rank's winners, in shard order: (N, B, k_l)
+        s_l, u_l = group.gather(s_l), group.gather(u_l)
+        n = s_l.shape[0]
         # the shard winners, shard-major per query, then one global top-k
         s_cat = s_l.transpose(0, 1).reshape(B, n * k_l)
         u_cat = u_l.transpose(0, 1).reshape(B, n * k_l)

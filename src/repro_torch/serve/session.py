@@ -13,6 +13,12 @@ built on :class:`repro_torch.api.CrawlSession`:
     3. the interval's fetched pages fold into the sharded index on the
        device (the FetchReport's tensors, no host round trip).
 
+Under a crawl group (``launch.mesh.init_crawl_group``) every rank runs the
+loop with the same arguments: it crawls and indexes its own shards, draws
+the same query load from the seed, and answers through the query path's
+collectives, so every rank serves the same URLs and scores; rank 0
+computes recall against the oracle and gives it to the others.
+
 Serve-then-fold is the honest order: a query arriving mid-interval cannot
 see that interval's pages, so the freshness lag is at least one interval,
 and ``index_every`` widens the fold period and the lag with it.
@@ -34,8 +40,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.api.report import (CrawlReport, harvest, stats_dict,
-                                    stats_per_shard)
+from repro_torch.api.report import (CrawlReport, gather_report, harvest,
+                                    stats_dict, stats_per_shard)
 from repro_torch.api.session import CrawlSession
 from repro_torch.configs.base import CrawlConfig
 from repro_torch.core import index as IX
@@ -75,13 +81,15 @@ class ServeSession:
         if self.cap_shard < top_k:
             raise ValueError(f"per-shard capacity {self.cap_shard} < "
                              f"top_k {top_k}")
+        self.group = self.crawl.group
+        n_local, _ = self.group.split(self.n_shards)
         self.doc_len, self.vocab = int(doc_len), int(vocab)
         self.top_k, self.n_query_terms = int(top_k), int(n_query_terms)
         self.query_batch = int(query_batch)
         self.index_every = max(int(index_every), 1)
         self.load = load if load is not None else QueryLoad(
             cfg, qps=qps, seed=load_seed)
-        self.index = Q.init_sharded_index(self.n_shards, self.cap_shard,
+        self.index = Q.init_sharded_index(n_local, self.cap_shard,
                                           self.doc_len, self.vocab,
                                           self.device)
         self._add_fn = Q.make_index_add(cfg)
@@ -108,10 +116,12 @@ class ServeSession:
         return self.crawl.stats
 
     def index_stats(self) -> Dict[str, int]:
-        """Host-side index counters (one copy of two small leaves)."""
+        """Host-side index counters (one copy of two small leaves), every
+        shard's."""
         return dict(
-            index_docs=int(self.index.n_docs.sum()),
-            index_dropped=int(self.index.n_dropped.sum()),
+            index_docs=int(self.group.sum_int(self.index.n_docs.sum())),
+            index_dropped=int(self.group.sum_int(
+                self.index.n_dropped.sum())),
             index_capacity=self.cap_shard * self.n_shards,
         )
 
@@ -145,7 +155,7 @@ class ServeSession:
         for _ in range(steps // iv):
             t_start = self.crawl.t
             w0 = time.perf_counter()
-            reps = self.crawl.run_chunk()
+            reps = self.crawl.run_chunk_local()     # this rank's rows
             self._sync()
             w1 = time.perf_counter()
             crawl_secs += w1 - w0
@@ -164,7 +174,7 @@ class ServeSession:
             self._pending.append(reps)
             if len(self._pending) >= self.index_every:
                 self._flush_pending()
-            u, c = harvest(reps)
+            u, c = harvest(gather_report(reps))
             per_step.extend(c)
             self._all_urls.extend(u)
             if collect == "urls":
@@ -260,6 +270,16 @@ class ServeSession:
 
     def _oracle_recall(self, seeds: np.ndarray, doms: np.ndarray,
                        served: np.ndarray) -> float:
+        """recall@k against the full-index oracle: rank 0 computes it
+        (every rank holds the same page stream and answers) and gives it
+        to the others."""
+        rec = None
+        if self.group.rank == 0:
+            rec = self._oracle_recall_here(seeds, doms, served)
+        return self.group.broadcast(rec)
+
+    def _oracle_recall_here(self, seeds: np.ndarray, doms: np.ndarray,
+                            served: np.ndarray) -> float:
         pages = np.concatenate(self._all_urls)
         oracle = Q.oracle_index(pages, self.cfg, doc_len=self.doc_len,
                                 vocab=self.vocab, device=self.device)
@@ -298,8 +318,9 @@ class ServeSession:
 
     def _serve_arrays(self) -> Dict[str, np.ndarray]:
         """The JAX package's serve checkpoint leaves: ``index/<field>``,
-        ``watermark`` and ``q_cursor``, in its dtypes."""
-        out = {f"index/{k}": v.cpu().numpy()
+        ``watermark`` and ``q_cursor``, in its dtypes; every shard's
+        blocks (gathered under a group: ``index_specs``)."""
+        out = {f"index/{k}": self.group.gather(v).cpu().numpy()
                for k, v in zip(IX.Index._fields, self.index)}
         out["index/doc_url"] = out["index/doc_url"].astype(np.uint32)
         out["watermark"] = np.asarray(self._watermark, np.int32)
@@ -313,6 +334,7 @@ class ServeSession:
         from repro_torch.train import checkpoint as ckpt
         self._flush_pending()
         path = self.crawl.checkpoint(ckpt_dir, keep=keep)
+        # every rank gathers, rank 0 writes
         ckpt.save(os.path.join(ckpt_dir, _SERVE_DIR), self.crawl.t,
                   self._serve_arrays(), keep=keep)
         return path
@@ -327,7 +349,8 @@ class ServeSession:
                            step=self.crawl.t)
         leaves = []
         for k, like in zip(IX.Index._fields, self.index):
-            a = arrays[f"index/{k}"]
+            # this rank's blocks of every shard's (index_specs)
+            a = self.group.local(arrays[f"index/{k}"], self.n_shards)
             if a.shape != tuple(like.shape):
                 raise ValueError(f"restore: index/{k} has shape {a.shape}, "
                                  f"the session {tuple(like.shape)}")

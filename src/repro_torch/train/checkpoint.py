@@ -66,7 +66,19 @@ def _dtype_name(a: np.ndarray) -> str:
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     """Atomically write checkpoint ``step`` of a tree (a flat dict of
-    numpy leaves keyed by name is one). Returns the final path."""
+    numpy leaves keyed by name is one). Returns the final path. Under a
+    crawl group only rank 0 writes (its ``tree``; the others may pass
+    None), and every rank returns once the checkpoint is complete."""
+    from repro_torch.dist import CrawlGroup
+    group = CrawlGroup.current()
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if group.rank == 0:
+        _write(ckpt_dir, step, tree, keep)
+    group.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = flatten(tree)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
@@ -92,7 +104,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     for s in all_steps(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:010d}"),
                       ignore_errors=True)
-    return final
 
 
 def all_steps(ckpt_dir: str) -> List[int]:

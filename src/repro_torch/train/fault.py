@@ -98,7 +98,10 @@ def reshard(tree, device, spec_tree=None):
 
 def heal_crawler(state, cfg, dead_shards: Sequence[int], n_shards: int):
     """Rebalance the dead shards' domains onto the survivors, balanced by
-    frontier depth, and migrate their rows. Returns the new state."""
+    frontier depth, and migrate their rows. Returns the new state.
+    Refused under a crawl group of more than one process."""
+    from repro_torch.dist import CrawlGroup
+    CrawlGroup.current().refuse_moves("heal_crawler")
     loads = state.f_valid.sum(dim=1).cpu().numpy().astype(np.float64)
     per = cfg.n_slots // n_shards
     shard_loads = loads.reshape(n_shards, per).sum(axis=1)

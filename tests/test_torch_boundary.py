@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] + sorted(
     (ROOT / "tools").glob("*.py")) + sorted(
-    (ROOT / "examples").glob("torch_*.py"))
+    (ROOT / "examples").glob("torch_*.py")) + [
+    ROOT / "tests" / "_torch_dist_play.py"]
 
 
 def _forbidden(name: str) -> bool:
