@@ -5244,12 +5244,166 @@ DIGEST_CHUNK = 1 << 24      # words of a Bloom shard hashed at once
 DIGEST_KEYS = (0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F)
 
 
-def dist_config(ordering, coordination):
+def dist_config(ordering, coordination, **over):
     from repro_torch.configs import webparf
     from repro_torch.configs.base import scaled
     return scaled(webparf.CONFIG, ordering=ordering,
                   coordination=coordination,
-                  comm_quota=COORD_QUOTA if coordination == "batched" else -1)
+                  comm_quota=COORD_QUOTA if coordination == "batched" else -1,
+                  **over)
+
+
+# heal and load-driven rebalance across the group: (case, ordering, steps,
+# (the step shard DIST_DEAD fails at, the step it is healed at) or None,
+# config overrides); CONFIG crawls under exchange
+DIST_HEAL_CASES = (
+    ("heal_backlink", "backlink", 32, (8, 12), {}),
+    ("heal_opic_url", "opic_url", 32, (8, 12), {}),
+    ("rebalance_opic_url", "opic_url", 32, None,
+     {"telemetry": True, "rebalance_threshold": 1.01}))
+DIST_DEAD = 1               # the shard that fails in the heal cases
+HEAL_SLACK = 64 << 20       # bytes a heal may add to a rank beyond the rows
+                            # it sends and receives
+
+
+class MoveMeter:
+    """While active, counts the rows and bytes each
+    ``CrawlGroup.move_rows`` call sends and receives on this rank (a row
+    that stays on the rank counts once each way)."""
+
+    def __enter__(self):
+        from repro_torch.dist import CrawlGroup
+        self.moves, orig = [], CrawlGroup.move_rows
+        self._orig = orig
+
+        def counted(group, leaves, src):
+            plan = orig(group, leaves, src)
+            row = sum(v[0].numel() * v.element_size() for v in leaves.values())
+            sent, got = len(plan.send_rows), len(plan.recv_rows)
+            self.moves.append({"rows_sent": sent, "rows_received": got,
+                               "bytes_sent": sent * row,
+                               "bytes_received": got * row})
+            return plan
+        CrawlGroup.move_rows = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dist import CrawlGroup
+        CrawlGroup.move_rows = self._orig
+
+    def total(self, start=0):
+        """The moves from the ``start``-th on, summed."""
+        keys = ("rows_sent", "rows_received", "bytes_sent", "bytes_received")
+        return {k: sum(m[k] for m in self.moves[start:]) for k in keys}
+
+
+def queued_urls(sess, group, dead):
+    """The URLs queued on shard DIST_DEAD's rows (``dead``) or on every
+    other shard's, from the whole frontier (gathered under a group)."""
+    per = sess.cfg.n_slots // DIST_SHARDS
+    rows = np.zeros(sess.cfg.n_slots, bool)
+    rows[DIST_DEAD * per:(DIST_DEAD + 1) * per] = True
+    rows = rows if dead else ~rows
+    url = group.gather(sess.state.f_url).cpu().numpy()[rows]
+    ok = group.gather(sess.state.f_valid).cpu().numpy()[rows]
+    return set(url[ok].tolist())
+
+
+def timed_heal(sess, group, meter, captured):
+    """``sess.heal()`` between CUDA events, the peak allocation it adds
+    (``max_memory_allocated`` reset before it), the rows and bytes it
+    moves, the launches it makes, and its ``opic_update`` call (the merge
+    refund) captured into ``captured``; every URL queued on the dead shard
+    must be queued on a survivor after it, and the cash must stay within
+    CASH_RTOL."""
+    import torch
+    from repro_torch.core import stages
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.opic_update.ops import scatter_cash
+    from repro_torch.kernels.opic_update.ref import opic_ref
+    from repro_torch.ordering.opic import total_cash
+    opic = sess.cfg.ordering != "backlink"
+    queued = queued_urls(sess, group, True)
+    cash0 = total_cash(sess.state) if opic else None
+    n0, before = len(meter.moves), launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def heal():
+        start.record()
+        sess.heal()
+        stop.record()
+    (args, kw), = capture_calls([stages], "scatter_cash", heal, 1,
+                                layout=True)
+    torch.cuda.synchronize()
+    out = {"heal_ms": start.elapsed_time(stop),
+           "peak_added_bytes": torch.cuda.max_memory_allocated() - base,
+           **meter.total(n0),
+           "launches_in_heal": {k: v - before[k]
+                                for k, v in launch_counts().items()
+                                if v > before[k]}}
+    captured.append(("opic_update (heal)", scatter_cash, opic_ref, args, kw))
+    lost = queued - queued_urls(sess, group, False)
+    if not queued or lost:
+        raise AssertionError(f"heal: {len(lost)} of {len(queued)} URLs "
+                             f"queued on shard {DIST_DEAD} lost")
+    out["queued_on_dead_shard"] = len(queued)
+    if opic:
+        cash1 = total_cash(sess.state)
+        if abs(cash1 - cash0) > CASH_RTOL * cash0:
+            raise AssertionError(f"heal: cash {cash0} -> {cash1}")
+        out.update(cash_before=cash0, cash_after=cash1)
+    return out
+
+
+def heal_drive(sess, steps, fail_heal, group, meter, after_heal=None):
+    """A heal case: run to the failure, fail shard DIST_DEAD, run to the
+    heal, heal (``timed_heal``), hand ``after_heal`` a function that steps once
+    (the kernels' next calls are captured there), and run to ``steps``;
+    or, without ``fail_heal``, run ``steps``. Returns (the whole drive's
+    report, the heal's numbers or None, the captured calls)."""
+    from repro_torch.api.report import (CrawlReport, stats_dict,
+                                        stats_per_shard)
+    reps, heal, captured = [], None, []
+    if fail_heal is None:
+        reps.append(sess.run(steps))
+    else:
+        fail_at, heal_at = fail_heal
+        reps.append(sess.run(fail_at))
+        sess.inject_failure(DIST_DEAD)
+        reps.append(sess.run(heal_at - fail_at))
+        heal = timed_heal(sess, group, meter, captured)
+        if after_heal is not None:
+            after_heal(lambda: reps.append(sess.run(1)), captured)
+        reps.append(sess.run(steps - sess.t))
+    rep = CrawlReport(
+        urls=np.concatenate([r.urls for r in reps]),
+        per_step=np.concatenate([r.per_step for r in reps]),
+        stats=stats_dict(sess.state), seconds=sum(r.seconds for r in reps),
+        cfg=sess.cfg, stats_per_shard=stats_per_shard(sess.state),
+        rebalances=tuple(e for r in reps for e in r.rebalances))
+    return rep, heal, captured
+
+
+def heal_records(sess, rep, group):
+    """``dist_records`` and the rebalance events at full precision."""
+    import dataclasses
+    rec = dist_records(sess, rep, group)
+    rec["rebalances"] = np.array(json.dumps(
+        [dataclasses.asdict(e) for e in rep.rebalances]))
+    return rec
+
+
+def rebalance_numbers(sess, rep, meter):
+    """A rebalance run's events, the rows and bytes its moves sent and
+    received, and each move's wall ms (its span: the move and a sync)."""
+    return {"rebalances": [e.asdict() for e in rep.rebalances],
+            **meter.total(),
+            "rebalance_ms": [1e3 * e.dur for e in sess.tracer.events
+                             if e.name == "rebalance" and e.ph == "X"]}
 
 
 def bloom_digests(bits, n):
@@ -5352,6 +5506,16 @@ def dist_one_card(out):
                 "dispatch_step_ms": d_ms}
             del sess
             free_card()
+    for name, ordering, steps, fail_heal, over in DIST_HEAL_CASES:
+        sess = CrawlSession(dist_config(ordering, "exchange", **over),
+                            device=DEV, n_shards=DIST_SHARDS)
+        with MoveMeter() as meter:
+            rep, heal, _ = heal_drive(sess, steps, fail_heal, one, meter)
+        np.savez(out / f"{name}.one.npz", **heal_records(sess, rep, one))
+        times[name] = {"one_card_4_shards": heal or rebalance_numbers(
+            sess, rep, meter)}
+        del sess, rep
+        free_card()
     srv = dist_serve(DEV)
     np.savez(out / "serve.one.npz", **serve_records(srv.run(
         srv.cfg.dispatch_interval)))
@@ -5481,6 +5645,12 @@ def dist_rank(out):
             lines.append(line)
             del sess, rep
             free_card()
+        for name, ordering, steps, fail_heal, over in DIST_HEAL_CASES:
+            lines.append(dist_heal_case(sess_args=(name, ordering, steps,
+                                                   fail_heal, over),
+                                        dev=dev, group=group, out=out,
+                                        checks=checks[ordering]))
+            free_card()
         srv = dist_serve(dev)
         np.savez(out / f"serve.r{group.rank}.npz", **serve_records(
             srv.run(srv.cfg.dispatch_interval)))
@@ -5492,6 +5662,56 @@ def dist_rank(out):
     (out / f"rank{group.rank}.json").write_text(json.dumps(
         {"rank": group.rank, "world": group.world,
          "device": torch.cuda.get_device_name(), "cases": lines}))
+
+
+def dist_heal_case(sess_args, dev, group, out, checks):
+    """One heal or rebalance case on a rank: the run with the launch
+    counts zeroed just before and read just after, the heal's numbers
+    (``timed_heal``), and, after the run, the heal's ``opic_update`` call
+    and the next call of each of the path's kernels held to their plain
+    versions. Its records to ``out/<case>.r<rank>.npz``; returns its
+    line."""
+    import torch
+    from repro_torch.api import CrawlSession
+    from repro_torch.kernels import launch_counts, reset_launches
+    name, ordering, steps, fail_heal, over = sess_args
+    sess = CrawlSession(dist_config(ordering, "exchange", **over),
+                        device=dev, n_shards=DIST_SHARDS)
+    torch.cuda.synchronize()
+
+    def after_heal(step1, captured):
+        for kname, module, attr, kern, plain in checks:
+            (args, kw), = capture_calls([module], attr, step1, 1,
+                                        layout=True)
+            captured.append((kname, kern, plain, args, kw))
+    reset_launches()
+    with MoveMeter() as meter:
+        rep, heal, captured = heal_drive(sess, steps, fail_heal, group,
+                                         meter, after_heal)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    missing = [k for k in PATHS[ordering][1] if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"rank {group.rank} {name}: {missing} never "
+                             f"launched: {counts}")
+    line = {"case": name, "steps": steps, "seconds": rep.seconds,
+            "pages_per_s": rep.pages_per_sec, "fetched": rep.fetched,
+            "launches": {k: counts[k] for k in PORT_KERNEL_FNS},
+            "fetched_per_shard": rep.stats_per_shard["fetched"].tolist()}
+    if heal is not None:
+        line["heal"] = heal
+    else:
+        line["rebalance"] = rebalance_numbers(sess, rep, meter)
+        if not rep.rebalances:
+            raise AssertionError(f"rank {group.rank} {name}: no rebalance")
+    errs = line["plain_max_abs_err"] = {}
+    for kname, kern, plain, args, kw in captured:
+        errs[kname] = hold_to_plain(f"rank {group.rank} {name} {kname}",
+                                    kern, plain, args, kw)
+    del captured
+    np.savez(out / f"{name}.r{group.rank}.npz",
+             **heal_records(sess, rep, group))
+    return line
 
 
 def free_port() -> int:
@@ -5552,7 +5772,8 @@ def phase_dist(world=None):
                              f":\n{tail}")
     ranks = {r: json.loads((out / f"rank{r}.json").read_text())
              for r in range(world)}
-    for name in [c[0] for c in DIST_CASES] + ["serve"]:
+    heal_names = [c[0] for c in DIST_HEAL_CASES]
+    for name in [c[0] for c in DIST_CASES] + heal_names + ["serve"]:
         with np.load(out / f"{name}.one.npz") as z:
             want = dict(z)
         for r in range(world):
@@ -5572,6 +5793,27 @@ def phase_dist(world=None):
         for line in rk["cases"]:
             emit({"phase": "dist_rank", "world": world, "rank": r,
                   "card": card, **line})
+    heals = {}
+    for name in heal_names:
+        per_rank = [next(c for c in ranks[r]["cases"] if c["case"] == name)
+                    for r in range(world)]
+        key = "heal" if "heal" in per_rank[0] else "rebalance"
+        for r, c in enumerate(per_rank):
+            h = c[key]
+            if key == "heal" and h["peak_added_bytes"] > (
+                    h["bytes_sent"] + h["bytes_received"] + HEAL_SLACK):
+                raise AssertionError(
+                    f"dist: rank {r} {name}: the heal added "
+                    f"{h['peak_added_bytes']} B, beyond the "
+                    f"{h['bytes_sent']} sent + {h['bytes_received']} "
+                    f"received + {HEAL_SLACK}")
+        heals[name] = {"per_rank": [c[key] for c in per_rank],
+                       "plain_max_abs_err": [c["plain_max_abs_err"]
+                                             for c in per_rank],
+                       "one_card_4_shards": one[name]["one_card_4_shards"]}
+    emit({"phase": "dist_heal", "world": world, "n_shards": DIST_SHARDS,
+          "config": "webparf.CONFIG", "card": card, "dead_shard": DIST_DEAD,
+          "bit_equal_to_one_card": heal_names, "lost": 0, "cases": heals})
     pages = {}
     for name, _, _, _ in DIST_CASES:
         got = [c["pages_per_s"] for r in range(world)
@@ -5582,7 +5824,8 @@ def phase_dist(world=None):
     shutil.rmtree(out, ignore_errors=True)
     emit({"phase": "dist", "world": world, "n_shards": DIST_SHARDS,
           "config": "webparf.CONFIG", "card": card,
-          "bit_equal_to_one_card": [c[0] for c in DIST_CASES] + ["serve"],
+          "bit_equal_to_one_card": [c[0] for c in DIST_CASES]
+          + heal_names + ["serve"],
           "pages_per_s": pages, "one_card": one,
           "seconds": time.time() - t0})
     return ranks

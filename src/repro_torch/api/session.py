@@ -14,8 +14,9 @@ arguments and holds its own L = N / W shards; the exchange, the reports'
 gathers and the checkpoint are the group's collectives, so every rank
 makes the same calls in the same order and gets the same reports, in
 global shard order. ``heal`` and the load-driven rebalance move rows
-between shards, which under W > 1 would cross cards: they raise
-``NotImplementedError`` there.
+between shards, and so between ranks (``dist.CrawlGroup.move_rows``):
+every rank plans from the same gathered loads, records the same
+rebalance events, and ends with the one-card session's state bit for bit.
 
 With telemetry on (``cfg.telemetry`` or ``REPRO_TELEMETRY=1``) every step
 also takes a ledger row of every shard (``obs/ledger.py``): an eager step
@@ -88,8 +89,6 @@ class CrawlSession:
         self.telemetry = obs.telemetry_enabled(cfg)
         self._rebalance = None
         if cfg.rebalance_threshold > 0:
-            self.group.refuse_moves("maybe_rebalance (rebalance_threshold "
-                                    "> 0)")
             if not self.telemetry:
                 raise ValueError(
                     "rebalance_threshold > 0 needs telemetry=True: the "
@@ -284,10 +283,9 @@ class CrawlSession:
              ) -> "CrawlSession":
         """Rebalance dead shards' domains onto the survivors (wraps
         ``train.fault.heal_crawler``). Defaults to every shard dead in
-        ``state.shard_alive``. Refused under a group of more than one
-        process."""
+        ``state.shard_alive``. Under a crawl group the rows cross ranks,
+        and every rank must call it."""
         from repro_torch.train.fault import heal_crawler
-        self.group.refuse_moves("heal")
         if shards is None:
             shards = [int(s) for s in
                       np.flatnonzero(~self.state.shard_alive.cpu().numpy())]
@@ -324,22 +322,26 @@ class CrawlSession:
         passes the threshold, the configured rebalance policy plans a
         live -> live migration from the rows' depth and cash (f64 on the
         host), and ``crawler.apply_rebalance`` applies it as a heal's is.
-        Returns the recorded :class:`~repro_torch.rebalance.RebalanceEvent`,
-        or None (disabled, under the threshold, or no move pays)."""
+        Under a crawl group the depths (integers) and cash (f64 bits) of
+        every rank's rows are gathered first, so every rank plans the same
+        moves. Returns the recorded
+        :class:`~repro_torch.rebalance.RebalanceEvent`, or None (disabled,
+        under the threshold, or no move pays)."""
         if self._rebalance is None:
             return None
         trigger = self._windowed_imbalance()
         if trigger <= self.cfg.rebalance_threshold:
             return None
-        from repro_torch.core import partitioner as PT
         from repro_torch.ordering.policies import ORD_URL0
         from repro_torch.rebalance import RebalanceEvent
         state = self.state
-        row_depth = state.f_valid.sum(dim=1).cpu().numpy().astype(np.float64)
+        row_depth = self.group.gather(state.f_valid.sum(dim=1)).cpu(
+        ).numpy().astype(np.float64)
         os_ = state.order_state.cpu().numpy().astype(np.float64)
-        row_cash = os_[:, 0] + os_[:, ORD_URL0:].sum(axis=1)
-        dm = PT.DomainMap(state.slot_of_domain, state.slot_domain,
-                          state.shard_alive)
+        row_cash = self.group.gather(torch.from_numpy(
+            os_[:, 0] + os_[:, ORD_URL0:].sum(axis=1)).to(self.device)
+        ).cpu().numpy()
+        dm = CR.domain_map(state)
         decision = self._rebalance.plan(self.cfg, dm, row_depth, row_cash)
         if decision is None:
             return None

@@ -11,7 +11,8 @@ exchanges through the group: the JAX package's shard_map over W cards.
 JAX package. ``make_spmd_crawler`` is the counterpart of the JAX
 package's entry of the same name. ``mark_dead`` simulates a crawl
 process failing, and ``apply_rebalance`` migrates rows after a remap (the
-C4 heal, ``train/fault.heal_crawler``).
+C4 heal, ``train/fault.heal_crawler``, and the load-driven rebalance),
+across ranks under a crawl group.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from repro_torch.ordering.policies import ORD_WIDTH
 __all__ = [
     "CrawlState", "FetchReport", "NSTAT", "SIDX", "STATS", "Stage",
     "frontier_view", "with_frontier", "init_state", "make_crawl_step",
-    "make_spmd_crawler", "mark_dead", "apply_rebalance",
+    "make_spmd_crawler", "mark_dead", "apply_rebalance", "domain_map",
 ]
 
 
@@ -113,50 +114,73 @@ MIGRATED_ROWS = ("f_url", "f_pri", "f_valid", "f_arrival", "f_dropped",
                  "f_inserted", "f_rebased", "bloom_bits", "order_state")
 
 
+def domain_map(state: CrawlState) -> PT.DomainMap:
+    """The state's whole domain map on every rank: ``slot_domain`` is
+    split by rank (``state_specs``) and gathered here; the other two
+    maps are replicated."""
+    return PT.DomainMap(state.slot_of_domain,
+                        CrawlGroup.current().gather(state.slot_domain),
+                        state.shard_alive)
+
+
 def apply_rebalance(state: CrawlState, cfg: CrawlConfig,
                     new_dm: PT.DomainMap) -> CrawlState:
     """Migrate frontier, Bloom and ordering rows to their new slots after a
-    remap (a C4 heal moves dead -> live, an elastic move live -> live).
-    The migrated leaves are new tensors; the others are the state's.
+    remap (a C4 heal moves dead -> live, an elastic move live -> live):
+    the reference's gather over the slot axis, each slot pulling the row
+    of the slot its domain used to occupy (``PT.source_slots``). The
+    migrated leaves are moved IN PLACE by ``CrawlGroup.move_rows``, across
+    ranks under a crawl group; no whole copy of a leaf is made. ``new_dm``
+    is the whole map, the same on every rank (checked).
 
     Cash stays exact: the gather leaves a stale copy of each moved row at
     its old slot, whose ordering state is scrubbed; a row the gather
     overwrites (a displaced row) refunds its cash into the incoming row's
     slot cash; a domain merged into an occupied slot (no free slot
-    anywhere) refunds its cash into the sharing slot; and a vacated row on
-    a live shard is cleared, so that no live shard crawls a twin queue.
-    Refused under a crawl group of more than one process: rows would
-    cross cards."""
-    CrawlGroup.current().refuse_moves("apply_rebalance")
-    old_dm = PT.DomainMap(state.slot_of_domain, state.slot_domain,
-                          state.shard_alive)
-    moved = PT.migrate_rows({k: getattr(state, k) for k in MIGRATED_ROWS},
-                            old_dm, new_dm, rows=MIGRATED_ROWS)
-    n_slots = state.order_state.shape[0]
-    slots = torch.arange(n_slots, device=state.order_state.device)
+    anywhere) refunds its cash into the sharing slot, on the rank that
+    owns it, in global slot order; and a vacated row on a live shard is
+    cleared, so that no live shard crawls a twin queue."""
+    group = CrawlGroup.current()
+    group.check_replicated(new_dm, "apply_rebalance")
+    old_dm = domain_map(state)
+    n_slots = old_dm.domain_of_slot.shape[0]
+    n_shards = new_dm.shard_alive.shape[0]
+    dev = state.order_state.device
+    slots = torch.arange(n_slots, device=dev)
     old_dom = old_dm.domain_of_slot.to(torch.int64)
     new_dom = new_dm.domain_of_slot.to(torch.int64)
     tgt = new_dm.slot_of_domain.to(torch.int64)[torch.clamp(old_dom, min=0)]
     dup = (new_dom < 0) & (old_dom >= 0) & (tgt != slots)
-    os_ = moved["order_state"].masked_fill_(dup[:, None], 0.0)
+    src = PT.source_slots(old_dm, new_dm)
     # the cash a row held: slot cash plus its url lane (row_sum: one order
-    # on every device)
+    # on every device), read before any row moves
     old_os = state.order_state
     held = old_os[:, 0] + row_sum(old_os[:, ORD_WIDTH:])
     zero = torch.zeros_like(held)
-    displaced = PT.source_slots(old_dm, new_dm) != slots
+    n_local, shard0 = group.split(n_shards)
+    per = n_slots // n_shards
+    first, n_rows = shard0 * per, n_local * per
+    mine = slice(first, first + n_rows)            # this rank's slots
+    displaced = src[mine] != slots[mine]
+    # a merged row's cash, every rank's as bits, goes to the rank of its
+    # target slot
+    held_all = group.gather(held)
+    group.move_rows({k: getattr(state, k) for k in MIGRATED_ROWS}, src)
+    os_ = state.order_state.masked_fill_(dup[mine][:, None], 0.0)
     col = os_[:, 0] + torch.where(displaced, held, zero)
-    merged = dup & (new_dom[tgt] != old_dom)
-    ST.add_to_rows(col, tgt, torch.where(merged, held, zero), merged, 1)
+    merged = dup & (new_dom[tgt] != old_dom) & (tgt >= first) & (
+        tgt < first + n_rows)
+    ST.add_to_rows(col, torch.where(merged, tgt - first, 0),
+                   torch.where(merged, held_all, torch.zeros_like(held_all)),
+                   merged, 1)
     os_[:, 0] = col
-    n_shards = new_dm.shard_alive.shape[0]
-    vacated_live = dup & new_dm.shard_alive[
-        PT.shard_of_slot(slots, n_slots, n_shards)]
+    vacated_live = (dup & new_dm.shard_alive[
+        PT.shard_of_slot(slots, n_slots, n_shards)])[mine]
     for k in MIGRATED_ROWS:
         if k != "order_state":
-            a = moved[k]
+            a = getattr(state, k)
             a.masked_fill_(vacated_live.reshape((-1,) + (1,) * (a.dim() - 1)),
                            0)
     return state._replace(
-        **moved, slot_domain=new_dm.domain_of_slot,
+        slot_domain=group.local(new_dm.domain_of_slot, n_shards),
         slot_of_domain=new_dm.slot_of_domain, shard_alive=new_dm.shard_alive)

@@ -7,8 +7,11 @@ where each domain lives; shard s owns slots [s * r, (s + 1) * r). The
 policies' decisions take the shard of each row or item as a tensor that
 broadcasts against the items, so one call serves every shard of the
 batched step. The C3/C4 control plane (``rebalance``, ``move_domain``,
-``migrate_domains``, ``split_domains``) is host-side numpy; the row
-migration (``migrate_rows``) is a torch gather on the state's device.
+``migrate_domains``, ``split_domains``) is host-side numpy;
+``migrate_rows`` is the reference's functional gather of the rows
+(``crawler.apply_rebalance`` moves them in place, across ranks under a
+crawl group, by ``dist.CrawlGroup.move_rows`` from the same
+``source_slots``).
 """
 from __future__ import annotations
 

@@ -15,12 +15,46 @@ gloo only for an explicit ``cpu``).
 Every collective moves integers or bits. An f32 is never reduced across
 ranks (NCCL's ring would add in an order of its own): it travels as its
 bits and is added where it lands, in the one-card order.
+
+A heal or a rebalance moves rows between shards, and so between ranks:
+``plan_move`` turns the source slot of every slot (the reference's gather
+index, the same on every rank) into what this rank sends and receives,
+and ``move_rows`` moves each named leaf's rows in place, one
+``all_to_all_single`` a leaf, every source row read before any target
+row is written. No rank holds more of a leaf than the rows it sends and
+receives.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import hashlib
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+
+class RowMove(NamedTuple):
+    """One rank's share of a row move: the local rows it reads, grouped by
+    the rank each goes to (``send_splits`` rows a rank, in rank order),
+    and the local rows it writes, grouped by the rank each comes from.
+    Within a pair of ranks the rows travel in the order of their target
+    slots."""
+    send_rows: torch.Tensor     # (n_send,) int64 local rows read
+    send_splits: List[int]      # (world,) rows sent to each rank
+    recv_rows: torch.Tensor     # (n_recv,) int64 local rows written
+    recv_splits: List[int]      # (world,) rows received from each rank
+    n_moved: int                # rows that change slot, every rank's
+
+    def pack(self, leaf: torch.Tensor) -> torch.Tensor:
+        """The rows this rank sends, read from ``leaf`` (a bool leaf as
+        uint8, its bits unchanged)."""
+        wire = leaf.view(torch.uint8) if leaf.dtype == torch.bool else leaf
+        return wire.index_select(0, self.send_rows)
+
+    def unpack(self, leaf: torch.Tensor, recv: torch.Tensor) -> None:
+        """Write the received rows into their target rows of ``leaf``."""
+        wire = leaf.view(torch.uint8) if leaf.dtype == torch.bool else leaf
+        wire.index_copy_(0, self.recv_rows, recv)
 
 
 class CrawlGroup:
@@ -101,13 +135,80 @@ class CrawlGroup:
             import torch.distributed as dist
             dist.barrier()
 
-    def refuse_moves(self, what: str) -> None:
-        """Under W > 1, refuse a call that moves frontier and Bloom rows
-        between shards: the rows would cross ranks, which the port does
-        not do yet."""
-        if self.world > 1:
-            raise NotImplementedError(
-                f"{what} moves rows between shards, and under a group of "
-                f"{self.world} processes they would cross cards: not ported "
-                f"(ROADMAP.md, Queue 1, item 19a: heal and rebalance across "
-                f"cards)")
+    def check_replicated(self, tensors: Sequence[torch.Tensor],
+                         what: str) -> None:
+        """Raise unless every rank holds the same ``tensors`` (the
+        replicated control plane): a digest of their bytes is gathered
+        and held to rank 0's."""
+        if self.world == 1:
+            return
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        mine = torch.tensor(list(h.digest()), dtype=torch.uint8,
+                            device=tensors[0].device)
+        every = self.gather(mine[None]).cpu()
+        bad = [r for r in range(self.world) if not torch.equal(every[r],
+                                                               every[0])]
+        if bad:
+            raise RuntimeError(f"{what}: ranks {bad} of {self.world} hold "
+                               f"another plan than rank 0 (the control "
+                               f"plane must be replicated)")
+
+    # -- row moves -----------------------------------------------------------
+
+    def plan_move(self, src: torch.Tensor) -> RowMove:
+        """This rank's share of the gather ``new[t] = old[src[t]]`` over
+        every slot t (``src``: the (n_slots,) global source slot of every
+        slot, the same on every rank; a slot that keeps its row names
+        itself). Rank r owns the r-th run of n_slots / W slots. The row
+        indices lie on ``src``'s device."""
+        at = src.cpu().numpy().astype(np.int64)
+        per = self.split(at.shape[0])[0]
+        first = self.rank * per
+        tgt = np.flatnonzero(at != np.arange(at.shape[0]))
+        frm = at[tgt]
+        to_rank, from_rank = tgt // per, frm // per
+        out = from_rank == self.rank          # tgt ascending: rank order
+        into = np.flatnonzero(to_rank == self.rank)
+        into = into[np.argsort(from_rank[into], kind="stable")]
+
+        def rows(x):
+            return torch.from_numpy(x - first).to(src.device)
+
+        return RowMove(
+            send_rows=rows(frm[out]),
+            send_splits=np.bincount(to_rank[out],
+                                    minlength=self.world).tolist(),
+            recv_rows=rows(tgt[into]),
+            recv_splits=np.bincount(from_rank[into],
+                                    minlength=self.world).tolist(),
+            n_moved=len(tgt))
+
+    def move_rows(self, leaves: Dict[str, torch.Tensor],
+                  src: torch.Tensor) -> RowMove:
+        """Move the rows of every leaf of ``leaves`` (this rank's rows of
+        row-indexed tensors) in place, so that each slot t holds what slot
+        ``src[t]`` held (``plan_move``): each source row is read before
+        any target row is written, so a slot vacated by one move may be
+        another's target, and a moved row keeps a stale copy at its
+        source unless a move overwrites it. Rows travel as their bits
+        (bool as uint8), one ``all_to_all_single`` a leaf, so a rank holds
+        at most one leaf's sent and received rows at once. Every rank
+        makes the same calls. Returns the plan."""
+        plan = self.plan_move(src)
+        if not plan.n_moved:
+            return plan
+        for leaf in leaves.values():
+            send = plan.pack(leaf)
+            if self.world == 1:
+                recv = send
+            else:
+                import torch.distributed as dist
+                recv = send.new_empty((sum(plan.recv_splits),)
+                                      + tuple(send.shape[1:]))
+                dist.all_to_all_single(recv, send, plan.recv_splits,
+                                       plan.send_splits)
+            plan.unpack(leaf, recv)
+            del send, recv
+        return plan

@@ -14,8 +14,13 @@ driver's mesh size is ``--shards`` here: the crawl processes batched on
 one device. Under ``torch.distributed.run`` (W processes, one a card:
 ``launch.mesh.init_crawl_group``) ``--shards`` is still the global count
 N, each rank crawls N / W of them on its own card, the dispatch exchanges
-through NCCL, and only rank 0 prints; ``--heal-at`` and
-``--rebalance-threshold`` move rows between cards and are refused there.
+through NCCL, and only rank 0 prints; ``--fail-shard/--fail-at/--heal-at``
+and ``--rebalance-threshold`` move rows between the cards:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.crawl --shards 4 --fail-shard 1 --fail-at 24 \
+      --heal-at 40
+
 It runs on cuda unless ``--device cpu`` is given (gloo under a group),
 and raises when no card is present. ``--mode`` picks how the session
 steps (``auto`` runs whole dispatch intervals as chunks, ``eager`` one
@@ -110,10 +115,6 @@ def main(argv=None):
         group = init_crawl_group(None if args.device == "cuda"
                                  else args.device)
     try:
-        if args.heal_at >= 0:
-            group.refuse_moves("--heal-at")
-        if args.rebalance_threshold > 0:
-            group.refuse_moves("--rebalance-threshold")
         return _crawl(args, trace, group)
     finally:
         if started:

@@ -160,13 +160,13 @@ def total_cash(state) -> float:
     rounding in the spend split. Under a crawl group every rank calls it:
     the f32 leaves are gathered from every rank (as bits, never reduced
     across ranks) and added in the one-process order, so every rank gets
-    the one-process sum."""
-    from repro_torch.core.stages import join_state
-    state = join_state(state)
-    os_ = state.order_state.cpu().numpy().astype(np.float64)
+    the one-process sum. Only the leaves it reads are gathered."""
+    from repro_torch.dist import CrawlGroup
+    g = CrawlGroup.current().gather
+    os_ = g(state.order_state).cpu().numpy().astype(np.float64)
     return (float(os_[:, 0].sum() + os_[:, ORD_WIDTH:].sum())
-            + _in_transit(state.staging_val, state.staging_n)
-            + _in_transit(state.outbox_val, state.outbox_n))
+            + _in_transit(g(state.staging_val), g(state.staging_n))
+            + _in_transit(g(state.outbox_val), g(state.outbox_n)))
 
 
 def total_wealth(state) -> float:

@@ -311,6 +311,8 @@ class ServeSession:
         return self
 
     def heal(self, shards=None) -> "ServeSession":
+        """The crawl's heal (``CrawlSession.heal``: under a crawl group
+        the rows cross ranks); the index blocks stay where they are."""
         self.crawl.heal(shards)
         return self
 

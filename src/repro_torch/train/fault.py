@@ -98,19 +98,20 @@ def reshard(tree, device, spec_tree=None):
 
 def heal_crawler(state, cfg, dead_shards: Sequence[int], n_shards: int):
     """Rebalance the dead shards' domains onto the survivors, balanced by
-    frontier depth, and migrate their rows. Returns the new state.
-    Refused under a crawl group of more than one process."""
+    frontier depth, and migrate their rows. Returns the new state. Under
+    a crawl group every rank plans from the gathered row depths, so every
+    rank gets the same map, and the rows cross ranks."""
     from repro_torch.dist import CrawlGroup
-    CrawlGroup.current().refuse_moves("heal_crawler")
-    loads = state.f_valid.sum(dim=1).cpu().numpy().astype(np.float64)
+    depth = CrawlGroup.current().gather(state.f_valid.sum(dim=1))
+    loads = depth.cpu().numpy().astype(np.float64)
     per = cfg.n_slots // n_shards
     shard_loads = loads.reshape(n_shards, per).sum(axis=1)
     # each domain's weight in the same unit (frontier depth), at least 1:
     # an empty orphan still takes a slot, so empty placements spread
     domain_loads = np.maximum(
         loads[state.slot_of_domain.cpu().numpy()], 1.0)
-    dm = PT.DomainMap(state.slot_of_domain, state.slot_domain,
-                      torch.ones_like(state.shard_alive))
+    dm = CR.domain_map(state)
+    dm = dm._replace(shard_alive=torch.ones_like(dm.shard_alive))
     new_dm = PT.rebalance(dm, list(dead_shards), loads=shard_loads,
                           domain_loads=domain_loads)
     return CR.apply_rebalance(state, cfg, new_dm)

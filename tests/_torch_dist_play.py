@@ -11,6 +11,8 @@ A case is ``{"over": config overrides, "stages": [["politeness", n] |
   ["run_eager", steps]   the same in mode "eager" (the one-process
                          reference of an ``eager_vs`` case runs "scan")
   ["fail", shard]        inject_failure
+  ["heal"]               heal every dead shard (``["heal", [shards]]``:
+                         those); records the state before and after
   ["checkpoint"]         checkpoint into <ckpt>/<case>
   ["restore", dir]       restore a checkpoint directory (relative to
                          <ckpt>)
@@ -18,14 +20,24 @@ A case is ``{"over": config overrides, "stages": [["politeness", n] |
                          CrawlSession, run for ``steps``, checkpointed into
                          <ckpt>/<case>, and a fresh ServeSession restored
                          from it and run for ``steps`` more
+  ["serve_heal", steps, shard]
+                         a ServeSession run for ``steps``, ``shard``
+                         failed, run, healed, run
+  ["cli", argv]          the crawl CLI (``launch.crawl.main``); records
+                         rank 0's output without its timings, and whether
+                         every other rank kept silent
 
 ``records`` are the numpy arrays a play leaves: each run's urls,
 per-step counts, stats per shard, comm ledger and telemetry window (the
-ledger rows and its metrics without timings), the served answers, lags
-and recall, and the final state's every leaf, gathered. ``assert_same``
+ledger rows and its metrics without timings) and rebalance events, the
+trace's events without their times, the served answers, lags and recall,
+and the final state's every leaf, gathered. ``assert_same``
 holds two plays bit for bit: every array of the same dtype, shape and
 bytes (f32 included).
 """
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import time
@@ -71,6 +83,57 @@ CASES = {
                    "ops": [["run", 2 * IV - 1], ["checkpoint"], ["run", 1]]},
 }
 
+# heal and load-driven rebalance across ranks (tests/test_torch_dist_heal.py)
+REBALANCE = {"telemetry": True, "rebalance_threshold": 1.01}
+CLI = ["--device", "cpu", "--shards", str(N_SHARDS)]
+HEAL_CASES = {
+    "heal_backlink": {"over": {},
+                      "ops": [["run", IV], ["fail", 1], ["run", IV],
+                              ["heal"], ["run", 2 * IV]]},
+    # shard 1 dies mid-interval with values staged
+    "heal_opic_url": {"over": OPIC_URL,
+                      "ops": [["run", IV + 2], ["fail", 1], ["run_eager", 2],
+                              ["heal"], ["run", 2 * IV]]},
+    # the dead shard parks its outbox
+    "heal_batched": {"over": {**OPIC_URL, "coordination": "batched",
+                              "comm_quota": 8},
+                     "ops": [["run", IV], ["fail", 1], ["run", IV],
+                             ["heal"], ["run", IV]]},
+    # url_hash fills every row: the heal overwrites displaced rows
+    "heal_url_hash": {"over": {**OPIC_URL, "partitioning": "url_hash"},
+                      "ops": [["run", IV], ["fail", 1], ["run", IV],
+                              ["heal"], ["run", IV]]},
+    # at W = 2 rank 1 owns only dead shards
+    "heal_two_dead": {"over": OPIC_URL,
+                      "ops": [["run", IV], ["fail", 2], ["fail", 3],
+                              ["run", IV], ["heal"], ["run", IV]]},
+    # 6 orphans, 2 free slots: the merge fallback, cash across ranks
+    "heal_three_dead": {"over": OPIC_URL,
+                        "ops": [["run", IV], ["fail", 1], ["fail", 2],
+                                ["fail", 3], ["run", IV],
+                                ["heal", [1, 2, 3]], ["run", IV]]},
+    "rebalance_opic_url": {"over": {**OPIC_URL, **REBALANCE},
+                           "ops": [["run", 4 * IV]]},
+    "rebalance_url_hash": {"over": {"partitioning": "url_hash",
+                                    **REBALANCE},
+                           "ops": [["run", 4 * IV]]},
+    "rebalance_eager": {"over": {**OPIC_URL, **REBALANCE,
+                                 "rebalance_max_domains": 1},
+                        "ops": [["run_eager", 3 * IV]]},
+    # the checkpoint holds the stale rows the heal leaves on shard 1
+    "heal_checkpoint": {"over": OPIC_URL,
+                        "ops": [["run", IV], ["fail", 1], ["run", 2],
+                                ["heal"], ["run", 2], ["checkpoint"],
+                                ["run", IV]]},
+    "serve_heal": {"over": {}, "ops": [["serve_heal", IV, 1]]},
+    "cli_heal": {"over": {}, "ops": [["cli", CLI + [
+        "--domains", "8", "--steps", "12", "--fail-shard", "1",
+        "--fail-at", "4", "--heal-at", "8"]]]},
+    "cli_rebalance": {"over": {}, "ops": [["cli", CLI + [
+        "--domains", "16", "--steps", "12", "--rebalance-threshold",
+        "1.01"]]]},
+}
+
 WORLDS = (2, 4)                 # every case is played at both
 # the JAX package's checkpoint of the "checkpoint" case (its
 # ``<out>/jax.ckpt``), restored in the group and stepped through the
@@ -98,8 +161,11 @@ def run_records(rec, key, rep):
     for k, v in rep.stats_per_shard.items():
         rec[f"{key}.stats.{k}"] = np.asarray(v)
     rec[f"{key}.comm"] = np.array(json.dumps(rep.comm, sort_keys=True))
+    rec[f"{key}.rebalances"] = np.array(json.dumps(
+        [dataclasses.asdict(e) for e in rep.rebalances]))
     if rep.telemetry is not None:
         tel = rep.telemetry
+        rec[f"{key}.ledger.names"] = np.array(json.dumps(tel.names))
         rec[f"{key}.ledger.steps"] = tel.steps
         rec[f"{key}.ledger.rows"] = tel.rows
         rec[f"{key}.ledger.metrics"] = np.array(json.dumps(
@@ -117,13 +183,49 @@ def serve_records(rec, key, r):
     run_records(rec, f"{key}.crawl", r.crawl)
 
 
+def state_records(rec, key, state):
+    """Every leaf of a crawl state, gathered, under ``key``."""
+    from repro_torch.core.stages import join_state, state_to_numpy
+    for k, v in state_to_numpy(join_state(state)).items():
+        rec[f"{key}.{k}"] = v
+
+
+def trace_records(rec, tracer):
+    """The trace's events without their times: names, kinds, arguments."""
+    rec["trace"] = np.array(json.dumps(
+        [[e.name, e.cat, e.ph, e.args] for e in tracer.events],
+        sort_keys=True, default=str))
+
+
+def scrub_cli(text):
+    """The crawl CLI's output without what depends on the clock: the
+    pages-in-seconds line and the span table."""
+    text = text.split("== spans ==")[0]
+    return "\n".join(line for line in text.splitlines()
+                     if " pages in " not in line)
+
+
+def play_cli(rec, key, argv):
+    """Run the crawl CLI, every rank; record rank 0's output."""
+    import torch
+    from repro_torch.dist import CrawlGroup
+    from repro_torch.launch.crawl import main as crawl_cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert crawl_cli(argv) == 0
+    group = CrawlGroup.current()
+    text = out.getvalue()
+    rec[f"{key}.out"] = np.array(scrub_cli(group.broadcast(text)))
+    spoke = torch.tensor(int(group.rank > 0 and bool(text)))
+    rec[f"{key}.others_silent"] = np.bool_(int(group.sum_int(spoke)) == 0)
+
+
 def play(case, *, ckpt_root=None, name="case", mode=None):
     """Play a case on the CPU in this process: across the crawl group
     when one is started, else in one process. ``mode`` replaces every
     run's mode (the reference of ``eager_vs_scan``). Returns the
     records."""
     from repro_torch.api import CrawlSession
-    from repro_torch.core.stages import join_state, state_to_numpy
     from repro_torch.serve import ServeSession
     cfg = case_config(case)
     rec = {}
@@ -139,6 +241,18 @@ def play(case, *, ckpt_root=None, name="case", mode=None):
             serve_records(rec, f"run{i}.restored", sess.run(op[1]))
             crawl = sess.crawl
             continue
+        if op[0] == "serve_heal":
+            sess = ServeSession(cfg, "cpu", n_shards=N_SHARDS, **SERVE_KW)
+            serve_records(rec, f"run{i}", sess.run(op[1]))
+            sess.inject_failure(op[2])
+            serve_records(rec, f"run{i}.failed", sess.run(op[1]))
+            sess.heal()
+            serve_records(rec, f"run{i}.healed", sess.run(op[1]))
+            crawl = sess.crawl
+            continue
+        if op[0] == "cli":
+            play_cli(rec, f"cli{i}", op[1])
+            continue
         if crawl is None:
             crawl = CrawlSession(cfg, "cpu", n_shards=N_SHARDS,
                                  extra_stages=port_stages(
@@ -148,15 +262,19 @@ def play(case, *, ckpt_root=None, name="case", mode=None):
             run_records(rec, f"run{i}", crawl.run(op[1], mode=run_mode))
         elif op[0] == "fail":
             crawl.inject_failure(op[1])
+        elif op[0] == "heal":
+            state_records(rec, f"preheal{i}", crawl.state)
+            crawl.heal(op[1] if len(op) > 1 else None)
+            state_records(rec, f"heal{i}", crawl.state)
         elif op[0] == "checkpoint":
             crawl.checkpoint(os.path.join(ckpt_root, name))
         elif op[0] == "restore":
             crawl.restore(os.path.join(ckpt_root, op[1]))
         else:
             raise ValueError(op)
-    whole = state_to_numpy(join_state(crawl.state))
-    for k, v in whole.items():
-        rec[f"final.{k}"] = v
+    if crawl is not None:
+        state_records(rec, "final", crawl.state)
+        trace_records(rec, crawl.tracer)
     return rec
 
 
@@ -171,12 +289,56 @@ def assert_same(want, got, label):
         assert a.tobytes() == b.tobytes(), f"{label}: {k} differs"
 
 
+class Played:
+    """A play's final state and config, as ``_torch_play.assert_case``
+    reads a session."""
+
+    def __init__(self, rec, case):
+        from repro_torch.core.stages import CrawlState, state_from_numpy
+        self.cfg = case_config(case)
+        self.state = state_from_numpy(
+            {k: rec[f"final.{k}"] for k in CrawlState._fields}, "cpu")
+
+
+def reports(rec, cfg, rename=None):
+    """A play's runs as CrawlReports (with their telemetry windows and
+    rebalance events) and its healed states, keyed as
+    ``_torch_play.assert_case`` reads the JAX package's records."""
+    from repro_torch.api.report import CrawlReport
+    from repro_torch.core.stages import CrawlState
+    from repro_torch.obs.health import CrawlTelemetry
+    from repro_torch.rebalance import RebalanceEvent
+    out = {}
+    for key in sorted({k.split(".")[0] for k in rec
+                       if k.startswith(("run", "heal"))}):
+        name = (rename or {}).get(key, key)
+        if key.startswith("heal"):
+            out[name] = {k: rec[f"{key}.{k}"] for k in CrawlState._fields}
+            continue
+        per = {k.split(".stats.")[1]: rec[k] for k in rec
+               if k.startswith(f"{key}.stats.")}
+        tel = None
+        if f"{key}.ledger.rows" in rec:
+            tel = CrawlTelemetry(
+                steps=rec[f"{key}.ledger.steps"],
+                rows=rec[f"{key}.ledger.rows"],
+                names=tuple(json.loads(str(rec[f"{key}.ledger.names"]))),
+                interval=cfg.dispatch_interval)
+        events = tuple(
+            RebalanceEvent(**{**e, "moves": tuple(map(tuple, e["moves"]))})
+            for e in json.loads(str(rec[f"{key}.rebalances"])))
+        out[name] = CrawlReport(
+            urls=rec[f"{key}.urls"], per_step=rec[f"{key}.per_step"],
+            stats={k: int(v.sum()) for k, v in per.items()}, seconds=0.0,
+            cfg=cfg, stats_per_shard=per, telemetry=tel, rebalances=events)
+    return out
+
+
 def refusals(world):
     """What a rank of a ``world``-process group must refuse, as
     {name: the error's type and message}."""
     from repro_torch.api import CrawlSession
     from repro_torch.configs import webparf
-    from repro_torch.configs.base import scaled
     out = {}
 
     def catch(name, fn):
@@ -192,41 +354,13 @@ def refusals(world):
                                          n_shards=world // 2 if world > 2
                                          else 1))
     catch("device_none", lambda: CrawlSession(cfg, None, n_shards=N_SHARDS))
-
-    def heal():
-        sess = CrawlSession(cfg, "cpu", n_shards=N_SHARDS)
-        sess.inject_failure(1)
-        sess.heal()
-    catch("heal", heal)
-    catch("rebalance", lambda: CrawlSession(
-        scaled(cfg, telemetry=True, rebalance_threshold=1.5), "cpu",
-        n_shards=N_SHARDS))
-
-    def apply():
-        from repro_torch.core import crawler as CR
-        from repro_torch.core import partitioner as PT
-        sess = CrawlSession(cfg, "cpu", n_shards=N_SHARDS)
-        st = sess.state
-        CR.apply_rebalance(st, cfg, PT.DomainMap(
-            st.slot_of_domain, PT.identity_map(cfg, N_SHARDS,
-                                               "cpu").domain_of_slot,
-            st.shard_alive))
-    catch("apply_rebalance", apply)
-    from repro_torch.launch.crawl import main as crawl_cli
-    cli = ["--device", "cpu", "--shards", str(N_SHARDS), "--domains", "8",
-           "--steps", "8"]
-    catch("cli_heal_at", lambda: crawl_cli(
-        cli + ["--fail-shard", "1", "--fail-at", "4", "--heal-at", "8"]))
-    catch("cli_rebalance", lambda: crawl_cli(
-        cli + ["--rebalance-threshold", "1.5"]))
     return out
 
 
-def rank_main(rank, world, out, jax_ckpt):
-    """One rank of a ``world``-process gloo group: every case of CASES,
-    then restores of the checkpoints a one-process port and the JAX
-    package wrote (``jax_ckpt``, waited for), then the refusals. Each
-    rank writes its records to ``<out>/<case>.r<rank>.npz``."""
+def in_group(rank, world, out, body):
+    """Start rank ``rank`` of a ``world``-process gloo group (a
+    ``FileStore`` in ``out``), run ``body(group)``, and end the group; a
+    failure is written to ``<out>/error.r<rank>.txt``."""
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -237,6 +371,22 @@ def rank_main(rank, world, out, jax_ckpt):
     try:
         assert (group.world, group.rank) == (world, rank)
         assert make_host_mesh() == {"data": world, "model": 1}
+        body(group)
+        group.barrier()
+    except BaseException:
+        with open(os.path.join(out, f"error.r{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_main(rank, world, out, jax_ckpt):
+    """One rank of a ``world``-process gloo group: every case of CASES,
+    then restores of the checkpoints a one-process port and the JAX
+    package wrote (``jax_ckpt``, waited for), then the refusals. Each
+    rank writes its records to ``<out>/<case>.r<rank>.npz``."""
+    def body(group):
         ckpt_root = os.path.join(out, "ckpt")
         for name, case in CASES.items():
             np.savez(os.path.join(out, f"{name}.r{rank}.npz"),
@@ -251,13 +401,66 @@ def rank_main(rank, world, out, jax_ckpt):
                  **play(RESTORE_JAX, ckpt_root=jax_ckpt))
         with open(os.path.join(out, f"refusals.r{rank}.json"), "w") as f:
             json.dump(refusals(world), f)
-        group.barrier()
-    except BaseException:
-        with open(os.path.join(out, f"error.r{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        dist.destroy_process_group()
+    in_group(rank, world, out, body)
+
+
+def heal_rank_main(rank, world, out):
+    """One rank of a ``world``-process gloo group playing every case of
+    HEAL_CASES, its records to ``<out>/<case>.r<rank>.npz``, and the row
+    move of ``chain_move`` (``<out>/chain.r<rank>.npz``)."""
+    def body(group):
+        ckpt_root = os.path.join(out, "ckpt")
+        for name, case in HEAL_CASES.items():
+            np.savez(os.path.join(out, f"{name}.r{rank}.npz"),
+                     **play(case, ckpt_root=ckpt_root, name=name))
+        np.savez(os.path.join(out, f"chain.r{rank}.npz"),
+                 **chain_move(group))
+    in_group(rank, world, out, body)
+
+
+# a row move in which slots vacated by moves are other moves' targets
+# (0 -> 5 -> 9 -> 2 -> 0 and 7 -> 12 -> 3 -> 7, a cycle each), slots 4
+# and 14 pull from two others, and the rest keep their rows: (16,) the
+# source slot of every slot
+CHAIN_SRC = np.arange(16)
+CHAIN_SRC[[5, 9, 2, 0]] = [0, 5, 9, 2]
+CHAIN_SRC[[12, 3, 7]] = [7, 12, 3]
+CHAIN_SRC[[4, 14]] = [15, 1]
+CHAIN_WIDTHS = {"url": ((3,), "int64"), "valid": ((5,), "bool"),
+                "pri": ((2, 2), "float32"), "bits": ((), "uint8")}
+
+
+def chain_leaves(rows=slice(None)):
+    """The chain move's leaves, drawn from a seed: every slot's rows (or
+    ``rows``)."""
+    import torch
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, (shape, dtype) in CHAIN_WIDTHS.items():
+        a = rng.integers(0, 1 << 31, (len(CHAIN_SRC),) + shape)
+        if dtype == "float32":
+            a = rng.standard_normal((len(CHAIN_SRC),) + shape)
+        out[name] = torch.from_numpy(np.ascontiguousarray(
+            a.astype(dtype)[rows]))
+    return out
+
+
+def chain_move(group):
+    """Move this rank's rows of the chain leaves; returns the moved rows
+    and the plan's sizes."""
+    import torch
+    n = len(CHAIN_SRC)
+    per = n // group.world
+    leaves = chain_leaves(slice(group.rank * per, (group.rank + 1) * per))
+    ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+    plan = group.move_rows(leaves, torch.from_numpy(CHAIN_SRC))
+    assert all(v.data_ptr() == ptrs[k] for k, v in leaves.items())
+    rec = {f"leaf.{k}": v.numpy() for k, v in leaves.items()}
+    rec["send_rows"] = plan.send_rows.numpy()
+    rec["recv_rows"] = plan.recv_rows.numpy()
+    rec["send_splits"] = np.asarray(plan.send_splits)
+    rec["recv_splits"] = np.asarray(plan.recv_splits)
+    return rec
 
 
 def build_main(barrier, build_dir, nvcc_home, out):

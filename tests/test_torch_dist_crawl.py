@@ -29,8 +29,6 @@ torch = pytest.importorskip("torch")
 import _torch_dist_play as D  # noqa: E402
 from _torch_play import JAX_SCRIPT, assert_case  # noqa: E402
 
-from repro_torch.api.report import CrawlReport  # noqa: E402
-from repro_torch.core.stages import CrawlState, state_from_numpy  # noqa
 from repro_torch.dist import CrawlGroup  # noqa: E402
 
 FIXTURE_TIMEOUT_S = 300
@@ -113,38 +111,15 @@ def test_group_equals_one_process(plays, world, name):
         D.assert_same(plays["ref"][name], got, f"W={world} rank {r} {name}")
 
 
-class _Played:
-    """A play's final state and config, as ``assert_case`` reads a
-    session."""
-
-    def __init__(self, rec, case):
-        self.cfg = D.case_config(case)
-        self.state = state_from_numpy(
-            {k: rec[f"final.{k}"] for k in CrawlState._fields}, "cpu")
-
-
-def _reports(rec, cfg, rename=None):
-    """The play's runs as CrawlReports keyed as the JAX records are."""
-    out = {}
-    for key in sorted({k.split(".")[0] for k in rec if k.startswith("run")}):
-        per = {k.split(".stats.")[1]: rec[k] for k in rec
-               if k.startswith(f"{key}.stats.")}
-        out[(rename or {}).get(key, key)] = CrawlReport(
-            urls=rec[f"{key}.urls"], per_step=rec[f"{key}.per_step"],
-            stats={k: int(v.sum()) for k, v in per.items()}, seconds=0.0,
-            cfg=cfg, stats_per_shard=per)
-    return out
-
-
 @pytest.mark.parametrize("world", D.WORLDS)
 @pytest.mark.parametrize("name", sorted(HELD_TO_JAX))
 def test_group_held_to_jax(plays, world, name):
     """The group's records against the JAX package's 4-device records
     (``assert_case``: ints identical, f32 leaves to 8 ulp, cash to 1e-6)."""
     rec = _rank_records(plays, world, name)[0]
-    sess = _Played(rec, D.CASES[name])
+    sess = D.Played(rec, D.CASES[name])
     assert_case(str(plays["tmp"] / "jax" / f"{HELD_TO_JAX[name]}.npz"),
-                sess, _reports(rec, sess.cfg), f"W={world} {name}")
+                sess, D.reports(rec, sess.cfg), f"W={world} {name}")
 
 
 @pytest.mark.parametrize("world", D.WORLDS)
@@ -152,9 +127,9 @@ def test_jax_checkpoint_restores_into_group(plays, world):
     """JAX's checkpoint of the "checkpoint" case, restored into the group
     and stepped through the dispatch, meets JAX's own continuation."""
     rec = _rank_records(plays, world, "restore_jax")[0]
-    sess = _Played(rec, D.RESTORE_JAX)
+    sess = D.Played(rec, D.RESTORE_JAX)
     assert_case(str(plays["tmp"] / "jax" / "jax.npz"), sess,
-                _reports(rec, sess.cfg, rename={"run1": "run2"}),
+                D.reports(rec, sess.cfg, rename={"run1": "run2"}),
                 f"W={world} restore_jax")
 
 
@@ -179,26 +154,18 @@ def test_group_checkpoint_restores_in_one_process(plays, world):
 
 
 REFUSALS = {"divide": "ValueError: a world of",
-            "device_none": "RuntimeError: repro_torch runs on cuda",
-            "heal": "NotImplementedError: heal",
-            "rebalance": "NotImplementedError: maybe_rebalance",
-            "apply_rebalance": "NotImplementedError: apply_rebalance",
-            "cli_heal_at": "NotImplementedError: --heal-at",
-            "cli_rebalance": "NotImplementedError: --rebalance-threshold"}
+            "device_none": "RuntimeError: repro_torch runs on cuda"}
 
 
 @pytest.mark.parametrize("world", D.WORLDS)
 @pytest.mark.parametrize("what", sorted(REFUSALS))
 def test_group_refuses(plays, world, what):
-    """Under W > 1: a world that does not divide the shards, ``device=None``
-    on a rank without a card, and every call that moves rows between
-    cards raise; the moves name their ROADMAP.md item."""
+    """Under W > 1: a world that does not divide the shards and
+    ``device=None`` on a rank without a card raise."""
     for r in range(world):
         got = json.loads((plays["tmp"] / f"w{world}" /
                           f"refusals.r{r}.json").read_text())[what]
         assert got.startswith(REFUSALS[what]), got
-        if got.startswith("NotImplementedError"):
-            assert "ROADMAP.md" in got, got
 
 
 def test_one_process_group_is_the_transpose():
