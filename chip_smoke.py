@@ -147,8 +147,31 @@ non-zero):
                on each rank held to its plain version; pages/s beside the
                one-card 4- and 1-shard sessions', step ms, the
                all_to_all's ms a dispatch in the crawl and alone, peak
-               GiB. ``chip_smoke.py --dist`` runs the build and this phase
-               alone, on every card of the machine.
+               GiB.
+     dist_train — the train mesh, one fresh process a card over NCCL
+               (``chip_smoke.py --dist-train-rank OUT``; every card), each
+               case held to the same rank's one-card run: C1 the reduced
+               f32 deepseek-moe-16b, 3 AdamW steps at (2, 2) and (4, 1)
+               ((1, 1) on one card): loss and grad norm within 1e-5 a
+               step, the state within 2 * lr * steps (mean 1e-6 * steps),
+               the rank's routes equal to its group's of the one-card
+               grouped routing, flash_attention launched once a layer a
+               step and its first call held to the plain version; C5 its
+               (2, 2) state saved and restored onto (4, 1) and (1, 4), bit
+               for bit, one more step equal on every rank; C2 Qwen2-1.5B
+               bf16 4 x 4096 a data rank at (2, 2) and (4, 1): the first
+               loss and grad norm against one card's step on the same
+               global batch in microbatches (2e-2, 5% relative), step ms,
+               tokens/s, peak GiB, state bytes == its specs' reckoning,
+               the collectives' share of a profiled step,
+               flash_attention_tc 56 a step and held to plain; C3
+               DeepSeekMoE-16B at 8 of 28 layers, 2 x 4096 a data rank, at
+               (1, 4) and (2, 2): drop shares beside the one-card group's,
+               the second step's ms and all_to_all ms a layer; C4 DCN-v2
+               and Wide&Deep at 65,536 at (2, 2): the step within 1e-5 of
+               one card's, the sharded lookup bit-equal. C2-C5 need four
+               cards. ``chip_smoke.py --dist`` runs the build, ``dist``
+               and this phase alone, on every card of the machine.
   5. lm      — flash_parity: both attention kernels against the plain
                version on small cases (every head dim, GQA groups 1/3/6,
                lengths 32, 192 and 256, causal on and off, f32 and bf16),
@@ -5739,37 +5762,7 @@ def phase_dist(world=None):
     out.mkdir(parents=True)
     t0 = time.time()
     one = dist_one_card(out)
-    port = free_port()
-    procs = []
-    try:
-        for r in range(world):
-            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
-                   "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
-                   "MASTER_PORT": str(port)}
-            env.setdefault("NCCL_SOCKET_IFNAME", "lo")
-            log = open(out / f"rank{r}.log", "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
-                 str(out)], env=env, stdout=log, stderr=subprocess.STDOUT),
-                log))
-        deadline = time.time() + DIST_TIMEOUT_S
-        while any(p.poll() is None for p, _ in procs):
-            if time.time() > deadline or any(
-                    p.poll() not in (None, 0) for p, _ in procs):
-                break
-            time.sleep(0.5)
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-            log.close()
-    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
-    if bad:
-        tail = (out / f"rank{bad[0]}.log").read_text()[-4000:]
-        raise AssertionError(f"dist: ranks {bad} of {world} failed or hung "
-                             f"(rc {[procs[r][0].returncode for r in bad]})"
-                             f":\n{tail}")
+    run_ranks("--dist-rank", out, world, DIST_TIMEOUT_S)
     ranks = {r: json.loads((out / f"rank{r}.json").read_text())
              for r in range(world)}
     heal_names = [c[0] for c in DIST_HEAL_CASES]
@@ -5831,6 +5824,689 @@ def phase_dist(world=None):
     return ranks
 
 
+# ---------------------------------------------------------------------------
+# dist_train: training on the train mesh, one process a card
+# ---------------------------------------------------------------------------
+
+DT_LR = 1e-3                # every case's AdamW lr (constant)
+DT_MOE_STEPS = 3            # C1: the reduced f32 MoE's steps
+DT_MOE_TB, DT_MOE_TS = 8, 64   # C1: a data process's batch
+DT_QWEN_STEPS = 3           # C2: Qwen2-1.5B's steps (the first warms up)
+DT_BIG_MOE_LAYERS = 8       # C3: DeepSeekMoE-16B cut to 1 dense + 7 MoE
+DT_BIG_MOE_TB = 2           # C3: a data process's sequences of TRAIN_SEQ
+DT_RECSYS = ("dcn-v2", "wide-deep")
+DT_RECSYS_BATCH = 65536     # C4: the published train_batch, global
+DT_BF16_LOSS_TOL = 1e-3     # C2: bf16 loss, the mesh against one card
+DT_BF16_GNORM_RTOL = 1e-2   # C2: bf16 grad norm, relative
+DT_RECSYS_TIMED = 5         # C4: timed steps, one card's and the mesh's
+DT_TIMEOUT_S = 900          # the ranks' whole run
+DT_REMESH = ((4, 1), (1, 4))
+
+
+def dt_cases(world):
+    """{case: [meshes]} this world runs: every case on four cards, the
+    reduced MoE alone at (W, 1) on fewer."""
+    if world == 4:
+        return {"moe_f32": [(2, 2), (4, 1)], "qwen2_bf16": [(2, 2), (4, 1)],
+                "moe_16b": [(1, 4), (2, 2)], "recsys": [(2, 2)]}
+    return {"moe_f32": [(world, 1)]}
+
+
+class DispatchSpy:
+    """``layers.moe_dispatch`` watched: each call's (e, slot, keep) on
+    the host (``w`` too when ``weights``)."""
+
+    def __init__(self, weights=False):
+        from repro_torch.models import layers as TL
+        self.mod, self.orig, self.calls = TL, TL.moe_dispatch, []
+        self.weights = weights
+
+    def __enter__(self):
+        def spy(logits, m, capacity):
+            out = self.orig(logits, m, capacity)
+            keep = out[:4] if self.weights else out[1:4]
+            self.calls.append(tuple(t.detach().cpu().numpy() for t in keep))
+            return out
+        self.mod.moe_dispatch = spy
+        return self
+
+    def __exit__(self, *a):
+        self.mod.moe_dispatch = self.orig
+
+
+def dt_first_attention(step, state, batch):
+    """``step(state, batch)`` with its first attention call's q, k, v
+    captured: (state, metrics, (q, k, v))."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    got, orig = [], FA.attention
+
+    def spy(q, k, v, **kw):
+        if not got:
+            got.append(tuple(x.detach().clone() for x in (q, k, v)))
+        return orig(q, k, v, **kw)
+    FA.attention = spy
+    try:
+        st, m = step(state, batch)
+    finally:
+        FA.attention = orig
+    return st, m, got[0]
+
+
+def dt_state_bytes(state, shardings, mesh):
+    """(the bytes of this process's blocks of a placed state, the bytes
+    its specs reckon a process holds, the whole state's bytes)."""
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as TC
+    specs = dict(dt_spec_items(shardings))
+    held = reckoned = whole = 0
+    for k, leaf in TC._items(state):
+        size = leaf.element_size()
+        held += leaf.to_local().numel() * size
+        blk = rules.local_slices(leaf.shape, rules.NamedSharding(
+            mesh, specs[k].spec))
+        reckoned += int(np.prod([b.stop - b.start for b in blk])) * size
+        whole += leaf.numel() * size
+    return held, reckoned, whole
+
+
+def dt_param_bytes(params, mesh):
+    """(the bytes of this process's parameter blocks, the bytes of its
+    parameters joined over the data axes: what a step that joined the
+    whole tree would hold)."""
+    from repro_torch.sharding import rules
+    block = joined = 0
+    for leaf in params.values():
+        sh = rules.drop_fsdp(rules.sharding_of(leaf))
+        blk = rules.local_slices(leaf.shape, sh)
+        block += leaf.to_local().numel() * leaf.element_size()
+        joined += int(np.prod([b.stop - b.start for b in blk])) * \
+            leaf.element_size()
+    return block, joined
+
+
+def dt_spec_items(tree, prefix=""):
+    from repro_torch.sharding import rules
+    if isinstance(tree, rules.NamedSharding):
+        yield prefix[:-1], tree
+    else:
+        items = (tree.items() if isinstance(tree, dict) else
+                 zip(tree._fields, tree))
+        for k, v in items:
+            yield from dt_spec_items(v, f"{prefix}{k}/")
+
+
+def dt_flash_counts(cfg):
+    """The launches a step of ``cfg`` must make: its attention kernel
+    once a layer, twice under remat (the recompute), nothing else."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import ops as FA
+    kern = FA.route("cuda", getattr(__import__("torch"), cfg.dtype),
+                    cfg.head_dim)
+    want = {k: 0 for k in launch_counts()}
+    want[kern.name] = cfg.n_layers * (2 if cfg.remat else 1)
+    return want
+
+
+def dt_lm_batches(cfg, steps, rows, seq):
+    """``steps`` (tokens, labels) batches of ``rows`` sequences, seeded."""
+    import torch
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (steps, rows, seq + 1)
+                        ).astype(np.int32)
+    dev = None if DEV == "cuda" else DEV
+    out = []
+    for t in toks:
+        t = torch.from_numpy(t).to(dev or "cuda")
+        out.append((t[:, :-1].contiguous(), t[:, 1:].contiguous()))
+    return out
+
+
+def dt_moe_small(shape, group, out):
+    """C1: the reduced f32 MoE, DT_MOE_STEPS AdamW steps on the mesh
+    against the one-card port's under ``activation_mesh`` of the same
+    shape: each step's loss and grad norm, the final state, and this
+    process's routes (its group of the one-card grouped routing) bit for
+    bit. Returns (its line, the final state)."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as TC
+    from repro_torch.train import trainer as TR
+    dev = DEV
+    cfg = scaled(get_reduced(MOE_ARCH), dtype="float32")
+    dp, tp = shape
+    batches = dt_lm_batches(cfg, DT_MOE_STEPS, dp * DT_MOE_TB, DT_MOE_TS)
+    loss_fn = lambda p, b: T.lm_loss(p, cfg, b[0], b[1])    # noqa: E731
+    opt = adamw(lr=DT_LR)
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device=dev))
+    step = TR.make_train_step(loss_fn, opt)
+    st = TR.init_train_state(dict(params), opt)
+    ref = []
+    with rules.activation_mesh({"data": dp, "model": tp}), \
+            DispatchSpy() as one_routes:
+        for b in batches:
+            st, m = step(st, b)
+            ref.append((float(m["loss"]), float(m["grad_norm"])))
+    ref_flat = TC.flatten(st)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    one_routes = one_routes.calls[:n_moe]
+    del st
+    mesh = make_host_mesh(model=tp)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    g = coord["data"] * tp + coord["model"]
+    state = TR.init_train_state(TR.place_params(params, mesh, "lm"), opt)
+    got, counts = [], []
+    for i, b in enumerate(batches):
+        placed = TR.place_batch(b, mesh)
+        reset_launches()
+        with DispatchSpy() as routes:
+            if i == 0:
+                state, m, qkv = dt_first_attention(step, state, placed)
+            else:
+                state, m = step(state, placed)
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            mine = routes.calls[:n_moe]
+    for i, ((l0, n0), (l1, n1)) in enumerate(zip(ref, got)):
+        if abs(l1 - l0) > 1e-5 or abs(n1 / n0 - 1) > 1e-5:
+            raise AssertionError(f"dist_train moe_f32 {shape} step {i}: "
+                                 f"loss {l1} / {l0}, grad norm {n1} / {n0}")
+    for layer, (one, me) in enumerate(zip(one_routes, mine)):
+        for name, a, b in zip(("e", "slot", "keep"), one, me):
+            if not np.array_equal(a[g], b[0]):
+                raise AssertionError(f"dist_train moe_f32 {shape}: layer "
+                                     f"{layer} {name} of group {g} differs "
+                                     f"from the one-card grouped routing")
+    flat = TC.flatten(state)
+    worst = {"max": 0.0, "mean": 0.0}
+    for k, v in ref_flat.items():
+        if v.dtype.kind != "f":
+            if not np.array_equal(flat[k], v):
+                raise AssertionError(f"dist_train moe_f32 {shape}: {k}")
+            continue
+        d = np.abs(flat[k].astype(np.float64) - v)
+        worst = {"max": max(worst["max"], float(d.max())),
+                 "mean": max(worst["mean"], float(d.mean()))}
+    if worst["max"] > 2 * DT_LR * DT_MOE_STEPS or \
+            worst["mean"] > 1e-6 * DT_MOE_STEPS:
+        raise AssertionError(f"dist_train moe_f32 {shape}: state differs "
+                             f"{worst}")
+    want = dt_flash_counts(cfg)
+    if any(c != want for c in counts):
+        raise AssertionError(f"dist_train moe_f32 {shape}: launches "
+                             f"{counts}, want {want} a step")
+    kname, err, _ = flash_pair(*qkv, True, f"rank {group.rank} moe_f32 "
+                               f"{shape}")
+    line = {"case": "moe_f32", "mesh": list(shape), "arch": cfg.name,
+            "steps": DT_MOE_STEPS, "batch_per_data_rank": DT_MOE_TB,
+            "seq_len": DT_MOE_TS, "losses": [l for l, _ in got],
+            "one_card_losses": [l for l, _ in ref],
+            "grad_norms": [n for _, n in got],
+            "state_max_abs_diff": worst["max"],
+            "state_worst_mean_abs_diff": worst["mean"],
+            "routes_bit_equal_group": g, "launches_per_step": counts[0],
+            "flash_kernel": kname, "flash_max_abs_err": err}
+    return line, state, params
+
+
+def dt_remesh(state, params, group, out):
+    """C5: the (2, 2) state saved, restored onto each of DT_REMESH: every
+    leaf's bits, then one more step, finite and the same on every rank."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as TC
+    from repro_torch.train import trainer as TR
+    cfg = scaled(get_reduced(MOE_ARCH), dtype="float32")
+    ckpt = out / "remesh_ckpt"
+    TC.save(str(ckpt), 1, state)
+    saved = TC.load(str(ckpt))
+    opt = adamw(lr=DT_LR)
+    step = TR.make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]),
+                              opt)
+    line = {"case": "remesh", "from": [2, 2], "to": {}}
+    for shape in DT_REMESH:
+        mesh = make_host_mesh(model=shape[1])
+        target = TR.init_train_state(TR.place_params(params, mesh, "lm"),
+                                     opt)
+        restored = TC.restore(str(ckpt), target, shardings=TR.state_shardings(
+            target, mesh, "lm"))
+        flat = TC.flatten(restored)
+        if sorted(flat) != sorted(saved) or any(
+                flat[k].tobytes() != saved[k].tobytes() for k in saved):
+            raise AssertionError(f"dist_train remesh {shape}: restored "
+                                 f"leaves differ from the saved ones")
+        b = dt_lm_batches(cfg, 1, shape[0] * DT_MOE_TB, DT_MOE_TS)[0]
+        _, m = step(restored, TR.place_batch(b, mesh))
+        loss = torch.tensor([float(m["loss"])],
+                            device=torch.cuda.current_device()
+                            if DEV == "cuda" else DEV)
+        all_l = [torch.zeros_like(loss) for _ in range(group.world)]
+        torch.distributed.all_gather(all_l, loss)
+        ls = [float(x) for x in all_l]
+        if len(set(ls)) != 1 or not np.isfinite(ls[0]):
+            raise AssertionError(f"dist_train remesh {shape}: losses {ls}")
+        line["to"][f"{shape[0]}x{shape[1]}"] = {"bit_equal": True,
+                                                "next_loss": ls[0]}
+    group.barrier()
+    if group.rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return line
+
+
+def dt_profile_collectives(step, state, batch):
+    """One step under torch.profiler: its wall ms, the NCCL kernels' ms
+    (the collectives, waits included) and the other kernels' busy ms."""
+    prof = profile_device(lambda: step(state, batch), 1)
+    return {"wall_ms": prof["wall_ms_per_call"],
+            "collective_ms": prof["collective_ms_per_call"],
+            "busy_ms": prof["device_busy_ms_per_call"],
+            "collective_share_of_wall": prof["collective_ms_per_call"]
+            / prof["wall_ms_per_call"],
+            "device_idle_share": prof["device_idle_share"]}
+
+
+def dt_qwen(shape, group):
+    """C2: Qwen2-1.5B at full width and depth, bf16, remat: TRAIN_BATCH x
+    TRAIN_SEQ a data process, DT_QWEN_STEPS AdamW steps on the mesh; the
+    first step's loss and grad norm against one card's step on the same
+    global batch in dp microbatches. Per rank: step ms, tokens/s, peak
+    GiB, its state bytes against its specs' reckoning, the collectives'
+    share of a profiled step, flash_attention_tc launches a step and its
+    first call held to the plain version."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as TR
+    cfg = get_arch(LM_ARCH)[0]
+    dp, tp = shape
+    batches = dt_lm_batches(cfg, DT_QWEN_STEPS + 1, dp * TRAIN_BATCH,
+                            TRAIN_SEQ)
+    loss_fn = lambda p, b: T.lm_loss(p, cfg, b[0], b[1])    # noqa: E731
+    opt = adamw(lr=DT_LR)
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device=DEV))
+    one = TR.make_train_step(loss_fn, opt, microbatches=dp)
+    _, m = one(TR.init_train_state(params, opt), batches[0])
+    ref = (float(m["loss"]), float(m["grad_norm"]))
+    del m, one
+    free_card()
+    mesh = make_host_mesh(model=tp)
+    state = TR.init_train_state(TR.place_params(params, mesh, "lm"), opt)
+    del params
+    free_card()
+    held, reckoned, whole = dt_state_bytes(
+        state, TR.state_shardings(state, mesh, "lm"), mesh)
+    grads, joined = dt_param_bytes(state.params, mesh)
+    step = TR.make_train_step(loss_fn, opt)
+    placed = [TR.place_batch(b, mesh) for b in batches]
+    losses, norms, ms, counts = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DT_QWEN_STEPS):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            state, m, qkv = dt_first_attention(step, state, placed[i])
+        else:
+            state, m = step(state, placed[i])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        counts.append(launch_counts())
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = dt_profile_collectives(step, state, placed[DT_QWEN_STEPS])
+    del state, placed, m
+    free_card()
+    if abs(losses[0] - ref[0]) > DT_BF16_LOSS_TOL or \
+            abs(norms[0] / ref[1] - 1) > DT_BF16_GNORM_RTOL or \
+            not finite(losses, norms):
+        raise AssertionError(f"dist_train qwen2_bf16 {shape}: loss "
+                             f"{losses[0]} / {ref[0]}, grad norm "
+                             f"{norms[0]} / {ref[1]}")
+    want = dt_flash_counts(cfg)
+    if any(c != want for c in counts):
+        raise AssertionError(f"dist_train qwen2_bf16 {shape}: launches "
+                             f"{counts}, want {want} a step")
+    if held != reckoned:
+        raise AssertionError(f"dist_train qwen2_bf16 {shape}: holds {held} "
+                             f"B, its specs reckon {reckoned}")
+    kname, err, share = flash_pair(*qkv, True, f"rank {group.rank} "
+                                   f"qwen2_bf16 {shape}")
+    steady = ms[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {"case": "qwen2_bf16", "mesh": list(shape), "arch": LM_ARCH,
+            "batch_per_data_rank": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "global_batch": dp * TRAIN_BATCH, "losses": losses,
+            "grad_norms": norms, "one_card_loss": ref[0],
+            "one_card_grad_norm": ref[1], "one_card_microbatches": dp,
+            "step_ms": ms, "tokens_per_s_rank": tokens / (
+                np.mean(steady) / 1e3),
+            "tokens_per_s_global": dp * tokens / (np.mean(steady) / 1e3),
+            "peak_gib": peak, "state_bytes": held,
+            "state_bytes_reckoned": reckoned, "state_bytes_whole": whole,
+            "grad_bytes": grads, "params_joined_over_data_bytes": joined,
+            "state_plus_grads_gib": (held + grads) / 2 ** 30,
+            "peak_over_state_plus_grads_gib": peak - (held + grads) / 2 ** 30,
+            "profile_one_step": prof, "launches_per_step": counts[0],
+            "flash_kernel": kname, "flash_max_abs_err": err,
+            "flash_tc_share_of_tolerance": share}
+
+
+def dt_moe_16b(shape, group):
+    """C3: DeepSeekMoE-16B at full width, cut to DT_BIG_MOE_LAYERS layers,
+    bf16, remat, DT_BIG_MOE_TB x TRAIN_SEQ a data process: two steps on
+    the mesh; the first's drop share a layer on this process beside its
+    group's in the one-card grouped routing of the same shape; the
+    second's step ms and all_to_all ms a layer (CUDA events around every
+    exchange: the forward's, the remat recompute's and the backward's);
+    peak GiB."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import scaled
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules, spmd
+    from repro_torch.train import trainer as TR
+    cfg = scaled(get_arch(MOE_ARCH)[0], n_layers=DT_BIG_MOE_LAYERS)
+    dp, tp = shape
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    (tok, lab), = dt_lm_batches(cfg, 1, dp * DT_BIG_MOE_TB, TRAIN_SEQ)
+    params = T.stack_params(T.init_lm(cfg, seed=SEED, device=DEV))
+    with torch.no_grad(), rules.activation_mesh({"data": dp, "model": tp}), \
+            DispatchSpy() as one:
+        T.train_forward(params, cfg, tok)
+    one_keep = [c[2] for c in one.calls[:n_moe]]
+    free_card()
+    mesh = make_host_mesh(model=tp)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    g = coord["data"] * tp + coord["model"]
+    opt = adamw(lr=DT_LR)
+    state = TR.init_train_state(TR.place_params(params, mesh, "lm"), opt)
+    del params
+    free_card()
+    held, reckoned, whole = dt_state_bytes(
+        state, TR.state_shardings(state, mesh, "lm"), mesh)
+    step = TR.make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]),
+                              opt)
+    placed = TR.place_batch((tok, lab), mesh)
+    events, orig = [], spmd._a2a
+
+    def timed(x, axis):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = orig(x, axis)
+        stop.record()
+        events.append((start, stop, x.numel() * x.element_size()))
+        return y
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the first step (routes against the one-card grouped routing) starts
+    # the mesh's NCCL communicators; the second is timed
+    with DispatchSpy() as mine:
+        t0 = time.perf_counter()
+        state, m = step(state, placed)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    spmd._a2a = timed
+    try:
+        t0 = time.perf_counter()
+        state, m = step(state, placed)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        spmd._a2a = orig
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    a2a_ms = sum(a.elapsed_time(b) for a, b, _ in events)
+    my_keep = [c[2][0] for c in mine.calls[:n_moe]]
+    del state, placed, m
+    free_card()
+    if not finite(loss, norm) or held != reckoned:
+        raise AssertionError(f"dist_train moe_16b {shape}: loss {loss}, "
+                             f"grad norm {norm}, holds {held} B of "
+                             f"{reckoned} reckoned")
+    drop = [1 - float(k.mean()) for k in my_keep]
+    one_drop = [1 - float(k[g].mean()) for k in one_keep]
+    return {"case": "moe_16b", "mesh": list(shape), "arch": MOE_ARCH,
+            "layers": cfg.n_layers, "moe_layers": n_moe,
+            "cut": f"depth {cfg.n_layers} of 28 (1 dense + {n_moe} MoE)",
+            "batch_per_data_rank": DT_BIG_MOE_TB, "seq_len": TRAIN_SEQ,
+            "loss": loss, "grad_norm": norm, "first_step_ms": first_ms,
+            "step_ms": step_ms, "peak_gib": peak, "state_bytes": held,
+            "state_bytes_reckoned": reckoned, "state_bytes_whole": whole,
+            "all_to_all_calls": len(events),
+            "all_to_all_bytes_per_call": events[0][2] if events else 0,
+            "all_to_all_ms_per_layer": a2a_ms / n_moe,
+            "all_to_all_share_of_step": a2a_ms / step_ms,
+            "drop_share_per_layer": drop,
+            "one_card_group_drop_share_per_layer": one_drop,
+            "group": g}
+
+
+def dt_timed_steps(step, state, batch):
+    """The ms of each of DT_RECSYS_TIMED steps from ``state`` on the same
+    batch (each a fresh state: the steps' results are dropped)."""
+    import torch
+    out = []
+    for _ in range(DT_RECSYS_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def dt_recsys(arch, shape, group):
+    """C4: a RecSys arch at its published widths and train batch with
+    ``recsys_specs`` (tables row-sharded over "model", the batch over
+    "data"): the first step against one card's on the same batch (loss
+    1e-5, grad norm 1e-5 relative, every block of the state within 2 *
+    lr, mean 1e-6), the second step timed beside one card's second, and
+    ``sharded_lookup`` of this process's ids in the first table against
+    ``embedding_lookup`` of the whole table, bit for bit. Then
+    DT_RECSYS_TIMED steps of one card and of the mesh, each timed
+    (``dt_timed_steps``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import recsys as R
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    from repro_torch.train import checkpoint as TC
+    from repro_torch.train import trainer as TR
+    cfg = get_arch(arch)[0]
+    batch = R.make_batch(cfg, ShapeSpec("t", "train", dict(
+        batch=DT_RECSYS_BATCH)), rng_key=SEED, device=DEV)
+    params = R.INIT[cfg.kind](SEED, cfg, device=DEV)
+    opt = adamw(lr=RECSYS_LR)
+    loss_fn = lambda p, b: R.TRAIN_LOSS[cfg.kind](p, cfg, b)  # noqa: E731
+    step = TR.make_train_step(loss_fn, opt)
+    ref, m1 = step(TR.init_train_state(params, opt), batch)
+    one_ms = dt_timed_steps(step, ref, batch)
+    mesh = make_host_mesh(model=shape[1])
+    state = TR.init_train_state(TR.place_params(params, mesh, "recsys"),
+                                opt)
+    placed = TR.place_batch(batch, mesh, rows=DT_RECSYS_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, placed)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    step_ms = dt_timed_steps(step, state, placed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    want_l, want_n = float(m1["loss"]), float(m1["grad_norm"])
+    worst = torch.zeros(2, dtype=torch.float64, device=m["loss"].device)
+    ref_items = dict(TC._items(ref))
+    for k, leaf in TC._items(state):
+        blk = rules.local_slices(leaf.shape, rules.sharding_of(leaf))
+        d = (leaf.to_local().double() - ref_items[k][blk].double()).abs()
+        if d.numel():
+            worst = torch.maximum(worst, torch.stack([d.max(), d.mean()]))
+    torch.distributed.all_reduce(worst, op=torch.distributed.ReduceOp.MAX)
+    first = sorted(cfg.tables)[0]
+    table = params[f"tables/{first}"]
+    sh = rules.NamedSharding(mesh, ("model", None))
+    ids = placed["sparse_ids"].to_local()[:, 0]
+    got = R.sharded_lookup(table[rules.local_slices(table.shape, sh)], ids,
+                           mesh=mesh)
+    bit_equal = bool(torch.equal(got.view(torch.int32), R.embedding_lookup(
+        table, ids).view(torch.int32)))
+    held, reckoned, whole = dt_state_bytes(
+        state, TR.state_shardings(state, mesh, "recsys"), mesh)
+    del state, ref, placed, batch, params
+    free_card()
+    if abs(loss - want_l) > 1e-5 or abs(norm / want_n - 1) > 1e-5 or \
+            worst[0] > 2 * RECSYS_LR or worst[1] > 1e-6 or not bit_equal \
+            or held != reckoned:
+        raise AssertionError(f"dist_train recsys {arch} {shape}: loss "
+                             f"{loss} / {want_l}, grad norm {norm} / "
+                             f"{want_n}, state {worst.tolist()}, lookup "
+                             f"bit-equal {bit_equal}, {held} B of "
+                             f"{reckoned}")
+    return {"case": f"recsys_{arch}", "mesh": list(shape), "arch": arch,
+            "batch": DT_RECSYS_BATCH, "loss": loss, "one_card_loss": want_l,
+            "grad_norm": norm, "one_card_grad_norm": want_n,
+            "state_max_abs_diff": float(worst[0]),
+            "state_worst_mean_abs_diff": float(worst[1]),
+            "sharded_lookup_bit_equal": bit_equal,
+            "first_step_ms": first_ms, "step_ms": step_ms,
+            "one_card_step_ms": one_ms,
+            "mesh_over_one_card_median": float(np.median(step_ms)
+                                               / np.median(one_ms)),
+            "peak_gib": peak, "state_bytes": held,
+            "state_bytes_reckoned": reckoned, "state_bytes_whole": whole}
+
+
+def dist_train_rank(out):
+    """One rank of the train mesh (``chip_smoke.py --dist-train-rank
+    OUT``, started by ``phase_dist_train`` as ``phase_dist`` starts its
+    ranks): every case of ``dt_cases(W)`` on its own card over NCCL, each
+    held to its one-card run on this rank's card. Its lines to
+    ``out/train_rank<rank>.json``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_crawl_group
+    group = init_crawl_group(None if DEV == "cuda" else DEV,
+                             timeout_s=DIST_GROUP_TIMEOUT_S)
+    lines = []
+    try:
+        cases = dt_cases(group.world)
+        for shape in cases["moe_f32"]:
+            line, state, params = dt_moe_small(shape, group, out)
+            lines.append(line)
+            if group.world == 4 and shape == (2, 2):
+                lines.append(dt_remesh(state, params, group, out))
+            del state, params
+            free_card()
+        for shape in cases.get("qwen2_bf16", []):
+            lines.append(dt_qwen(shape, group))
+            free_card()
+        for shape in cases.get("moe_16b", []):
+            lines.append(dt_moe_16b(shape, group))
+            free_card()
+        for shape in cases.get("recsys", []):
+            for arch in DT_RECSYS:
+                lines.append(dt_recsys(arch, shape, group))
+                free_card()
+        group.barrier()
+    finally:
+        dist.destroy_process_group()
+    (out / f"train_rank{group.rank}.json").write_text(json.dumps(
+        {"rank": group.rank, "world": group.world, "cases": lines}))
+
+
+def run_ranks(flag, out, world, timeout_s):
+    """``world`` fresh processes of ``chip_smoke.py <flag> <out>``, rank r
+    on card r (RANK, WORLD_SIZE, LOCAL_RANK, a free MASTER_PORT), each
+    logging to ``out/<flag>.rank<r>.log``; waited for at most
+    ``timeout_s``. Raises if any failed or hung, with its log's tail."""
+    import os
+    port = free_port()
+    procs = []
+    tag = flag.strip("-")
+    try:
+        for r in range(world):
+            env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+                   "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(port)}
+            env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+            log = open(out / f"{tag}.rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                 str(out)], env=env, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        deadline = time.time() + timeout_s
+        while any(p.poll() is None for p, _ in procs):
+            if time.time() > deadline or any(
+                    p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tail = (out / f"{tag}.rank{bad[0]}.log").read_text()[-4000:]
+        raise AssertionError(f"{tag}: ranks {bad} of {world} failed or hung "
+                             f"(rc {[procs[r][0].returncode for r in bad]})"
+                             f":\n{tail}")
+
+
+def phase_dist_train(world=None):
+    """The train mesh on ``world`` cards (default: every card), one fresh
+    process a card (``dist_train_rank``): C1 the reduced f32 MoE against
+    the one-card port (bit-equal routes), C5 its (2, 2) state re-meshed,
+    C2 Qwen2-1.5B and C3 DeepSeekMoE-16B at full width, C4 DCN-v2 and
+    Wide&Deep at their published widths (C2-C5 on four cards). Prints a
+    ``dist_train`` line a rank and case. Returns {rank: its lines}."""
+    import os
+    import shutil
+    import torch
+    world = world or torch.cuda.device_count()
+    out = ROOT / "build" / f"dist_train_{os.getpid()}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.time()
+    run_ranks("--dist-train-rank", out, world, DT_TIMEOUT_S)
+    ranks = {r: json.loads((out / f"train_rank{r}.json").read_text())
+             for r in range(world)}
+    card = nvidia_smi()
+    for r, rk in ranks.items():
+        for line in rk["cases"]:
+            emit({"phase": "dist_train_rank", "world": world, "rank": r,
+                  "card": card, **line})
+    shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "dist_train", "world": world, "card": card,
+          "cases": {k: [list(m) for m in v]
+                    for k, v in dt_cases(world).items()},
+          "seconds": time.time() - t0})
+    return ranks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5846,10 +6522,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--dist-rank"]:
         dist_rank(Path(sys.argv[2]))
         return 0
+    if sys.argv[1:2] == ["--dist-train-rank"]:
+        dist_train_rank(Path(sys.argv[2]))
+        return 0
     if sys.argv[1:2] == ["--dist"]:
-        # the crawl group alone, on every card of the machine
+        # the crawl group and the train mesh alone, on every card
         phase_build()
         phase_dist()
+        free_card()
+        phase_dist_train()
         print(nvidia_smi(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -5893,6 +6574,8 @@ def main() -> int:
     phase_serve_trajectory()
     free_card()
     dist_ranks = phase_dist()
+    free_card()
+    train_ranks = phase_dist_train()
     free_card()
     flash = phase_flash_parity()
     model, captured, counts_lm = phase_lm_serve()
@@ -5965,6 +6648,12 @@ def main() -> int:
                                  c["case"])["launches"][r["name"]]
                             for rk in dist_ranks.values()]
                 for c in dist_ranks[0]["cases"]}
+        if r["name"] == "flash_attention":
+            r[f"launches_per_mesh_train_step_{len(train_ranks)}_cards"] = {
+                f"rank {rk} {c['case']} {c['mesh']}":
+                    c["launches_per_step"]["flash_attention"]
+                for rk, lines in train_ranks.items()
+                for c in lines["cases"] if "launches_per_step" in c}
         if r["name"] in per_train_step:
             r["launches_per_train_step"] = per_train_step[r["name"]]
             r["train_path"] = (

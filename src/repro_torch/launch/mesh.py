@@ -11,16 +11,17 @@ bound every cell with:
   HBM, ``HBM_BYTES`` is what a cell's own allocations can take.
 
 ``make_production_mesh`` is not ported: a host of cards has no pod to lay
-out (``ROADMAP.md`` lists it). ``init_crawl_group`` starts the crawl's
-process group, one process a card, from what ``torch.distributed.run``
-sets; ``make_host_mesh`` returns the mesh shape of this host's group (one
-card without a group), which ``sharding.rules.activation_mesh`` takes.
+out (``ROADMAP.md`` lists it). ``init_crawl_group`` starts the process
+group, one process a card, from what ``torch.distributed.run`` sets; the
+crawl and training share it. ``make_host_mesh`` lays the group out as the
+(data, model) ``DeviceMesh`` that training places its state on (a mesh
+shape of one card without a group).
 """
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Optional
 
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 on the tensor cores
 PEAK_FLOPS_TF32 = 495e12        # FLOP/s, dense TF32 on the tensor cores
@@ -91,15 +92,26 @@ def init_crawl_group(device: Optional[str] = None, *,
     return CrawlGroup.current()
 
 
-def make_host_mesh(model: int = 1) -> Dict[str, int]:
-    """The (data, model) shape of this host: the crawl group's W cards on
-    the data axis (one card without a group), as the reference's
-    ``make_host_mesh`` lays out whatever the host has. ``model`` must be
-    1: the port splits no model over cards."""
-    if model != 1:
-        raise ValueError(f"make_host_mesh: model={model}, but the port runs "
-                         f"a model on one card, where only model=1 divides "
-                         f"the devices (the reference asserts the same on a "
-                         f"one-device host)")
+def make_host_mesh(model: int = 1):
+    """This host's mesh, as the reference's ``make_host_mesh`` lays out
+    whatever the host has. Under a started group of W processes (one a
+    card: ``init_crawl_group``) a ``DeviceMesh`` of (W // model, model)
+    named ("data", "model") on the group's device type, which
+    ``sharding.rules.activation_mesh`` and the trainer's placements take;
+    a ``model`` that does not divide W raises. Without a group the shape
+    ``{"data": 1, "model": 1}`` of one card, where ``model`` must be 1
+    (the reference asserts the same on a one-device host)."""
     from repro_torch.dist import CrawlGroup
-    return {"data": CrawlGroup.current().world, "model": 1}
+    world = CrawlGroup.current().world
+    if model < 1 or world % model:
+        where = (f"the {world} processes of the group" if world > 1 else
+                 "one card (no process group)")
+        raise ValueError(f"make_host_mesh: model={model} does not divide "
+                         f"{where}")
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return {"data": 1, "model": 1}
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, (world // model, model),
+                            mesh_dim_names=("data", "model"))

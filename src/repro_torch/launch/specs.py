@@ -21,9 +21,13 @@ card. The reference's choices are kept:
 
 ``batch`` overrides the shape's batch, ``seq_len`` an LM's length and
 ``cache_len`` an LM prefill's cache slots (the prompt's by default), so a
-cell can be sized as ``chip_smoke.py`` runs it. The reference's shardings
-(``in_shardings``, ``out_shardings``) have no single-card meaning and are
-not kept.
+cell can be sized as ``chip_smoke.py`` runs it. Given a ``mesh`` (a
+``DeviceMesh`` or a mesh shape), a train cell also names the reference's
+``in_shardings`` and ``out_shardings`` from the ported rules: the state's
+``trainer.state_shardings`` (the reference's ``_lm_state_shardings`` and
+its GNN and RecSys counterparts), the batch split over the data axes, the
+metrics replicated; an LM's microbatches count per data process. The
+per-card reckoning of a mesh cell is not made here.
 """
 from __future__ import annotations
 
@@ -47,6 +51,30 @@ class Cell(NamedTuple):
     fn: Callable
     args: tuple
     meta: dict
+    in_shardings: Any = None       # a train cell's, given a mesh
+    out_shardings: Any = None
+
+
+def _train_shardings(cell: Cell, mesh, family: str) -> Cell:
+    """``cell`` with the reference's in/out shardings on ``mesh``: the
+    state by the family's rules, every batch leaf of the batch's rows
+    split over the data axes (a leaf of other rows, BERT4Rec's shared
+    negatives, replicated; a graph's nodes and edges both split), the
+    metrics replicated."""
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer as TR
+    state, batch = cell.args
+    state_sh = TR.state_shardings(state, mesh, family)
+    rows = TR.batch_sharding(mesh)
+    n = []
+    TR._map(n.append, batch)
+    rep = rules.NamedSharding(mesh, ())
+    batch_sh = TR._map(lambda x: rules.NamedSharding(
+        mesh, rows.spec[:x.dim()] if x.dim() and (
+            family == "gnn" or x.shape[0] == n[0].shape[0]) else ()), batch)
+    metrics = {"loss": rep, "grad_norm": rep, "step": rep}
+    return cell._replace(in_shardings=(state_sh, batch_sh),
+                         out_shardings=(state_sh, metrics))
 
 
 def _alloc(shape, dtype, device) -> torch.Tensor:
@@ -104,7 +132,7 @@ def _lm_params(cfg: LMConfig, device) -> Dict[str, torch.Tensor]:
 def _lm_cell(arch: str, cfg: LMConfig, shape: ShapeSpec, variant: str,
              batch: Optional[int], seq_len: Optional[int],
              cache_len: Optional[int], microbatches: Optional[int],
-             device) -> Cell:
+             device, dp: int = 1) -> Cell:
     from repro_torch.models import transformer as T
     if variant == "opt" and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -117,7 +145,7 @@ def _lm_cell(arch: str, cfg: LMConfig, shape: ShapeSpec, variant: str,
     i32 = torch.int32
     if shape.kind == "train":
         opt = _lm_optimizer(cfg)
-        mb = microbatches or _lm_microbatches(cfg, B, S)
+        mb = microbatches or _lm_microbatches(cfg, B, S, dp)
         meta.update(microbatches=mb, gather_once=False)
         state = init_train_state(_lm_params(cfg, device), opt)
         step = make_train_step(
@@ -303,22 +331,35 @@ def build_cell(arch: str, shape_name: str, *, variant: str = "baseline",
                batch: Optional[int] = None, seq_len: Optional[int] = None,
                cache_len: Optional[int] = None, n_shards: int = 1,
                microbatches: Optional[int] = None, device="meta",
-               cfg=None) -> Cell:
+               cfg=None, mesh=None) -> Cell:
     """The cell's step and its arguments on ``device`` (meta: no storage).
     ``cfg`` replaces the arch's config (a cut depth, a crawl ordering);
-    ``microbatches`` an LM train step's (``_lm_microbatches`` by default)."""
+    ``microbatches`` an LM train step's (``_lm_microbatches`` by default);
+    ``mesh`` gives a train cell its shardings."""
     dev = resolve_device(device)
     if cfg is None:
         cfg, _ = get_arch(arch)
     shape = get_shape(arch, shape_name)
     family = getattr(cfg, "family", None)
+    dp = 1
+    if mesh is not None:
+        from repro_torch.sharding import rules
+        sizes = rules.mesh_sizes(mesh)
+        for a in rules.dp_axes(mesh):
+            dp *= sizes[a]
     if family == "lm":
-        return _lm_cell(arch, cfg, shape, variant, batch, seq_len,
-                        cache_len, microbatches, dev)
-    if family == "gnn":
-        return _gnn_cell(arch, cfg, shape, batch, dev)
-    if family == "recsys":
-        return _recsys_cell(arch, cfg, shape, variant, batch, dev)
-    if family == "crawl":
+        cell = _lm_cell(arch, cfg, shape, variant, batch, seq_len,
+                        cache_len, microbatches, dev, dp)
+    elif family == "gnn":
+        cell = _gnn_cell(arch, cfg, shape, batch, dev)
+    elif family == "recsys":
+        cell = _recsys_cell(arch, cfg, shape, variant, batch, dev)
+    elif family == "crawl":
         return _crawl_cell(arch, cfg, shape, n_shards, dev)
-    raise ValueError(f"unknown family for {arch}")
+    else:
+        raise ValueError(f"unknown family for {arch}")
+    train = shape.kind in ("train", "full_graph", "minibatch",
+                           "batched_graphs")
+    if mesh is None or not train:
+        return cell
+    return _train_shardings(cell, mesh, family)

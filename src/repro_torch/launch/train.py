@@ -21,8 +21,22 @@ deepseek-moe-16b, ~300 GB) exceed one card's memory. Weights are drawn from
 ``recsys.make_batch``'s batch of ``--batch`` examples, each with AdamW at
 ``--lr``, as the reference's ``train_other``. It runs on cuda unless
 ``--device cpu`` is given, and raises when no card is present.
-``--model-parallel`` other than 1 raises: the port trains on one card,
-where the reference's ``make_host_mesh`` also takes only 1.
+
+Under ``torch.distributed.run`` (one process a card; ``--device cpu``
+runs gloo) the processes form one group, the crawl's and the mesh's:
+
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --model-parallel 2 ...
+
+Every rank crawls as the crawl group (a shard a rank) and gathers the
+fetched pages, so the token stream is the same on every rank; the model
+then trains on the (W / k, k) ``DeviceMesh`` of ``make_host_mesh(k)``,
+its parameters and optimizer state placed by the reference's rules
+(``trainer.place_params``: FSDP over "data", TP and EP over "model") and
+each batch split over "data". Only rank 0 prints; checkpoints are written
+by rank 0 from every rank's blocks. A ``--model-parallel`` that does not
+divide W raises, and without a group anything but 1 raises, as the
+reference's ``make_host_mesh`` asserts on a one-device host.
 """
 from __future__ import annotations
 
@@ -37,10 +51,28 @@ from repro_torch.launch.mesh import make_host_mesh
 
 def crawl_corpus(crawl_cfg, steps: int, device=None):
     """Run the WebParF crawler and return (the fetched URLs, the final
-    crawl state): the crawled collection feeding training."""
+    crawl state): the crawled collection feeding training. Under a group
+    of W processes the crawl runs W shards, one a rank; its report holds
+    every shard's fetched URLs, so every rank gets the same collection as
+    a one-process session of W shards (the state is the rank's own
+    shard's)."""
     from repro_torch.api import CrawlSession
-    sess = CrawlSession(crawl_cfg, device)
+    from repro_torch.dist import CrawlGroup
+    sess = CrawlSession(crawl_cfg, device, n_shards=CrawlGroup.current().world)
     return sess.run(steps).urls, sess.state
+
+
+def _mesh(args):
+    """(the train mesh, or None on one process, and a print that only
+    rank 0 speaks through)."""
+    from repro_torch.dist import CrawlGroup
+    mesh = make_host_mesh(model=args.model_parallel)
+    rank = CrawlGroup.current().rank
+
+    def say(*a, **k):
+        if rank == 0:
+            print(*a, **k)
+    return (None if isinstance(mesh, dict) else mesh), say
 
 
 def train_lm(args, cfg=None):
@@ -51,10 +83,11 @@ def train_lm(args, cfg=None):
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer as TR
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     dev = resolve_device(args.device)
-    make_host_mesh(model=args.model_parallel)
+    mesh, say = _mesh(args)
     if cfg is None:
         cfg = get_arch(args.arch)[0] if args.full else get_reduced(args.arch)
         if not args.full:
@@ -62,12 +95,15 @@ def train_lm(args, cfg=None):
 
     crawl_cfg = get_reduced("webparf")
     urls, _ = crawl_corpus(crawl_cfg, args.crawl_steps, dev)
-    print(f"crawled {len(urls)} pages -> token stream")
+    say(f"crawled {len(urls)} pages -> token stream")
 
     params = T.stack_params(T.init_lm(cfg, seed=args.seed, device=dev))
     n_params = sum(p.numel() for p in params.values())
-    print(f"{args.arch}: {n_params / 1e6:.2f}M params "
-          f"(reduced={not args.full}) on {dev}")
+    say(f"{args.arch}: {n_params / 1e6:.2f}M params "
+        f"(reduced={not args.full}) on {dev}"
+        + ("" if mesh is None else f", mesh {tuple(mesh.shape)}"))
+    if mesh is not None:
+        params = TR.place_params(params, mesh, "lm")
 
     opt = adamw(lr=warmup_cosine(args.lr, 10, args.steps))
     step = make_train_step(lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt,
@@ -77,6 +113,8 @@ def train_lm(args, cfg=None):
     batches = list(lm_batches(urls, crawl_cfg, batch=args.batch,
                               seq_len=args.seq_len, vocab=cfg.vocab_size,
                               device=dev))
+    if mesh is not None:
+        batches = [TR.place_batch(b, mesh) for b in batches]
     if not batches:
         raise SystemExit("not enough crawled data; raise --crawl-steps")
     t0 = time.time()
@@ -89,14 +127,14 @@ def train_lm(args, cfg=None):
             i += 1
             if i % args.log_every == 0:
                 dt = time.time() - t0
-                print(f"step {i:5d}  loss {float(m['loss']):.4f}  "
-                      f"gnorm {float(m['grad_norm']):.3f}  "
-                      f"{i * args.batch * args.seq_len / dt:.0f} tok/s")
+                say(f"step {i:5d}  loss {float(m['loss']):.4f}  "
+                    f"gnorm {float(m['grad_norm']):.3f}  "
+                    f"{i * args.batch * args.seq_len / dt:.0f} tok/s")
             if args.ckpt_dir and i % args.ckpt_every == 0:
                 ckpt.save(args.ckpt_dir, i, state)
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, i, state)
-    print(f"final loss {float(m['loss']):.4f}")
+    say(f"final loss {float(m['loss']):.4f}")
     return state
 
 
@@ -109,9 +147,11 @@ def train_other(args):
     from repro_torch.models import gnn as G
     from repro_torch.models import recsys as R
     from repro_torch.optim import adamw
+    from repro_torch.train import trainer as TR
     from repro_torch.train.trainer import init_train_state, make_train_step
 
     dev = resolve_device(args.device)
+    mesh, say = _mesh(args)
     cfg = get_arch(args.arch)[0] if args.full else get_reduced(args.arch)
     if cfg.family == "gnn":
         rng = np.random.default_rng(args.seed)
@@ -136,8 +176,14 @@ def train_other(args):
                              device=dev)
         loss_fn = lambda p, b: R.TRAIN_LOSS[cfg.kind](p, cfg, b)
     n_params = sum(p.numel() for p in params.values())
-    print(f"{args.arch}: {n_params / 1e6:.2f}M params "
-          f"(reduced={not args.full}) on {dev}")
+    say(f"{args.arch}: {n_params / 1e6:.2f}M params "
+        f"(reduced={not args.full}) on {dev}")
+    if mesh is not None:
+        # the graph stays whole on every process (its gathers read any
+        # node); a RecSys batch splits over the data axes
+        params = TR.place_params(params, mesh, cfg.family)
+        if cfg.family == "recsys":
+            batch = TR.place_batch(batch, mesh, rows=args.batch)
 
     opt = adamw(lr=args.lr)
     step = make_train_step(loss_fn, opt)
@@ -145,8 +191,8 @@ def train_other(args):
     for i in range(1, args.steps + 1):
         state, m = step(state, batch)
         if i % args.log_every == 0:
-            print(f"step {i:5d}  loss {float(m['loss']):.4f}")
-    print(f"final loss {float(m['loss']):.4f}")
+            say(f"step {i:5d}  loss {float(m['loss']):.4f}")
+    say(f"final loss {float(m['loss']):.4f}")
     return state
 
 
@@ -170,12 +216,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    import os
+    from repro_torch.dist import CrawlGroup
     args = build_parser().parse_args(argv)
     cfg, _ = get_arch(args.arch)
-    if cfg.family == "lm":
-        train_lm(args)
-    else:
-        train_other(args)
+    started = ("WORLD_SIZE" in os.environ and CrawlGroup.current().world == 1
+               and int(os.environ["WORLD_SIZE"]) > 1)
+    if started:
+        # started by torch.distributed.run: one rank a card
+        from repro_torch.launch.mesh import init_crawl_group
+        init_crawl_group(None if args.device == "cuda" else args.device)
+    try:
+        if cfg.family == "lm":
+            train_lm(args)
+        else:
+            train_other(args)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return 0
 
 

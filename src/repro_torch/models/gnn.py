@@ -32,6 +32,7 @@ from repro_torch.device import Device, resolve_device
 from repro_torch.models.segment import (Segments, gather, segment_max,
                                         segment_sum)
 from repro_torch.optim import common
+from repro_torch.sharding.rules import constrain
 
 Params = Dict[str, torch.Tensor]
 
@@ -123,12 +124,16 @@ def gat_layer(p: Params, x: torch.Tensor, src: torch.Tensor,
               negative_slope: float, concat_heads: bool,
               segments: Optional[Tuple[Segments, Segments]] = None
               ) -> torch.Tensor:
-    # The reference's three ``constrain`` calls (gnn.py:68,77,85) are
-    # sharding hints for a mesh: they change no value and have no
-    # counterpart on one card.
+    # The reference's three ``constrain`` calls pin the node axis over
+    # the data axes. On a train mesh the port keeps every process's graph
+    # whole: the edge gathers and the segment reductions read any node,
+    # so each data process computes the whole node axis, as on one card
+    # (the parameters are replicated, ``rules.gnn_specs``); a batch of
+    # graphs splits over the data axes instead (``gat_batched_loss``).
     by_src, by_dst = segments or edge_segments(src, dst, n_nodes)
     fi, heads, d = p["w"].shape
     h = (x @ p["w"].reshape(fi, heads * d)).reshape(n_nodes, heads, d)
+    h = constrain(h, "dp", None, None)
     e_src = (h * p["a_src"][None]).sum(-1)                # (N, H) src scores
     e_dst = (h * p["a_dst"][None]).sum(-1)
     # SDDMM: per-edge attention logits
@@ -142,6 +147,7 @@ def gat_layer(p: Params, x: torch.Tensor, src: torch.Tensor,
     # segment's max is -inf and becomes 0, a node with no live edge gets
     # zeros (its denominator floored at 1e-16)
     seg_max = segment_max(logits, by_dst)                 # (N, H)
+    seg_max = constrain(seg_max, "dp", None)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                           torch.zeros_like(seg_max))
     ex = torch.exp(logits - seg_max.index_select(0, by_dst.index)) * live
@@ -150,6 +156,7 @@ def gat_layer(p: Params, x: torch.Tensor, src: torch.Tensor,
     # SpMM: weighted scatter of src messages into dst
     msg = gather(h, by_src) * alpha[..., None]            # (E, H, D)
     out = segment_sum(msg, by_dst)                        # (N, H, D)
+    out = constrain(out, "dp", None, None)   # the scatter lands node-sharded
     if concat_heads:
         return F.elu(out.reshape(n_nodes, -1))
     return out.mean(dim=1)                                # final layer: avg heads

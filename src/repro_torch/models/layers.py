@@ -5,11 +5,19 @@ the chunked cross-entropy. Counterpart of ``repro/models/layers.py``.
 
 Weights keep the reference's layout (``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``), so they carry across by name
-(``transformer.params_from_numpy``). The reference's ``constrain`` and
-``opt_barrier`` place data on a mesh and steer XLA; on one card they do
-nothing and are dropped. The MoE's expert products are ``torch.bmm``
-over the buckets: the reference computes them as ``jnp.einsum`` outside any
-kernel.
+(``transformer.params_from_numpy``). The MoE's expert products are
+``torch.bmm`` over the buckets: the reference computes them as
+``jnp.einsum`` outside any kernel. The reference's ``opt_barrier`` steers
+XLA and has no counterpart.
+
+Under a real train mesh (``sharding.rules.activation_mesh`` of a
+``DeviceMesh``) each process holds its model part of every weight, as
+``sharding.rules.lm_specs`` places it, and the blocks compute on their own
+heads, columns, experts and vocabulary rows: Megatron's tensor
+parallelism, with the collectives of ``sharding.spmd`` where the
+reference's ``constrain`` calls (kept at their places, the identity on a
+plain tensor) pin a layout. An axis that ``_guard`` leaves whole (a head
+count the model axis does not divide) is computed whole on every process.
 
 Prefill attention on the CPU, in f32 and at the small bf16 head dims keeps
 ``p`` and the scaled q in f32, as the TPU kernel does; the reference's
@@ -31,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMConfig, MoEConfig
 from repro_torch.core import router
 from repro_torch.kernels.flash_attention import ops as FA
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, spmd
+from repro_torch.sharding.rules import constrain
 
 NEG_INF = -1e30
 
@@ -169,16 +178,94 @@ def _project_qkv(p: Attention, cfg: LMConfig, x: torch.Tensor):
     return q, k, v
 
 
+def _split(n: int, tp) -> bool:
+    """Whether the model axis splits a dimension of ``n``: the rules'
+    ``_guard``, which leaves an axis that does not divide it whole."""
+    return tp.size > 1 and n % tp.size == 0
+
+
+def _project_qkv_tp(p, cfg: LMConfig, x: torch.Tensor, tp):
+    """``_project_qkv`` with the model axis: (q, k, v, whether q and whether
+    k and v hold only this process's heads). A column-parallel projection
+    gives this process's columns; columns that are parts of heads (a head
+    count the axis does not divide) are joined whole."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    xs = spmd.tp_copy(x, tp)
+
+    def proj(w, b, heads):
+        split = _split(heads * hd, tp)
+        t = (xs if split else x) @ w
+        if b is not None:
+            t = t + b
+        if split and heads % tp.size:
+            t, split = spmd.tp_gather(t, -1, tp), False
+        t = t.view(B, S, -1, hd).transpose(1, 2)
+        return constrain(t, "dp", "tp", None, None), split
+
+    bias = cfg.qkv_bias
+    q, q_loc = proj(p.wq, p.bq if bias else None, cfg.n_heads)
+    k, kv_loc = proj(p.wk, p.bk if bias else None, cfg.n_kv_heads)
+    v, _ = proj(p.wv, p.bv if bias else None, cfg.n_kv_heads)
+    return q, k, v, q_loc, kv_loc
+
+
+def _heads_tp(q, k, v, cfg: LMConfig, q_loc: bool, kv_loc: bool, tp):
+    """q, k and v for this process's attention: its own q heads with the
+    k/v heads they read (a slice of whole k/v heads when the axis splits q
+    heads but not k/v heads: Qwen2's 2 k/v heads under 4), or every head
+    whole. Returns (q, k, v, whether q holds only this process's heads)."""
+    if q_loc and not kv_loc:
+        g = cfg.n_heads // cfg.n_kv_heads
+        hl = q.shape[1]
+        if hl % g == 0 or g % hl == 0:
+            lo = tp.index * hl
+            k0, k1 = lo // g, (lo + hl - 1) // g + 1
+            k = spmd.tp_copy(k, tp)[:, k0:k1]
+            v = spmd.tp_copy(v, tp)[:, k0:k1]
+            return q, k, v, True
+        q = spmd.tp_gather(q, 1, tp)
+    elif kv_loc and not q_loc:
+        k, v = spmd.tp_gather(k, 1, tp), spmd.tp_gather(v, 1, tp)
+    return q, k, v, q_loc and kv_loc
+
+
+def _attn_tp(p, cfg: LMConfig, x: torch.Tensor, positions, tp):
+    """Full-sequence attention on this process's heads; the row-parallel
+    output projection's partial sums added over the model axis."""
+    B, S, _ = x.shape
+    q, k, v, q_loc, kv_loc = _project_qkv_tp(p, cfg, x, tp)
+    q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
+    k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    q, k, v, local = _heads_tp(q, k, v, cfg, q_loc, kv_loc, tp)
+    out = chunked_attention(q, k, v, causal=True)
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    if _split(cfg.n_heads * cfg.head_dim, tp):       # wo: this process's rows
+        if not local:
+            out = spmd.tp_split(out, -1, tp)
+        return spmd.tp_reduce(out @ p.wo, tp)
+    out = constrain(out, "dp", None, "tp")   # every head: wo is whole
+    return out @ p.wo
+
+
 def attn_block(p: Attention, cfg: LMConfig, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[KVCache] = None):
     """Full-sequence attention (prefill). Returns (out, new_cache); the
-    cache, when given, receives this sequence's k and v."""
+    cache, when given, receives this sequence's k and v. Under a real
+    mesh (training) each process attends with its own heads and no cache
+    is taken."""
+    tp = spmd.tp_axis()
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("attn_block: no KV cache under a train mesh")
+        return _attn_tp(p, cfg, x, positions, tp), None
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=True)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = constrain(out, "dp", None, "tp")
     new_cache = None
     if cache is not None:
         new_cache = KVCache(k=k.to(cache.k.dtype), v=v.to(cache.v.dtype),
@@ -237,9 +324,20 @@ def silu(h: torch.Tensor) -> torch.Tensor:
     return h * torch.sigmoid(h)
 
 
-def mlp_block(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(p: MLP, x: torch.Tensor, *, width: Optional[int] = None
+              ) -> torch.Tensor:
+    """The SwiGLU MLP. Under a real mesh ``width`` (the hidden width,
+    which each process may hold a part of) says whether the model axis
+    splits it: then the gate and up products are this process's columns
+    and the down product's partial sums are added over the axis."""
+    tp = spmd.tp_axis()
+    split = tp is not None and _split(width, tp)
+    if split:
+        x = spmd.tp_copy(x, tp)
     h = silu(x @ p.w_gate) * (x @ p.w_up)
-    return h @ p.w_down
+    h = constrain(h, "dp", None, "tp")
+    y = h @ p.w_down
+    return spmd.tp_reduce(y, tp) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +510,41 @@ def _moe_grouped(p, m: MoEConfig, x: torch.Tensor, dp: int, tp: int):
     return out.reshape(B, S, d), aux
 
 
+def _moe_spmd(p, m: MoEConfig, x: torch.Tensor, tp):
+    """The reference's expert-parallel MoE on a real mesh. x (B_l, S, d)
+    is this data process's batch, replicated over the model axis; model
+    process j routes its own block of tokens, ``x[:, j*S_l:(j+1)*S_l]``
+    flattened b-major (``_moe_grouped``'s group (i, j)), with its own
+    capacity, then the (E, C, d) buckets go to the process of their
+    experts (E / tp a process) by one ``all_to_all`` over the model axis
+    and come back by another after the expert products. aux is the mean of
+    every process's group loss (the reference's ``pmean``). Returns (out
+    (B_l, S, d) in x's dtype, replicated over the axis, aux)."""
+    Bl, S, d = x.shape
+    E = m.n_experts
+    xt = spmd.tp_split(x, 1, tp).reshape(-1, d)
+    T = xt.shape[0]
+    router_w = spmd.tp_copy(p.router, tp)
+    logits = (xt.float() @ router_w)[None]
+    capacity = moe_capacity(m, T)
+    w, e_idx, slot, keep, aux = moe_dispatch(logits, m, capacity)
+    w, e_idx, slot, keep = w[0], e_idx[0], slot[0], keep[0]
+    offset = torch.zeros((T, 1), dtype=torch.long, device=x.device)
+    buckets = _moe_scatter(xt, e_idx, slot, keep, offset, E, capacity)
+    # EP exchange: each process keeps E / tp experts, gains tp x tokens
+    b = spmd.tp_all_to_all(buckets, tp)               # (tp * E/tp, C, d)
+    b = b.view(tp.size, E // tp.size, capacity, d).transpose(0, 1) \
+        .reshape(E // tp.size, tp.size * capacity, d)
+    y = _experts(p, b)
+    y = y.view(E // tp.size, tp.size, capacity, d).transpose(0, 1) \
+        .reshape(E, capacity, d)
+    y = spmd.tp_all_to_all(y, tp)
+    out = _moe_combine(y, w, e_idx, slot, keep, offset, capacity)
+    out = out.to(x.dtype).view(Bl, -1, d)
+    out = constrain(out, "dp", "tp", None)
+    return spmd.tp_gather(out, 1, tp), spmd.mesh_mean(aux, tp)
+
+
 def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int = 1):
     """x (B, S, d) -> (out, aux_loss): the routed experts, then the shared
     experts and the dense residual added in the reference's order. The
@@ -419,19 +552,30 @@ def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int = 1):
     whose data axes divide B and whose model axis divides S and E, its
     groups (``_moe_grouped`` at (dp, tp)); otherwise all B * S tokens as
     one group (at (1, 1); decode's S = 1 under a model axis > 1 among
-    them). ``n_groups`` is unused, as in the reference. No host sync:
-    every size is known from the shapes."""
+    them). Under a real mesh x is this data process's batch and the
+    groups are the processes' (``_moe_spmd``); a model axis that does not
+    divide S and E raises there. ``n_groups`` is unused, as in the
+    reference. No host sync: every size is known from the shapes."""
     m = cfg.moe
     B, S, _ = x.shape
-    groups = rules.active_groups()
-    if groups is None or B % groups[0] or S % groups[1] \
-            or m.n_experts % groups[1]:
-        groups = (1, 1)
-    out, aux = _moe_grouped(p, m, x, *groups)
+    tp = spmd.tp_axis()
+    if tp is not None:
+        if S % tp.size or m.n_experts % tp.size:
+            raise ValueError(f"moe_block: a model axis of {tp.size} must "
+                             f"divide S={S} and the {m.n_experts} "
+                             f"experts")
+        out, aux = _moe_spmd(p, m, x, tp)
+    else:
+        groups = rules.active_groups()
+        if groups is None or B % groups[0] or S % groups[1] \
+                or m.n_experts % groups[1]:
+            groups = (1, 1)
+        out, aux = _moe_grouped(p, m, x, *groups)
     if m.n_shared:
-        out = out + mlp_block(p.shared, x)
+        out = out + mlp_block(p.shared, x,
+                              width=m.n_shared * m.d_ff_expert)
     if m.dense_residual:
-        out = out + mlp_block(p.dense, x)
+        out = out + mlp_block(p.dense, x, width=m.d_ff_dense or cfg.d_ff)
     return out, aux
 
 
@@ -450,22 +594,62 @@ def _xent_chunk(h: torch.Tensor, lm_head: torch.Tensor,
     return (logz - gold).sum()
 
 
+def _xent_chunk_tp(h: torch.Tensor, lm_head: torch.Tensor,
+                   labels: torch.Tensor, tp) -> torch.Tensor:
+    """``_xent_chunk`` with the vocabulary split over the model axis
+    (Megatron's vocab-parallel cross-entropy): this process's logits are
+    its columns of the head; the max, the sum of exponentials and the gold
+    logit (from the one process that holds it, zeros elsewhere) are
+    combined over the axis."""
+    logits = (h @ lm_head).float()
+    logits = constrain(logits, "dp", None, "tp")
+    v = logits.shape[-1]
+    m = spmd.tp_max(logits.amax(dim=-1), tp)
+    se = spmd.tp_reduce(torch.exp(logits - m[..., None]).sum(-1), tp)
+    logz = m + torch.log(se)
+    rel = labels.long() - tp.index * v
+    mine = (rel >= 0) & (rel < v)
+    gold = logits.gather(-1, rel.clamp(0, v - 1)[..., None])[..., 0]
+    gold = spmd.tp_reduce(torch.where(mine, gold, 0.0), tp)
+    return (logz - gold).sum()
+
+
 def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
-                         labels: torch.Tensor, *,
-                         chunk: int = 512) -> torch.Tensor:
+                         labels: torch.Tensor, *, chunk: int = 512,
+                         vocab: Optional[int] = None) -> torch.Tensor:
     """hidden (B, S, d); lm_head (d, V); labels (B, S) -> the mean loss, f32.
     Logits are f32 a chunk of ``chunk`` positions at a time, each chunk
     under ``torch.utils.checkpoint`` so its logits are recomputed in the
     backward (the reference's ``jax.checkpoint(step)``); the chunks' sums
-    are added in order."""
+    are added in order. Under a real mesh whose model axis splits
+    ``vocab`` (V, of which ``lm_head`` holds this process's columns) the
+    loss is vocab-parallel."""
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"chunked_softmax_xent: S={S} is not a multiple "
                          f"of the chunk {chunk}")
+    tp = spmd.tp_axis()
+    fn, extra = _xent_chunk, ()
+    if tp is not None and _split(vocab, tp):
+        fn, extra = _xent_chunk_tp, (tp,)
+        hidden = spmd.tp_copy(hidden, tp)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
-        tot = tot + checkpoint(_xent_chunk, hidden[:, c0:c0 + chunk],
-                               lm_head, labels[:, c0:c0 + chunk],
+        tot = tot + checkpoint(fn, hidden[:, c0:c0 + chunk],
+                               lm_head, labels[:, c0:c0 + chunk], *extra,
                                use_reentrant=False, preserve_rng_state=False)
     return tot / (B * S)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """The embedding of ``tokens`` (``F.embedding``, whose backward is
+    deterministic on the card). Under a real mesh whose model axis splits
+    the ``vocab`` rows, ``table`` holds this process's rows, looked up
+    row-parallel (``spmd.row_parallel_lookup``): the lookup's bits."""
+    tp = spmd.tp_axis()
+    if tp is None or not _split(vocab, tp):
+        return torch.nn.functional.embedding(tokens, table)
+    return spmd.row_parallel_lookup(
+        table, tokens, tp, lambda t, i: torch.nn.functional.embedding(i, t))

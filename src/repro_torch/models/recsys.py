@@ -42,11 +42,23 @@ Params = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Clipped row gather: (...) int -> (..., d)."""
-    rows = table.shape[0]
-    idx = ids.long().clamp(0, rows - 1)
-    return gather(table, Segments(idx, rows)).reshape(
-        *ids.shape, *table.shape[1:])
+    """Clipped row gather: (...) int -> (..., d). A table placed on a train
+    mesh with its rows split over the model axis (a DTensor, as
+    ``mesh_params`` hands it on) is looked up row-parallel
+    (``spmd.row_parallel_lookup``): the same bits."""
+    idx = ids.long().clamp(0, table.shape[0] - 1)
+    from repro_torch.sharding import rules, spmd
+    if rules._is_dtensor(table):
+        return spmd.row_parallel_lookup(
+            table.to_local(), idx, spmd.Axis(table.device_mesh, "model"),
+            _fetch)
+    return _fetch(table, idx)
+
+
+def _fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` (within the table) of ``table``."""
+    return gather(table, Segments(idx, table.shape[0])).reshape(
+        *idx.shape, *table.shape[1:])
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *,
@@ -71,13 +83,27 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *,
 
 
 def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, *,
-                   n_shards: int) -> torch.Tensor:
-    """The reference's model-sharded lookup on one card: the table split
-    into ``n_shards`` row ranges along a leading axis, each range gathering
-    only the ids that fall in it (the rest read as zeros), and the
-    reference's ``psum`` over the model axis a sum over that axis. An id
-    outside the table reads zeros. The rows must split evenly, as the
-    reference's ``shard_map`` requires."""
+                   n_shards: Optional[int] = None, mesh=None,
+                   model_axis: str = "model", data_axes=None
+                   ) -> torch.Tensor:
+    """The reference's model-sharded lookup. On a train mesh (``mesh`` a
+    ``DeviceMesh``, the reference's signature): ``table`` is this
+    process's block of rows, ``ids`` this data process's ids; each model
+    process gathers only its row range and the axis adds the parts
+    (``spmd.row_parallel_lookup``, the reference's ``psum``): the ids'
+    rows' bits, -0.0 too. On one card: the table split into ``n_shards``
+    row ranges along a leading axis, and the ``psum`` a sum over that
+    axis. An id outside the table reads zeros. The rows must split
+    evenly, as the reference's ``shard_map`` requires."""
+    if mesh is not None:
+        from repro_torch.sharding import spmd
+        tp = spmd.Axis(mesh, model_axis)
+        rows = table.shape[0] * tp.size
+        i = ids.long()
+        got = spmd.row_parallel_lookup(table, i.clamp(0, rows - 1), tp,
+                                       _fetch)
+        ok = (i >= 0) & (i < rows)
+        return torch.where(ok[..., None], got, 0.0)
     rows, d = table.shape
     if rows % n_shards:
         raise ValueError(f"{rows} rows do not split into {n_shards} shards")
@@ -417,9 +443,18 @@ def wide_deep_logit(params: Params, cfg: RecSysConfig, batch
                     ) -> torch.Tensor:
     deep = mlp(_sub(params, "deep"), _wide_deep_embed(params, cfg, batch))
     # wide: hashed cross features, multi-hot sum of scalar weights
-    wide = embedding_bag(params["wide"][:, None], batch["wide_ids"],
+    wide = embedding_bag(_column(params["wide"]), batch["wide_ids"],
                          mode="sum")[:, 0]
     return deep[:, 0] + wide
+
+
+def _column(w: torch.Tensor) -> torch.Tensor:
+    """A (rows,) weight as a (rows, 1) table, placed as it is."""
+    if not hasattr(w, "device_mesh"):
+        return w[:, None]
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(w.to_local()[:, None], w.device_mesh,
+                              w.placements, run_check=False)
 
 
 def wide_deep_train_loss(params, cfg, batch):
@@ -554,10 +589,51 @@ def params_to_numpy(params: Params) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
+def mesh_params(params: Params) -> Params:
+    """The parameters a RecSys loss reads under a real train mesh, where
+    the trainer hands them on as a ``spmd.Joined`` (this process's blocks
+    and the shardings they were placed by, ``rules.recsys_specs``): a
+    table whose rows the model axis splits stays split (a DTensor, which
+    ``embedding_lookup`` looks up row-parallel); a dense weight it
+    splits, and BERT4Rec's position table (read by a slice, not a
+    lookup), is joined whole over the axis (they are small; the gradient
+    goes back to this process's part). Otherwise the parameters as they
+    are."""
+    from repro_torch.sharding import rules, spmd
+    if not isinstance(params, spmd.Joined):
+        return params
+    out = {}
+    for k in params:
+        sh = params.shardings[k]
+        split = [d for d, e in enumerate(sh.spec)
+                 if "model" in rules._axes(e)]
+        if not split:
+            out[k] = params[k]
+        elif rules.TABLE_PATHS.search(k) and k != "pos":   # looked up
+            from torch.distributed.tensor import DTensor
+            out[k] = DTensor.from_local(params[k], sh.mesh,
+                                        rules.placements(sh),
+                                        run_check=False)
+        else:
+            out[k] = spmd.tp_gather(params[k], split[0],
+                                    spmd.Axis(sh.mesh, "model"))
+    return out
+
+
+def _on_mesh(loss):
+    """``loss(params, cfg, batch)`` reading ``mesh_params``."""
+    def fn(params, cfg, batch):
+        return loss(mesh_params(params), cfg, batch)
+    fn.__name__, fn.__doc__ = loss.__name__, loss.__doc__
+    return fn
+
+
 INIT = {"bert4rec": init_bert4rec, "dien": init_dien,
         "wide_deep": init_wide_deep, "dcn_v2": init_dcn_v2}
-TRAIN_LOSS = {"bert4rec": bert4rec_train_loss, "dien": dien_train_loss,
-              "wide_deep": wide_deep_train_loss, "dcn_v2": dcn_v2_train_loss}
+TRAIN_LOSS = {"bert4rec": _on_mesh(bert4rec_train_loss),
+              "dien": _on_mesh(dien_train_loss),
+              "wide_deep": _on_mesh(wide_deep_train_loss),
+              "dcn_v2": _on_mesh(dcn_v2_train_loss)}
 SERVE = {"bert4rec": bert4rec_serve, "dien": dien_serve,
          "wide_deep": wide_deep_serve, "dcn_v2": dcn_v2_serve}
 RETRIEVAL = {"bert4rec": bert4rec_retrieval, "dien": dien_retrieval,

@@ -30,13 +30,14 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import Device, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding import spmd
+from repro_torch.sharding.rules import constrain
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
@@ -222,7 +223,7 @@ def _ffn(layer, cfg: LMConfig, z: torch.Tensor):
     for a dense layer (the reference adds a zero, which changes no sum)."""
     if hasattr(layer, "moe"):
         return L.moe_block(layer.moe, cfg, z)
-    return L.mlp_block(layer.mlp, z), None
+    return L.mlp_block(layer.mlp, z, width=cfg.d_ff), None
 
 
 def _layer(layer: DecoderLayer, cfg: LMConfig, x, positions,
@@ -278,21 +279,24 @@ def _view(leaves: Dict[str, torch.Tensor]) -> SimpleNamespace:
 
 
 def _layer_views(params: Params, cfg: LMConfig
-                 ) -> Tuple[List[SimpleNamespace], List[SimpleNamespace]]:
-    """(the prefix layers, the main layers) as views: each prefix layer its
-    ``prefix/<i>/*`` tensors, each main layer its slices of the stacked
-    ``layers/*`` tensors."""
+                 ) -> Tuple[List[Dict], List[Dict]]:
+    """(the prefix layers, the main layers), each a dict of its leaves by
+    path within the layer: a prefix layer its ``prefix/<i>/*`` leaves, a
+    main layer its slices of the stacked ``layers/*`` leaves. On a train
+    mesh (``params`` a ``spmd.Joined``) the leaves are this process's
+    blocks, which ``_layer_out`` joins."""
     P = n_prefix(cfg)
-    prefix = [_view({k[len(f"prefix/{i}/"):]: t for k, t in params.items()
-                     if k.startswith(f"prefix/{i}/")}) for i in range(P)]
-    per = {k[len("layers/"):]: params[k].unbind(0) for k in params
+    prefix = [{k[len(f"prefix/{i}/"):]: spmd.lazy(params, k) for k in params
+               if k.startswith(f"prefix/{i}/")} for i in range(P)]
+    per = {k[len("layers/"):]: spmd.lazy_layers(params, k) for k in params
            if k.startswith("layers/")}
-    main = [_view({name: ts[i] for name, ts in per.items()})
+    main = [{name: ts[i] for name, ts in per.items()}
             for i in range(cfg.n_layers - P)]
     return prefix, main
 
 
-def _layer_out(layer, cfg: LMConfig, x, positions):
+def _layer_out(leaves: Dict, cfg: LMConfig, x, positions):
+    layer = _view({name: spmd.joined(t) for name, t in leaves.items()})
     x, _, aux = _layer(layer, cfg, x, positions)
     return x, aux
 
@@ -300,23 +304,35 @@ def _layer_out(layer, cfg: LMConfig, x, positions):
 def train_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (hidden (B, S, d), aux_loss), with gradients, from
-    weights in ``stack_params``' form. The embedding is ``F.embedding``,
+    weights in ``stack_params``' form. The embedding is ``F.embedding``
+    (``layers.embed_tokens``; vocabulary-parallel under a train mesh),
     whose backward is deterministic on the card (the indexing form's is an
     accumulating ``index_put``). With ``cfg.remat`` each main layer keeps
     only its input for the backward and is run again there (the prefix
     layers are not, as in the reference). The aux losses are added in the
-    reference's order."""
+    reference's order; the reference's ``constrain`` calls stand at its
+    places. Under a train mesh the weights are this process's model parts
+    and ``tokens`` its data rows (``train.trainer``): each layer's blocks
+    are joined over the data axes inside it and released after it
+    (``spmd.released``)."""
     B, S = tokens.shape
-    x = F.embedding(tokens, params["embed"])
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
+    x = constrain(x, "dp", None, None)
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix, main = _layer_views(params, cfg)
     for i, layer in enumerate(prefix + main):
-        if cfg.remat and i >= len(prefix):
-            x, a = checkpoint(_layer_out, layer, cfg, x, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = _layer_out(layer, cfg, x, positions)
+        if i >= len(prefix):
+            x = constrain(x, "dp", None, None)
+        with spmd.released():
+            if cfg.remat and i >= len(prefix):
+                x, a = checkpoint(_layer_out, layer, cfg, x, positions,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _layer_out(layer, cfg, x, positions)
+        if i >= len(prefix):
+            x = constrain(x, "dp", None, None)
         aux = aux if a is None else aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -329,7 +345,8 @@ def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     taken."""
     hidden, aux = train_forward(params, cfg, tokens)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return L.chunked_softmax_xent(hidden, head, labels) + aux
+    return L.chunked_softmax_xent(hidden, head, labels,
+                                  vocab=cfg.vocab_size) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 for an (n, m) matrix, and RMS update clipping. Counterpart of
 ``repro/optim/adafactor.py``. A leaf of two or more dims is factored over
 its last two (a stacked ``layers/*`` leaf keeps its layer axis in the row
-moment, as in the reference); the RMS clip is over the whole leaf."""
+moment, as in the reference); the RMS clip is over the whole leaf. On a
+train mesh the row and column means and the RMS are the whole leaf's,
+added over the processes that split the dims they average."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -10,7 +12,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.optim.adamw import _count
-from repro_torch.optim.common import Optimizer, Params, resolve_lr
+from repro_torch.optim.common import (Optimizer, Params, _is_placed, like,
+                                      local, mean, resolve_lr)
 
 
 class AdafactorState(NamedTuple):
@@ -19,42 +22,76 @@ class AdafactorState(NamedTuple):
     vc: Params     # column second moment (zeros of (1,) under 2-D)
 
 
+def _factored_placements(p, drop: int):
+    """A factored moment's placements: ``p``'s, with the mesh dimensions
+    that split ``p``'s dim ``drop`` (the one the moment averages away)
+    replicated and the dims after it moved down one (``opt_state_specs``'
+    rule)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pl in p.placements:
+        if not pl.is_shard():
+            out.append(pl)
+        elif pl.dim % p.ndim == drop:
+            out.append(Replicate())
+        else:
+            d = pl.dim % p.ndim
+            out.append(Shard(d - 1 if d > drop else d))
+    return out
+
+
+def _factored(block: torch.Tensor, p: torch.Tensor, drop: int):
+    """A factored moment's block placed by ``_factored_placements``."""
+    if not _is_placed(p):
+        return block
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block, p.device_mesh,
+                              _factored_placements(p, drop),
+                              run_check=False)
+
+
 def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     def init(params: Params) -> AdafactorState:
         vr, vc = {}, {}
         for k, p in params.items():
-            f32 = dict(dtype=torch.float32, device=p.device)
+            b = local(p)
+            f32 = dict(dtype=torch.float32, device=b.device)
             if p.dim() >= 2:
-                vr[k] = torch.zeros(p.shape[:-1], **f32)
-                vc[k] = torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)
+                vr[k] = _factored(torch.zeros(b.shape[:-1], **f32), p,
+                                  p.dim() - 1)
+                vc[k] = _factored(
+                    torch.zeros(b.shape[:-2] + b.shape[-1:], **f32), p,
+                    p.dim() - 2)
             else:
-                vr[k] = torch.zeros(p.shape, **f32)
-                vc[k] = torch.zeros((1,), **f32)
+                vr[k] = like(torch.zeros(b.shape, **f32), p)
+                vc[k] = _factored(torch.zeros((1,), **f32), p, 0)
         return AdafactorState(_count(params), vr, vc)
 
     def update(grads: Params, state: AdafactorState, params: Params):
-        c = state.count + 1
+        c = local(state.count) + 1
         lr_t = resolve_lr(lr, c)
         beta = 1.0 - c.float() ** -decay
         updates, vr, vc = {}, {}, {}
-        for k, g in grads.items():
-            g = g.float()
+        for k, gk in grads.items():
+            g = local(gk).float()
             g2 = g * g + eps
+            svr, svc = local(state.vr[k]), local(state.vc[k])
             if g.dim() >= 2:
-                vr2 = beta * state.vr[k] + (1 - beta) * g2.mean(dim=-1)
-                vc2 = beta * state.vc[k] + (1 - beta) * g2.mean(dim=-2)
+                vr2 = beta * svr + (1 - beta) * mean(g2, gk, -1)
+                vc2 = beta * svc + (1 - beta) * mean(g2, gk, -2)
                 denom = (vr2[..., None] / torch.clamp(
-                    vr2.mean(dim=-1, keepdim=True)[..., None], min=eps)) \
-                    * vc2[..., None, :]
+                    mean(vr2, state.vr[k], -1, keepdim=True)[..., None],
+                    min=eps)) * vc2[..., None, :]
                 u = g * torch.rsqrt(torch.clamp(denom, min=eps))
             else:
-                vr2 = beta * state.vr[k] + (1 - beta) * g2
-                vc2 = state.vc[k]
+                vr2 = beta * svr + (1 - beta) * g2
+                vc2 = svc
                 u = g * torch.rsqrt(torch.clamp(vr2, min=eps))
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms = torch.sqrt(mean(u * u, gk) + 1e-30)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            updates[k], vr[k], vc[k] = -lr_t * u, vr2, vc2
-        return updates, AdafactorState(c, vr, vc)
+            updates[k] = like(-lr_t * u, gk)
+            vr[k], vc[k] = like(vr2, state.vr[k]), like(vc2, state.vc[k])
+        return updates, AdafactorState(like(c, state.count), vr, vc)
 
     return Optimizer(init, update)

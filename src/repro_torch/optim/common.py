@@ -53,19 +53,88 @@ def params_from_numpy(flat: Dict[str, Any], shapes: Dict[str, Tuple[int, ...]],
     return out
 
 
+# -- placed leaves -----------------------------------------------------------
+# A leaf placed on a train mesh is a DTensor (``sharding.rules.place``).
+# The optimizers work on each process's block (``local``) and give every
+# result its leaf's placement back (``like``); only whole-leaf reductions
+# (``global_norm``, Adafactor's means) cross processes.
+
+def _is_placed(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This process's block of a placed leaf; a plain tensor as it is."""
+    return t.to_local() if _is_placed(t) else t
+
+
+def like(block: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``block`` placed as ``ref`` is (a plain tensor when ``ref`` is)."""
+    if not _is_placed(ref):
+        return block
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block, ref.device_mesh, ref.placements,
+                              run_check=False)
+
+
+def _shard_groups(ref, dims) -> list:
+    """The process groups of the mesh dimensions that split any of
+    ``dims`` of the placed leaf ``ref``."""
+    out = []
+    for i, pl in enumerate(ref.placements):
+        if pl.is_shard() and pl.dim % ref.ndim in dims:
+            out.append(ref.device_mesh.get_group(i))
+    return out
+
+
+def mean(x: torch.Tensor, ref: torch.Tensor, dim=None,
+         keepdim: bool = False) -> torch.Tensor:
+    """The mean of the block ``x`` of a leaf placed as ``ref`` (of the same
+    rank) over ``dim`` (every dim if None), taken over the whole leaf: the
+    block's sum added over the processes that split those dims, over
+    their whole size. A plain ``ref`` takes ``x.mean`` itself."""
+    if not _is_placed(ref):
+        return x.mean() if dim is None else x.mean(dim=dim, keepdim=keepdim)
+    import torch.distributed as dist
+    dims = tuple(range(ref.ndim)) if dim is None else tuple(
+        d % ref.ndim for d in ((dim,) if isinstance(dim, int) else dim))
+    s = x.sum(dim=dims, keepdim=keepdim)
+    for group in _shard_groups(ref, dims):
+        dist.all_reduce(s, group=group)
+    n = 1
+    for d in dims:
+        n *= ref.shape[d]
+    return s / n
+
+
 def apply_updates(params: Params, updates: Params) -> Params:
     """An f32 add, then a cast back to each parameter's dtype."""
-    return {k: (p.float() + updates[k]).to(p.dtype)
+    return {k: like((local(p).float() + local(updates[k])).to(p.dtype), p)
             for k, p in params.items()}
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the per-leaf f32 sums of squares, added in leaf order."""
+    """sqrt of the per-leaf f32 sums of squares, added in leaf order. Of
+    placed leaves each process sums its block, the blocks' sums are added
+    over the mesh in one collective (each block counted once), and the
+    result is the same on every process."""
     keys = leaf_order(tree)
+    sums = [local(tree[k]).float().square().sum() for k in keys]
+    placed = [_is_placed(tree[k]) for k in keys]
+    if any(placed):
+        from repro_torch.sharding import rules, spmd
+        ref = tree[keys[placed.index(True)]]
+        reps = torch.tensor(
+            [spmd.replicas(rules.sharding_of(tree[k])) if p else
+             ref.device_mesh.size() for k, p in zip(keys, placed)],
+            dtype=torch.float32, device=sums[0].device)
+        sums = list(spmd.mesh_sum(torch.stack(sums) / reps,
+                                  ref.device_mesh).unbind(0))
     tot = torch.zeros((), dtype=torch.float32,
-                      device=tree[keys[0]].device if keys else None)
-    for k in keys:
-        tot = tot + tree[k].float().square().sum()
+                      device=sums[0].device if keys else None)
+    for s in sums:
+        tot = tot + s
     return torch.sqrt(tot)
 
 
@@ -73,7 +142,8 @@ def clip_by_global_norm(grads: Params, max_norm: float
                         ) -> Tuple[Params, torch.Tensor]:
     n = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
-    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, n
+    return {k: like(local(g) * scale.to(g.dtype), g)
+            for k, g in grads.items()}, n
 
 
 def resolve_lr(lr, count: torch.Tensor) -> torch.Tensor:

@@ -31,9 +31,16 @@ import torch
 _SEP = "/"
 
 
+def _whole(leaf):
+    """A leaf placed on a train mesh (a DTensor) joined whole, on every
+    process (a collective); any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
         return t.numpy()
@@ -68,14 +75,29 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     """Atomically write checkpoint ``step`` of a tree (a flat dict of
     numpy leaves keyed by name is one). Returns the final path. Under a
     crawl group only rank 0 writes (its ``tree``; the others may pass
-    None), and every rank returns once the checkpoint is complete."""
+    None), and every rank returns once the checkpoint is complete. A tree
+    placed on a train mesh (DTensor leaves) must be passed by every rank:
+    each leaf is joined whole, one at a time, and rank 0 writes the
+    reference's layout."""
     from repro_torch.dist import CrawlGroup
     group = CrawlGroup.current()
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if tree is not None and _placed(tree):
+        flat = {}
+        for k, v in _items(tree):
+            a = _to_numpy(v)
+            if group.rank == 0:
+                flat[k] = a
+        tree = flat
     if group.rank == 0:
         _write(ckpt_dir, step, tree, keep)
     group.barrier()
     return final
+
+
+def _placed(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(v, DTensor) for _, v in _items(tree))
 
 
 def _write(ckpt_dir: str, step: int, tree: Any, keep: int) -> None:
@@ -155,25 +177,36 @@ def _tensor_like(a: np.ndarray, like: torch.Tensor, key: str
     return t.to(like.device)
 
 
-def _rebuild(tree, data, prefix: str = ""):
+def _rebuild(tree, data, shardings=None, prefix: str = ""):
+    def sub(i):
+        return None if shardings is None else shardings[i]
     if isinstance(tree, dict):
-        return {k: _rebuild(v, data, f"{prefix}{k}{_SEP}")
+        return {k: _rebuild(v, data, sub(k), f"{prefix}{k}{_SEP}")
                 for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_rebuild(v, data, f"{prefix}{k}{_SEP}")
-                            for k, v in zip(tree._fields, tree)))
+        return type(tree)(*(_rebuild(v, data, sub(i), f"{prefix}{k}{_SEP}")
+                            for i, (k, v) in enumerate(zip(tree._fields,
+                                                           tree))))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, data, f"{prefix}{i}{_SEP}")
+        return type(tree)(_rebuild(v, data, sub(i), f"{prefix}{i}{_SEP}")
                           for i, v in enumerate(tree))
     key = prefix[:-len(_SEP)]
     if key not in data:
         raise KeyError(f"checkpoint missing leaf {key!r}")
-    return _tensor_like(data[key], tree, key)
+    from repro_torch.sharding import rules
+    if shardings is None and rules._is_dtensor(tree):
+        shardings = rules.sharding_of(tree)
+    t = _tensor_like(data[key], tree, key)
+    return t if shardings is None else rules.place(t, shardings)
 
 
-def restore(ckpt_dir: str, target: Any, *, step: Optional[int] = None
-            ) -> Any:
+def restore(ckpt_dir: str, target: Any, *, step: Optional[int] = None,
+            shardings: Any = None) -> Any:
     """Checkpoint ``step`` (the latest by default) onto the structure of
     ``target``, a tree of tensors: each leaf cast to its target's dtype
-    and placed on its target's device."""
-    return _rebuild(target, load(ckpt_dir, step=step))
+    and placed on its target's device. ``shardings`` (the same structure,
+    ``rules.NamedSharding`` leaves, e.g. ``trainer.state_shardings``)
+    places every leaf on a train mesh, which may differ from the saver's
+    (the elastic re-mesh); without it a placed target leaf keeps its own
+    placement. Every process reads the file and keeps its block."""
+    return _rebuild(target, load(ckpt_dir, step=step), shardings)

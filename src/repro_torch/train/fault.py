@@ -7,10 +7,11 @@
 2. **Crawler domain rebalance (C4)**: ``heal_crawler`` moves a dead
    shard's domains to the survivors and migrates their rows; ``revive``
    brings shards back.
-3. **Elastic re-mesh**: checkpoints are mesh-free, and ``reshard`` places
-   a restored tree on the device. The reference places it on a mesh of
-   any shape; one card places every leaf whole, so a state saved by the
-   reference on a (4, 2) mesh comes back here as it was, and the next
+3. **Elastic re-mesh**: checkpoints are mesh-free, and ``reshard``
+   places a tree on a train mesh of any shape by specs
+   (``checkpoint.restore(..., shardings=)`` does it leaf by leaf), so a
+   state saved under (2, 2) steps on under (4, 1) or (1, 4). On one card
+   (a device in the mesh's place) every leaf stays whole, and the next
    step runs under ``sharding.rules.activation_mesh`` of the new shape
    (its MoE layers route in that shape's groups).
 """
@@ -66,34 +67,48 @@ def _replicated(spec) -> bool:
                             and all(a is None for a in spec))
 
 
-def reshard(tree, device, spec_tree=None):
-    """Place every tensor leaf of ``tree`` (a restored state: nested
-    dicts, lists, tuples and NamedTuples) on ``device``, values unchanged.
-    The reference's signature with the device in the mesh's place:
-    ``spec_tree`` (the same structure, or None) may only replicate, since
-    one card places nothing; any spec that names a mesh axis raises."""
-    dev = torch.device(device)
+def _walk(tree, spec_tree, put):
+    """``put(leaf, spec)`` over a tree (nested dicts, lists, tuples and
+    NamedTuples) and a spec tree of the same structure (or None)."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, None if spec_tree is None else spec_tree[k], put)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, torch.Size):
+        specs = [None] * len(tree) if spec_tree is None else spec_tree
+        items = [_walk(v, s, put) for v, s in zip(tree, specs)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*items)
+        return type(tree)(items)
+    return put(tree, spec_tree)
+
+
+def reshard(tree, mesh, spec_tree=None):
+    """Place every tensor leaf of ``tree`` (a restored state: nested dicts,
+    lists, tuples and NamedTuples) onto ``mesh`` with the specs of
+    ``spec_tree`` (the same structure; a tuple spec, a
+    ``rules.NamedSharding`` whose spec is taken, or None = replicate):
+    the elastic re-mesh primitive, for a mesh of any shape. A leaf placed
+    on another mesh is joined whole first. ``mesh`` may also be a device
+    (the reference's signature on one card), where every leaf stays
+    whole: a spec that names a mesh axis raises there."""
+    from repro_torch.sharding import rules
+    if not rules._is_device_mesh(mesh):
+        dev = torch.device(mesh)
+
+        def put_one(x, spec):
+            if not _replicated(getattr(spec, "spec", spec)):
+                raise ValueError(f"reshard: spec {spec!r} splits a leaf "
+                                 f"over a mesh axis, but one card places "
+                                 f"every leaf whole; pass None or a mesh")
+            return x.to(dev) if isinstance(x, torch.Tensor) else x
+        return _walk(tree, spec_tree, put_one)
 
     def put(x, spec):
-        if not _replicated(spec):
-            raise ValueError(f"reshard: spec {spec!r} splits a leaf over a "
-                             f"mesh axis, but one card places every leaf "
-                             f"whole; pass None")
-        return x.to(dev) if isinstance(x, torch.Tensor) else x
-
-    def walk(x, spec):
-        if isinstance(x, dict):
-            return {k: walk(v, None if spec is None else spec[k])
-                    for k, v in x.items()}
-        if isinstance(x, (list, tuple)) and not isinstance(x, torch.Size):
-            specs = [None] * len(x) if spec is None else spec
-            items = [walk(v, s) for v, s in zip(x, specs)]
-            if hasattr(x, "_fields"):
-                return type(x)(*items)
-            return type(x)(items)
-        return put(x, spec)
-
-    return walk(tree, spec_tree)
+        if not isinstance(x, torch.Tensor):
+            return x
+        spec = () if spec is None else getattr(spec, "spec", spec)
+        return rules.place(x, rules.NamedSharding(mesh, tuple(spec)))
+    return _walk(tree, spec_tree, put)
 
 
 def heal_crawler(state, cfg, dead_shards: Sequence[int], n_shards: int):

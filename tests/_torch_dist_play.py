@@ -363,6 +363,8 @@ def in_group(rank, world, out, body):
     failure is written to ``<out>/error.r<rank>.txt``."""
     import torch
     import torch.distributed as dist
+    from _torch_play import background
+    background()
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import init_crawl_group, make_host_mesh
     store = dist.FileStore(os.path.join(out, "store"), world)
@@ -370,7 +372,9 @@ def in_group(rank, world, out, body):
                              world_size=world, timeout_s=GROUP_TIMEOUT_S)
     try:
         assert (group.world, group.rank) == (world, rank)
-        assert make_host_mesh() == {"data": world, "model": 1}
+        mesh = make_host_mesh()
+        assert tuple(mesh.shape) == (world, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
         body(group)
         group.barrier()
     except BaseException:

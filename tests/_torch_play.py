@@ -29,15 +29,71 @@ import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 
 MAX_ULP = 8
 CASH_RTOL = 1e-6
 
+try:
+    import torch
+except ImportError:            # the port's tests skip without torch
+    torch = None
+else:
+    # Six test workers and their JAX subprocesses and gloo worlds share
+    # the machine's cores; the port's tests run small tensors, which gain
+    # nothing from intra-op threads (a test process imports this module
+    # while it collects, so every worker runs torch on one thread).
+    torch.set_num_threads(1)
+
+
+# the CPU priority of the port's helper processes (its JAX references and
+# gloo ranks): below the test workers', so that the longest files of the
+# run (the JAX package's own, which hold one worker for most of it) are
+# not held up by them
+HELPER_NICE = 10
+
+
+def background():
+    """Lower this process's CPU priority to ``HELPER_NICE`` (a helper
+    process's first act)."""
+    os.nice(HELPER_NICE)
+
+
+def niced(script: str) -> str:
+    """``script`` (a subprocess's ``-c`` program) lowering its own CPU
+    priority as its first act (a ``preexec_fn`` would fork the
+    multithreaded test process)."""
+    return f"import os\nos.nice({HELPER_NICE})\n{script}"
+
+
+def jax_env(out) -> dict:
+    """The environment of a JAX subprocess that writes under ``out`` (a
+    pytest temporary directory): the CPU platform; XLA's backend
+    optimization level 0 (a reference runs each program a few times, so
+    compiling is most of its time; the level changes no result the
+    port's tests hold, which compare most outputs bit for bit); and one
+    XLA compilation cache for every such subprocess of the test session
+    (in the session's temporary root, shared by its workers; a file lock
+    guards it), so a program that several files' references compile is
+    compiled once. A script adds its host device count to
+    ``XLA_FLAGS``."""
+    out = Path(out).resolve()
+    root = next((p for p in out.parents if p.name.startswith("pytest-")
+                 and p.parent.name.startswith("pytest-of-")), out.parent)
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_backend_optimization_level=0",
+           "JAX_COMPILATION_CACHE_DIR": str(root / "jax_compilation_cache"),
+           "JAX_COMPILATION_CACHE_MAX_SIZE": str(8 << 30),
+           "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "0"}
+    env.pop("REPRO_TELEMETRY", None)
+    return env
+
 JAX_SCRIPT = textwrap.dedent("""
     import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ.setdefault("XLA_FLAGS", "")
+    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=4"
     import dataclasses, json, sys
     sys.path.insert(0, "src")
     import jax
@@ -116,11 +172,10 @@ JAX_SCRIPT = textwrap.dedent("""
 def run_jax(out, cases, timeout=900, script=None):
     """Run every case in one JAX subprocess (``script``, JAX_SCRIPT by
     default, gets ``out`` and the cases as JSON); returns ``out``."""
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    env.pop("REPRO_TELEMETRY", None)
-    r = subprocess.run([sys.executable, "-c", script or JAX_SCRIPT, str(out),
-                        json.dumps(cases)], capture_output=True, text=True,
-                       timeout=timeout, cwd=".", env=env)
+    env = jax_env(out)
+    r = subprocess.run([sys.executable, "-c", niced(script or JAX_SCRIPT),
+                        str(out), json.dumps(cases)], capture_output=True,
+                       text=True, timeout=timeout, cwd=".", env=env)
     if r.returncode != 0 or "jax cases: OK" not in r.stdout:
         raise AssertionError(f"STDOUT:\n{r.stdout[-3000:]}\n"
                              f"STDERR:\n{r.stderr[-3000:]}")

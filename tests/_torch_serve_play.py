@@ -32,11 +32,14 @@ import textwrap
 
 import numpy as np
 
+from _torch_play import jax_env, niced
+
 SCORE_ULP = 2
 
 JAX_SCRIPT = textwrap.dedent("""
     import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ.setdefault("XLA_FLAGS", "")
+    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=4"
     import dataclasses, json, sys
     sys.path.insert(0, "src")
     import jax
@@ -100,9 +103,8 @@ JAX_SCRIPT = textwrap.dedent("""
 
 def run_jax(out, cases, timeout=600):
     """Run every case in one JAX subprocess; returns ``out``."""
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    env.pop("REPRO_TELEMETRY", None)
-    r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, str(out),
+    env = jax_env(out)
+    r = subprocess.run([sys.executable, "-c", niced(JAX_SCRIPT), str(out),
                         json.dumps(cases)], capture_output=True, text=True,
                        timeout=timeout, cwd=".", env=env)
     if r.returncode != 0 or "jax cases: OK" not in r.stdout:

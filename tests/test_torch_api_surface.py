@@ -44,7 +44,8 @@ LEARNED_B = -0.8
 
 JAX_SCRIPT = textwrap.dedent("""
     import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ.setdefault("XLA_FLAGS", "")
+    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=4"
     import contextlib, dataclasses, io, json, sys
     sys.path.insert(0, "src")
     import jax

@@ -317,9 +317,11 @@ def test_training_needs_a_card_by_default():
 def test_unported_training_raises():
     """What this test once refused now runs: GNN/RecSys training, and
     ``param_resharding`` (applied once a step before the microbatch loop,
-    as the reference applies it). ``--model-parallel`` other than 1 still
-    raises: the port trains on one card, where the reference's
-    ``make_host_mesh`` takes only 1 too. Every name of the reference's
+    as the reference applies it). Without a process group
+    ``--model-parallel`` other than 1 still raises: one card is the
+    host's mesh, where the reference's ``make_host_mesh`` takes only 1
+    too (under ``torch.distributed.run`` it trains on the mesh:
+    ``tests/test_torch_dist_train.py``). Every name of the reference's
     recsys module resolves."""
     from repro.models import recsys as jrecsys
     from repro_torch.launch import train as ttrain

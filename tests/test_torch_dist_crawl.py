@@ -27,7 +27,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import _torch_dist_play as D  # noqa: E402
-from _torch_play import JAX_SCRIPT, assert_case  # noqa: E402
+from _torch_play import (JAX_SCRIPT, assert_case, jax_env,  # noqa: E402
+                         niced)
 
 from repro_torch.dist import CrawlGroup  # noqa: E402
 
@@ -69,11 +70,10 @@ def plays(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist")
     jax_dir = tmp / "jax"
     jax_dir.mkdir()
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    env.pop("REPRO_TELEMETRY", None)
+    env = jax_env(tmp)
     deadline = time.time() + FIXTURE_TIMEOUT_S
     jax = subprocess.Popen(
-        [sys.executable, "-c", JAX_SCRIPT, str(jax_dir),
+        [sys.executable, "-c", niced(JAX_SCRIPT), str(jax_dir),
          json.dumps(JAX_CASES)], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=".", env=env)
     ctxs = []

@@ -29,7 +29,7 @@ torch = pytest.importorskip("torch")
 
 import _torch_dist_play as D  # noqa: E402
 from _torch_play import CASH_RTOL, JAX_SCRIPT, assert_case  # noqa: E402
-from _torch_play import numpy_cash  # noqa: E402
+from _torch_play import jax_env, niced, numpy_cash  # noqa: E402
 
 from repro_torch.core.stages import CrawlState  # noqa: E402
 from repro_torch.dist import CrawlGroup  # noqa: E402
@@ -50,12 +50,11 @@ def plays(tmp_path_factory):
     play every case in this process. Returns {"tmp", "ref"}."""
     import torch.multiprocessing as mp
     tmp = tmp_path_factory.mktemp("heal")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    env.pop("REPRO_TELEMETRY", None)
+    env = jax_env(tmp)
     deadline = time.time() + FIXTURE_TIMEOUT_S
     (tmp / "jax").mkdir()
     jax = subprocess.Popen(
-        [sys.executable, "-c", JAX_SCRIPT, str(tmp / "jax"),
+        [sys.executable, "-c", niced(JAX_SCRIPT), str(tmp / "jax"),
          json.dumps(JAX_CASES)], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=".", env=env)
     ctxs = []

@@ -24,10 +24,18 @@ Tolerances of the train steps: loss within 1e-5, grad norm within 1e-5
 relative, parameters within 2 * lr (AdamW's first steps move a leaf by
 about lr whatever its gradient's size, so a gradient of pure rounding
 noise may move it either way) and their mean difference within 1e-6.
+Measured on the CPU: the (4, 2) step's largest difference 6.15e-6 in
+``layers/moe/w_gate``, the re-meshed (2, 4) step's 2.09e-7 in
+``layers/moe/w_up``, the largest mean 2.8e-9 (``prefix/0/ln1``).
+
+``test_state_specs_match_reference``: every model arch's parameter and
+optimizer-state specs (``lm_specs`` / ``recsys_specs`` / ``gnn_specs``,
+``opt_state_specs``, ``drop_fsdp``), built on meta at the published
+configs, equal the reference's from the same subprocess on five mesh
+shapes (``jax.sharding.AbstractMesh``: no devices needed).
 """
 import dataclasses
 import json
-import os
 import subprocess
 import sys
 import textwrap
@@ -36,6 +44,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from _torch_play import jax_env, niced  # noqa: E402
 
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.configs.base import scaled  # noqa: E402
@@ -57,13 +67,31 @@ LR = 1e-3
 BLOCK_TOL = 1e-5
 
 
+# spec parity: every model arch's state specs, the rules' meshes and the
+# production pod's, compared as tuples from the same JAX subprocess
+SPEC_ARCHS = ("qwen2-1.5b", "phi3-mini-3.8b", "deepseek-coder-33b",
+              "deepseek-moe-16b", "arctic-480b", "bert4rec", "dien",
+              "wide-deep", "dcn-v2", "gat-cora")
+SPEC_MESHES = {
+    "4x2": ((4, 2), ("data", "model")),
+    "2x4": ((2, 4), ("data", "model")),
+    "pod2x2x2": ((2, 2, 2), ("pod", "data", "model")),
+    "16x16": ((16, 16), ("data", "model")),
+    "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+# train cells whose in/out shardings launch/specs.build_cell names
+SPEC_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-moe-16b", "train_4k"),
+              ("dcn-v2", "train_batch"), ("gat-cora", "full_graph_sm"))
+
+
 def case_name(arch, mesh, cf):
     return f"{arch}_{mesh[0]}x{mesh[1]}_{cf}"
 
 
 JAX_SCRIPT = textwrap.dedent("""
     import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    os.environ.setdefault("XLA_FLAGS", "")
+    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=8"
     import dataclasses, json, sys
     sys.path.insert(0, "src")
     import numpy as np
@@ -166,6 +194,61 @@ JAX_SCRIPT = textwrap.dedent("""
              **{"state2/" + k: v for k, v in flat(st2).items()},
              loss1=np.asarray(m1["loss"]), gnorm1=np.asarray(m1["grad_norm"]),
              loss2=np.asarray(m2["loss"]), gnorm2=np.asarray(m2["grad_norm"]))
+
+    # ---- spec parity: every arch's state specs on five mesh shapes ----
+    from jax.sharding import AbstractMesh
+    from repro.configs import get_arch
+    from repro.launch import specs as LS
+    from repro.models import gnn as G
+    from repro.models import recsys as R
+    spec_archs, spec_meshes = json.loads(sys.argv[8]), json.loads(sys.argv[9])
+
+    def paths(tree):
+        leaves = jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, NamedSharding))[0]
+        return {"/".join(CK._fmt(q) for q in path):
+                [list(a) if isinstance(a, tuple) else a for a in ns.spec]
+                for path, ns in leaves}
+
+    key = jax.random.PRNGKey(0)
+    specs = {}
+    for arch in spec_archs:
+        acfg = get_arch(arch)[0]
+        if acfg.family == "lm":
+            aopt, fn = LS._lm_optimizer(acfg), rules.lm_specs
+            init = lambda: T.init_lm(key, acfg)
+        elif acfg.family == "recsys":
+            aopt, fn = adamw(lr=1e-3), rules.recsys_specs
+            init = lambda: R.INIT[acfg.kind](key, acfg)
+        else:
+            aopt, fn = adamw(lr=5e-3), rules.gnn_specs
+            init = lambda: G.init_gat(key, acfg, 32, 7)
+        st = jax.eval_shape(lambda: init_train_state(init(), aopt))
+        specs[arch] = {}
+        for name, (sizes, axes) in spec_meshes.items():
+            m = AbstractMesh(tuple(sizes), tuple(axes))
+            ps = fn(st.params, m)
+            specs[arch][name] = {
+                "params": paths(ps),
+                "opt_state": paths(rules.opt_state_specs(st.opt_state, ps,
+                                                         m)),
+                "drop_fsdp": paths(rules.drop_fsdp(ps, m))}
+    # the train cells' shardings (launch/specs.build_cell on the pod)
+    pod = AbstractMesh((16, 16), ("data", "model"))
+    cells = {}
+    for arch, shape in json.loads(sys.argv[10]):
+        c = LS.build_cell(arch, shape, pod)
+        bleaves = jax.tree_util.tree_leaves(
+            c.in_shardings[1], is_leaf=lambda x: isinstance(x, NamedSharding))
+        cells[f"{arch}/{shape}"] = {
+            "state": paths(c.in_shardings[0]),
+            "out_state": paths(c.out_shardings[0]),
+            "batch": [[list(a) if isinstance(a, tuple) else a
+                       for a in ns.spec] for ns in bleaves],
+            "microbatches": c.meta.get("microbatches")}
+    specs["cells"] = cells
+    with open(os.path.join(out, "specs.json"), "w") as f:
+        json.dump(specs, f)
     print("jax sharding: OK", flush=True)
 """)
 
@@ -174,10 +257,12 @@ JAX_SCRIPT = textwrap.dedent("""
 def jax_ref(tmp_path_factory):
     """Every case's JAX reference, from one subprocess."""
     out = tmp_path_factory.mktemp("jax_sharding")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    env = jax_env(out)
     r = subprocess.run(
-        [sys.executable, "-c", JAX_SCRIPT, str(out), json.dumps(CASES),
-         str(B), str(S), str(TB), str(TS), repr(LR)],
+        [sys.executable, "-c", niced(JAX_SCRIPT), str(out),
+         json.dumps(CASES), str(B), str(S), str(TB), str(TS), repr(LR),
+         json.dumps(SPEC_ARCHS), json.dumps(SPEC_MESHES),
+         json.dumps(SPEC_CELLS)],
         capture_output=True, text=True, timeout=600, cwd=".", env=env)
     if r.returncode != 0 or "jax sharding: OK" not in r.stdout:
         raise AssertionError(f"STDOUT:\n{r.stdout[-3000:]}\n"
@@ -386,3 +471,91 @@ def test_activation_mesh_shapes():
     assert rules.constrain(x, "dp", None) is x
     with pytest.raises(ValueError, match="no axis"):
         rules.set_activation_mesh({"data": 2})
+
+
+def _port_state_on_meta(arch):
+    """(the port's TrainState of ``arch``'s published config on meta, its
+    rules family), with the optimizer its train cell takes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import specs as LS
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    cfg = get_arch(arch)[0]
+    meta = torch.device("meta")
+    if cfg.family == "lm":
+        return TTR.init_train_state(LS._lm_params(cfg, meta),
+                                    LS._lm_optimizer(cfg)), "lm"
+    shapes = (R.param_shapes(cfg) if cfg.family == "recsys" else
+              G.param_shapes(cfg, 32, 7))
+    params = {k: torch.empty(s, device=meta) for k, (s, _) in shapes.items()}
+    return TTR.init_train_state(params, adamw()), cfg.family
+
+
+def _spec_paths(tree, prefix=""):
+    """{path: spec as lists} of a tree of ``rules.NamedSharding``."""
+    if isinstance(tree, rules.NamedSharding):
+        return {prefix[:-1]: [list(a) if isinstance(a, tuple) else a
+                              for a in tree.spec]}
+    items = (tree.items() if isinstance(tree, dict) else
+             zip(tree._fields, tree))
+    out = {}
+    for k, v in items:
+        out.update(_spec_paths(v, f"{prefix}{k}/"))
+    return out
+
+
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_state_specs_match_reference(jax_ref, arch):
+    """``lm_specs`` / ``recsys_specs`` / ``gnn_specs``, ``opt_state_specs``
+    (AdamW with f32 or bf16 moments, Adafactor's factored moments) and
+    ``drop_fsdp`` of every parameter and optimizer-state leaf, on (4, 2),
+    (2, 4), (2, 2, 2) with "pod" and the production (16, 16) and
+    (2, 16, 16) shapes: the reference's specs, entry for entry."""
+    want = json.loads((jax_ref / "specs.json").read_text())[arch]
+    state, family = _port_state_on_meta(arch)
+    for name, (sizes, axes) in SPEC_MESHES.items():
+        mesh = tuple(zip(axes, sizes))
+        ps = TTR.param_shardings(state.params, mesh, family)
+        got = {"params": _spec_paths(ps),
+               "opt_state": _spec_paths(rules.opt_state_specs(
+                   state.opt_state, ps, mesh)),
+               "drop_fsdp": _spec_paths(rules.drop_fsdp(ps))}
+        for part in got:
+            assert got[part] == want[name][part], (arch, name, part)
+
+
+@pytest.mark.parametrize("arch,shape", SPEC_CELLS,
+                         ids=[f"{a}-{s}" for a, s in SPEC_CELLS])
+def test_train_cell_shardings_match_reference(jax_ref, arch, shape):
+    """``launch/specs.build_cell(..., mesh=)`` of a train cell on the
+    (16, 16) pod: its state's in and out shardings the reference's
+    ``_lm_state_shardings`` (or its GNN and RecSys counterparts) entry
+    for entry, its batch split over "data" as the reference's (a
+    one-axis tuple read as the axis), its microbatches the reference's
+    count per data process."""
+    from repro_torch.launch import specs as LS
+    want = json.loads((jax_ref / "specs.json").read_text())["cells"][
+        f"{arch}/{shape}"]
+    cell = LS.build_cell(arch, shape, mesh={"data": 16, "model": 16},
+                         device="meta")
+    assert _spec_paths(cell.in_shardings[0]) == want["state"]
+    assert _spec_paths(cell.out_shardings[0]) == want["out_state"]
+
+    def norm(spec):
+        return json.dumps([list(a) if isinstance(a, (list, tuple))
+                           and len(a) > 1 else a[0]
+                           if isinstance(a, (list, tuple)) else a
+                           for a in spec])
+    got = sorted(norm(ns.spec)
+                 for ns in _sharding_leaves(cell.in_shardings[1]))
+    assert got == sorted(norm(b) for b in want["batch"])
+    assert cell.meta.get("microbatches") == want["microbatches"]
+
+
+def _sharding_leaves(tree):
+    """The ``rules.NamedSharding`` leaves of a tree (dicts, tuples and
+    NamedTuples)."""
+    if isinstance(tree, rules.NamedSharding):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [x for v in items for x in _sharding_leaves(v)]

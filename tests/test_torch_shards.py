@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_play import jax_env, niced  # noqa: E402
+
 from repro_torch.api import CrawlSession  # noqa: E402
 from repro_torch.configs import webparf  # noqa: E402
 from repro_torch.configs.base import scaled  # noqa: E402
@@ -77,7 +79,8 @@ CASES = {
 
 JAX_SCRIPT = textwrap.dedent("""
     import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ.setdefault("XLA_FLAGS", "")
+    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=4"
     import dataclasses, json, sys
     sys.path.insert(0, "src")
     import jax
@@ -148,8 +151,8 @@ def port_cfg(over):
 def jax_ref(tmp_path_factory):
     """Every case's JAX reference, from one subprocess."""
     out = tmp_path_factory.mktemp("jax_shards")
-    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
-    r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, str(out),
+    env = jax_env(out)
+    r = subprocess.run([sys.executable, "-c", niced(JAX_SCRIPT), str(out),
                         json.dumps(CASES), str(TIE)], capture_output=True, text=True,
                        timeout=600, cwd=".", env=env)
     if r.returncode != 0 or "jax shards: OK" not in r.stdout:
