@@ -4599,6 +4599,9 @@ GROUPED_CPU_SHAPE = (8, 64)     # tokens (B, S) of the reduced grouped MoE
 GROUPED_TOL = 1e-4
 RESHARD_MESH = {"data": 2, "model": 4}
 DRYRUN_JOBS = 8                 # cells reckoned at once, a process each
+DRYRUN_MESHES = ("4x1", "2x2", "1x4")   # the per-card reckoning's meshes
+DRYRUN_MESH_JOBS = 6            # its cells at once, beside lm_zoo
+DRYRUN_MESH_TIMEOUT_S = 900
 PEAK_TOL = 0.15                 # reckoned peak within this of the measured
 TRACE_STEPS = 8                 # crawl steps profiled with the labels on
 
@@ -4892,11 +4895,91 @@ def dryrun_all():
     return recs, all_s
 
 
-def phase_dryrun(recs, all_s):
+def dryrun_mesh_start():
+    """``python -m repro_torch.launch.dryrun --all --mesh 4x1,2x2,1x4``
+    started in the background (DRYRUN_MESH_JOBS processes that never touch
+    the card) beside ``phase_lm_zoo`` alone, whose readings are the card's
+    (``dryrun_mesh_finish`` waits for it before any phase that times the
+    host): (the process, its output directory, its start time)."""
+    import os
+    import shutil
+    out_dir = ROOT / "build" / "dryrun_torch_mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    log = open(out_dir / "log.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", ",".join(DRYRUN_MESHES), "--jobs", str(DRYRUN_MESH_JOBS),
+         "--out", str(out_dir)], stdout=log, stderr=subprocess.STDOUT,
+        cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    log.close()
+    # stopped with the script if it fails before reading the records
+    import atexit
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out_dir, time.time()
+
+
+def dryrun_mesh_finish(started):
+    """The per-card records of every cell at each of DRYRUN_MESHES, as
+    ``dryrun_mesh_start`` left them, waited for: a ``dryrun_mesh_cell`` line
+    a record
+    (the card's memory, fits, collectives, or why the mesh program is not
+    ported); the three long_500k cells that no single card holds must fit
+    a card of (1, 4). Returns (a summary, the seconds since the start)."""
+    proc, out_dir, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_MESH_TIMEOUT_S
+                                   - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("dryrun --mesh: timed out")
+    secs = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"dryrun --mesh: rc {rc}\n"
+                             f"{(out_dir / 'log.txt').read_text()[-3000:]}")
+    recs = {m: [json.loads(p.read_text()) for p in
+                sorted((out_dir / m).glob("*.json"))] for m in DRYRUN_MESHES}
+    summary = {}
+    for m, rs in recs.items():
+        if len(rs) != 41:
+            raise AssertionError(f"dryrun --mesh {m}: {len(rs)} records")
+        for rec in rs:
+            line = {"phase": "dryrun_mesh_cell", "mesh": m,
+                    "arch": rec["arch"], "shape": rec["shape"],
+                    "n_devices": rec["n_devices"]}
+            if rec.get("mesh_program") == "not ported":
+                line.update(mesh_program="not ported", why=rec["why"])
+            else:
+                line.update(
+                    fits=rec["fits"],
+                    peak_gib=rec["memory"]["total_per_device"] / 2 ** 30,
+                    segments_gib=rec["memory"]["reserved_needed"] / 2 ** 30,
+                    flops=rec["cost"]["flops"], bound_ms=rec["bound_ms"],
+                    bound_by=rec["bound_by"],
+                    collectives=rec["collectives"],
+                    collective_bytes=rec["collective_bytes"],
+                    largest_batch_that_fits=rec.get(
+                        "largest_batch_that_fits"))
+            emit(line)
+        summary[m] = {"fits": sum(bool(r.get("fits")) for r in rs),
+                      "not_ported": sum(r.get("mesh_program") ==
+                                        "not ported" for r in rs)}
+    long = {r["arch"]: r["fits"] for r in recs["1x4"]
+            if r["shape"] == "long_500k" and r["arch"] in DS_LONG}
+    if len(long) != len(DS_LONG) or not all(long.values()):
+        raise AssertionError(f"dryrun --mesh 1x4: long_500k fits {long}")
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"meshes": summary, "long_500k_fits_1x4": long}, secs
+
+
+def phase_dryrun(recs, all_s, mesh=None):
     """Each cell that chip_smoke runs (``peak_cells``) reckoned on meta at
     chip_smoke's sizes and run once on the card: the reckoned peak within
     PEAK_TOL of the measured one (``measured_peak``; cuBLAS's workspace
-    made before). ``recs`` and ``all_s`` are ``dryrun_all``'s."""
+    made before). ``recs`` and ``all_s`` are ``dryrun_all``'s; ``mesh``
+    ``dryrun_mesh_finish``'s (summary, seconds)."""
     import torch
     from repro_torch.launch import dryrun
     a = torch.ones(64, 64, device=DEV)
@@ -4918,6 +5001,9 @@ def phase_dryrun(recs, all_s):
     out = {"phase": "dryrun", "cells": len(recs), "all_s": all_s,
            "jobs": DRYRUN_JOBS, "peak_tolerance": PEAK_TOL,
            "peaks": checks}
+    if mesh is not None:
+        out["mesh"], out["mesh_all_s"] = mesh
+        out["mesh_jobs"] = DRYRUN_MESH_JOBS
     emit(out)
     if bad:
         raise AssertionError(f"dryrun: reckoned peaks off by more than "
@@ -6507,6 +6593,575 @@ def phase_dist_train(world=None):
     return ranks
 
 
+# ---------------------------------------------------------------------------
+# dist_serve: LM serving on a (data, model) mesh, one process a card
+# ---------------------------------------------------------------------------
+
+DS_P, DS_M, DS_GEN, DS_B = 28, 64, 8, 2   # S1: prompt, cache slots, tokens,
+                                          # batch (its slots cross slot 32)
+DS_TOL = 1e-5               # S1: f32 logits, the mesh against one card
+DS_PREFILL_B = 32           # S2: Qwen2-1.5B prefill_32k's published batch
+DS_DECODE_B = 128           # S3: decode_32k's published batch
+DS_LONG = ("phi3-mini-3.8b", "deepseek-coder-33b", MOE_ARCH)   # S4
+DS_DECODE_REL = 2.0 ** -6   # S4: layer 0's merged attention, |err| / |want|
+                            # (norms), against one card (bf16)
+DS_TOKENS = 8               # S3/S4: decode tokens timed
+DS_EXTRA = 3                # S3/S4: a warm-up token, a profiled one and one
+                            # under the sync counter, before and after them
+DS_TIMEOUT_S = 900          # the ranks' whole run
+
+
+def ds_decode_tol(want, vmax):
+    """A bf16 mesh decode's worst case against one card's
+    ``decode_attention``: one card rounds p / l to bf16 before its product
+    with v (at most 2^-8 of each p / l, so 2^-8 max|v| over the output),
+    the merge normalises after the sum; each output then rounds to bf16
+    (2^-8 of |want| each way). Over long_500k's slots it outgrows the
+    output itself, so the case also holds the error's norm to
+    DS_DECODE_REL of the output's and shows a merge missing a segment
+    failing that. ``tests/test_torch_dist_serve.py`` states and measures
+    both."""
+    return 2.0 ** -8 * vmax + 2.0 ** -7 * want.abs()
+
+
+def ds_cases(world):
+    """{case: [meshes]} this world runs: every case on four cards, S1
+    alone at (W, 1) on fewer."""
+    if world == 4:
+        return {"s1": [(4, 1), (2, 2), (1, 4)], "s2": [(4, 1)],
+                "s3": [(4, 1)], "s4": [(1, 4)]}
+    return {"s1": [(world, 1)]}
+
+
+def ds_reckon(arch, shape, mesh_shape, rank, **kw):
+    """The dry run's per-card record of this process of a (data, model)
+    mesh for the cell (``dryrun.run_cell`` under a ``spmd.MetaMesh``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import spmd
+    return dryrun.run_cell(arch, shape, search=False, mesh=spmd.MetaMesh(
+        {"data": mesh_shape[0], "model": mesh_shape[1]}, rank), **kw)
+
+
+def ds_blocks(cfg, shardings):
+    """This process's block of every parameter of ``cfg``, drawn on the
+    card from a generator seeded by the leaf's path and the block's place
+    in the whole leaf (processes that hold the same block draw the same
+    values; no process holds the whole tree): norms 1, biases 0, the
+    rest N(0, 1/fan_in) (the embedding's N(0, 1/d))."""
+    import zlib
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    out = {}
+    for k, v in T.stack_params(T.LM(cfg, "meta")).items():
+        sl = rules.local_slices(v.shape, shardings[k])
+        t = torch.empty(tuple(s.stop - s.start for s in sl), dtype=v.dtype,
+                        device=DEV)
+        name = k.rsplit("/", 1)[-1]
+        if name in ("ln1", "ln2", "final_norm"):
+            t.fill_(1.0)
+        elif name in ("bq", "bk", "bv"):
+            t.zero_()
+        else:
+            seed = SEED + zlib.crc32(f"{k}@{[s.start for s in sl]}".encode())
+            g = torch.Generator(device=DEV).manual_seed(seed)
+            fan = v.shape[-1] if k == "embed" else v.shape[-2]
+            t.normal_(0.0, fan ** -0.5, generator=g)
+        out[k] = t
+    return out
+
+
+def ds_setup(cfg, shape, B, max_len):
+    """(mesh, shardings, layout, this process's token-row slice) of a
+    serving case on a fresh (data, model) mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    mesh = make_host_mesh(model=shape[1])
+    psh = rules.lm_specs(T.stack_params(T.LM(cfg, "meta")), mesh)
+    layout = T.serve_layout(mesh, cfg, B, max_len)
+    rows = (layout.rows[0] if len(layout.rows) == 1 else
+            (layout.rows or None))
+    sl = rules.local_slices((B, 1), rules.NamedSharding(mesh, (rows, None)))
+    return mesh, psh, layout, sl[0]
+
+
+def ds_tokens(cfg, B, n, rows, seed):
+    import torch
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, n))
+    return torch.tensor(toks[rows], dtype=torch.int64, device=DEV)
+
+
+def ds_peak_line(rec, base, colls, label, gate=True):
+    """Measured peaks (from ``base``) beside the per-card reckoning, and
+    the collectives counted against the reckoned ones; raises past
+    PEAK_TOL (``gate``) or when the collectives differ."""
+    import torch
+    measured = torch.cuda.max_memory_allocated() - base[0]
+    reserved = torch.cuda.max_memory_reserved() - base[1]
+    reckoned = rec["memory"]["total_per_device"]
+    ratio = reckoned / measured
+    if gate and abs(ratio - 1) > PEAK_TOL:
+        raise AssertionError(f"dist_serve {label}: reckoned peak {reckoned} "
+                             f"is {ratio:.3f} of the measured {measured}")
+    if colls != rec["collectives"]:
+        raise AssertionError(f"dist_serve {label}: collectives {colls}, "
+                             f"reckoned {rec['collectives']}")
+    return {"measured_peak_gib": measured / 2 ** 30,
+            "reckoned_peak_gib": reckoned / 2 ** 30, "peak_ratio": ratio,
+            "peak_gated": gate,
+            "measured_reserved_gib": reserved / 2 ** 30,
+            "reckoned_segments_gib": rec["memory"]["reserved_peak"] / 2 ** 30,
+            "reckoned_fits": rec["fits"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "collectives": colls,
+            "collective_bytes": sum(c["bytes"] for c in colls.values()),
+            "reckoned_collective_bytes": rec["collective_bytes"]}
+
+
+def ds_base():
+    """cuBLAS's workspaces made, the cache emptied, the peaks reset:
+    (allocated, reserved) to measure a case's peaks from."""
+    import torch
+    a = torch.ones(64, 64, device=DEV)
+    (a @ a).sum().item()
+    (a.bfloat16() @ a.bfloat16()).sum().item()
+    del a
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def ds_small(arch, shape, group):
+    """S1: the reduced f32 model, a DS_B x DS_P prompt prefilled into
+    DS_M slots and DS_GEN teacher-forced tokens on the mesh against this
+    card's one-card port under ``activation_mesh`` of the same shape:
+    logits of this process's rows within DS_TOL, its routes bit-equal to
+    its group's of the one-card routing, flash_attention once a layer a
+    prefill, rank 0's first call held to the plain version."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import scaled
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules, spmd
+    cfg = scaled(get_reduced(arch), dtype="float32")
+    dp, tp = shape
+    rec = ds_reckon(arch, "prefill_32k", shape, group.rank, cfg=cfg,
+                    batch=DS_B, seq_len=DS_P, cache_len=DS_M)
+    model = T.init_lm(cfg, seed=SEED, device=DEV)
+    params = T.stack_params(model)
+    toks = np.random.default_rng(SEED + 31).integers(
+        0, cfg.vocab_size, (DS_B, DS_P + DS_GEN))
+    whole = torch.tensor(toks, dtype=torch.int64, device=DEV)
+    ref = []
+    with rules.activation_mesh({"data": dp, "model": tp}), \
+            DispatchSpy() as one:
+        lg, cache = T.prefill_step(model, whole[:, :DS_P], max_len=DS_M)
+        ref.append(lg)
+        for i in range(DS_GEN):
+            lg, cache = T.decode_step(model, whole[:, DS_P + i:DS_P + i + 1],
+                                      cache)
+            ref.append(lg)
+    del model, cache
+    mesh, psh, layout, rows = ds_setup(cfg, shape, DS_B, DS_M)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    g = coord["data"] * tp + coord["model"]
+    base = ds_base()
+    blocks = {k: v[rules.local_slices(v.shape, psh[k])].clone()
+              for k, v in params.items()}
+    mine = whole[rows]
+    J = spmd.Joined(blocks, psh)
+    got, qkv, orig = [], [], FA.attention
+
+    def first(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        if not qkv:
+            qkv.append(tuple(x.detach().clone() for x in (q, k, v)))
+        return out
+    with rules.activation_mesh(mesh), DispatchSpy() as me:
+        reset_launches()
+        spmd.reset_collectives()
+        FA.attention = first
+        try:
+            lg, cache = T.prefill_step(J, mine[:, :DS_P], max_len=DS_M,
+                                       cfg=cfg, layout=layout)
+        finally:
+            FA.attention = orig
+        torch.cuda.synchronize()
+        counts, colls = launch_counts(), spmd.collectives()
+        peaks = ds_peak_line(rec, base, colls, f"s1 {arch} {shape}",
+                             gate=False)
+        got.append(lg)
+        for i in range(DS_GEN):
+            lg, cache = T.decode_step(J, mine[:, DS_P + i:DS_P + i + 1],
+                                      cache, cfg=cfg, layout=layout)
+            got.append(lg)
+        prof = profile_device(lambda: T.decode_step(
+            J, mine[:, -1:], cache, cfg=cfg, layout=layout), 1)
+        syncs = count_call_syncs(lambda: T.decode_step(
+            J, mine[:, -1:], cache, cfg=cfg, layout=layout))[0]
+    errs = [float((a - b[rows]).abs().max()) for a, b in zip(got, ref)]
+    if max(errs) > DS_TOL or not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError(f"dist_serve s1 {arch} {shape} rank "
+                             f"{group.rank}: logits differ by {max(errs)}")
+    for i, (a, b) in enumerate(zip(one.calls, me.calls)):
+        for name, x, y in zip(("e", "slot", "keep"), a, b):
+            want = x[g] if x.shape[0] > 1 else x[0]
+            if not np.array_equal(want, y[0]):
+                raise AssertionError(f"dist_serve s1 {arch} {shape}: call "
+                                     f"{i} {name} differs from the "
+                                     f"one-card routing")
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.n_layers
+    if counts != want:
+        raise AssertionError(f"dist_serve s1 {arch} {shape}: launches "
+                             f"{counts}, want {want}")
+    line = {"case": "s1", "mesh": list(shape), "arch": cfg.name,
+            "batch": DS_B, "prompt": DS_P, "cache_len": DS_M,
+            "decode_tokens": DS_GEN, "layout": layout._asdict(),
+            "logits_max_abs_err": max(errs), "tolerance": DS_TOL,
+            "routes_bit_equal": len(me.calls), "group": g,
+            "launches_per_prefill": counts,
+            "decode_device_events_per_token": prof["device_events_per_call"],
+            "decode_host_syncs_per_token": syncs, "prefill": peaks}
+    if group.rank == 0:
+        line["flash_kernel"], line["flash_max_abs_err"], _ = flash_pair(
+            *qkv[0], True, f"dist_serve s1 {arch} {shape}")
+    return line
+
+
+def ds_timed(fn, n):
+    """ms of each of ``n`` calls of ``fn``, each waited for."""
+    import torch
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def ds_prefill(shape, group):
+    """S2: Qwen2-1.5B prefill_32k at DS_PREFILL_B (or the per-card
+    reckoning's cut) on the mesh, bf16, seeded blocks: a warm-up prefill
+    (launches zeroed just before, read just after: flash_attention_tc once
+    a layer), a timed one (its collectives counted), the peaks beside the
+    reckoning, then rank 0's layers 0 and 27 held to the plain version and
+    tc_plain's bound on batch row 0."""
+    import torch
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules, spmd
+    cfg = get_arch(LM_ARCH)[0]
+    S = get_shape(LM_ARCH, "prefill_32k")["seq_len"]
+    B, cut = DS_PREFILL_B, None
+    rec = ds_reckon(LM_ARCH, "prefill_32k", shape, group.rank, batch=B)
+    if not rec["fits"]:
+        B = cut = dryrun.mesh_record(LM_ARCH, "prefill_32k",
+                                     f"{shape[0]}x{shape[1]}",
+                                     rank=group.rank)[
+            "largest_batch_that_fits"]
+        rec = ds_reckon(LM_ARCH, "prefill_32k", shape, group.rank, batch=B)
+    mesh, psh, layout, rows = ds_setup(cfg, shape, B, S)
+    base = ds_base()
+    J = spmd.Joined(ds_blocks(cfg, psh), psh)
+    tok = ds_tokens(cfg, B, S, rows, SEED + 32)
+
+    def prefill():
+        with rules.activation_mesh(mesh):
+            return T.prefill_step(J, tok, max_len=S, cfg=cfg, layout=layout)
+    reset_launches()
+    out = prefill()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    finite = bool(torch.isfinite(out[0]).all())
+    del out
+    spmd.reset_collectives()
+    ms = ds_timed(prefill, 1)[0]
+    colls = spmd.collectives()
+    peaks = ds_peak_line(rec, base, colls, f"s2 {shape}")
+    prof = profile_device(prefill, 1)
+    syncs = count_call_syncs(prefill)[0]
+    want = {k: 0 for k in counts}
+    want["flash_attention_tc"] = cfg.n_layers
+    if counts != want or not finite:
+        raise AssertionError(f"dist_serve s2 {shape}: launches {counts}, "
+                             f"want {want}; finite {finite}")
+    line = {"case": "s2", "mesh": list(shape), "arch": LM_ARCH,
+            "cell": "prefill_32k", "batch": B, "batch_per_data_rank":
+            tok.shape[0], "published_batch": DS_PREFILL_B,
+            "cut_to_largest_batch_that_fits": cut, "seq_len": S,
+            "prefill_ms": ms, "tok_per_s_rank": tok.numel() / (ms / 1e3),
+            "tok_per_s_mesh": B * S / (ms / 1e3),
+            "launches_per_prefill": counts,
+            "prefill_device_events": prof["device_events_per_call"],
+            "prefill_device_idle_share": prof["device_idle_share"],
+            "prefill_collective_ms": prof["collective_ms_per_call"],
+            "prefill_host_syncs": syncs, **peaks}
+    # every rank prefills once more (the collectives are the group's);
+    # rank 0 keeps its layers 0 and 27
+    got, orig = {}, FA.attention
+
+    def spy(q, k, v, **kw):
+        o = orig(q, k, v, **kw)
+        i = len(got)
+        got[i] = ((q[:1].clone(), k[:1].clone(), v[:1].clone(),
+                   o[:1].clone()) if group.rank == 0
+                  and i in (0, cfg.n_layers - 1) else None)
+        return o
+    FA.attention = spy
+    try:
+        prefill()
+    finally:
+        FA.attention = orig
+    if group.rank == 0:
+        for i in (0, cfg.n_layers - 1):
+            q, k, v, o = got[i]
+            err, share = hold_flash(o, q, k, v, True,
+                                    f"dist_serve s2 layer {i}", tc=True)
+            line[f"layer{i}_flash_max_abs_err"] = err
+            line[f"layer{i}_tc_share_of_tolerance"] = share
+        del got
+    return line
+
+
+def ds_decode(arch, shape_name, shape, B, group, check_layer0=False):
+    """S3/S4: ``arch``'s decode cell on the mesh, bf16, seeded blocks and a
+    seeded cache whose last DS_TOKENS + DS_EXTRA slots are free: a
+    warm-up token, DS_TOKENS timed (the first's collectives counted; an
+    MoE's routes gathered and held equal on every rank), one profiled, one
+    under the sync counter; the peaks beside the reckoning. With
+    ``check_layer0``, layer 0's merged attention output of the first timed
+    token held to one card's ``decode_attention`` over the layer-0 cache
+    gathered on rank 0 (``ds_decode_tol``)."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules, spmd
+    cfg = get_arch(arch)[0]
+    S = get_shape(arch, shape_name)["seq_len"]
+    cut = None
+    rec = ds_reckon(arch, shape_name, shape, group.rank, batch=B)
+    if not rec["fits"]:
+        B = cut = dryrun.mesh_record(arch, shape_name,
+                                     f"{shape[0]}x{shape[1]}",
+                                     rank=group.rank)[
+            "largest_batch_that_fits"]
+        rec = ds_reckon(arch, shape_name, shape, group.rank, batch=B)
+    mesh, psh, layout, rows = ds_setup(cfg, shape, B, S)
+    whole = T.init_cache(cfg, B, S, device="meta")
+    csh = rules.cache_specs(whole, mesh, B)
+    base = ds_base()
+    J = spmd.Joined(ds_blocks(cfg, psh), psh)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 33 + group.rank)
+    parts = []
+    for t, sh in zip(whole, csh):
+        if t is None:
+            parts.append(None)
+            continue
+        blk = torch.empty(tuple(s.stop - s.start for s in
+                                rules.local_slices(t.shape, sh)),
+                          dtype=t.dtype, device=DEV)
+        if blk.is_floating_point():
+            blk.normal_(generator=gen)
+        else:
+            blk.fill_(S - DS_TOKENS - DS_EXTRA)
+        parts.append(blk)
+    cache = [T.LMCache(*parts)]
+    tok = ds_tokens(cfg, B, 1, rows, SEED + 34)
+
+    def step():
+        with rules.activation_mesh(mesh):
+            logits, cache[0] = T.decode_step(J, tok, cache[0], cfg=cfg,
+                                             layout=layout)
+        return logits
+    finite = bool(torch.isfinite(step()).all())
+    q0, merged = [], []
+    undo = [spy_on(L, "decode_attention_partial",
+                   lambda i, a, o: q0.append(a[0].clone()) if i == 0
+                   else None),
+            spy_on(spmd, "merge_softmax",
+                   lambda i, a, o: merged.append(o.clone()) if i == 0
+                   else None)]
+    n0 = int(cache[0].length[0]) + 1
+    routes = DispatchSpy()
+    spmd.reset_collectives()
+    try:
+        with routes:
+            ms = []
+            for i in range(DS_TOKENS):
+                ms += ds_timed(step, 1)
+                if i == 0:
+                    colls = spmd.collectives()
+                    for u in undo:
+                        u()
+                    undo = []
+    finally:
+        for u in undo:
+            u()
+    peaks = ds_peak_line(rec, base, colls, f"{shape_name} {arch} {shape}")
+    prof = profile_device(step, 1)
+    syncs = count_call_syncs(step)[0]
+    if int(cache[0].length[0]) != S or not finite:
+        raise AssertionError(f"dist_serve {arch} {shape_name}: length "
+                             f"{int(cache[0].length[0])} of {S}, finite "
+                             f"{finite}")
+    line = {"case": "s3" if shape_name == "decode_32k" else "s4",
+            "mesh": list(shape), "arch": arch, "cell": shape_name,
+            "batch": B, "published_batch": get_shape(arch, shape_name)[
+                "global_batch"], "cut_to_largest_batch_that_fits": cut,
+            "cache_len": S, "cache_len_per_rank": parts[2].shape[3],
+            "valid_at_start": S - DS_TOKENS - DS_EXTRA,
+            "layout": layout._asdict(), "decode_tokens": DS_TOKENS,
+            "decode_ms_per_token": float(np.mean(ms)), "decode_ms": ms,
+            "decode_device_events_per_token": prof["device_events_per_call"],
+            "decode_device_idle_share": prof["device_idle_share"],
+            "decode_collective_ms_per_token": prof["collective_ms_per_call"],
+            "decode_host_syncs_per_token": syncs, **peaks}
+    if routes.calls:
+        h = hashlib.sha256()
+        for c in routes.calls:
+            for a in c:
+                h.update(a.tobytes())
+        mine = torch.tensor(list(h.digest()), dtype=torch.uint8, device=DEV)
+        every = group.gather(mine[None]).cpu()
+        if not all(torch.equal(every[r], every[0])
+                   for r in range(group.world)):
+            raise AssertionError(f"dist_serve {arch}: routes differ "
+                                 f"between ranks")
+        line["routes_equal_on_every_rank"] = len(routes.calls)
+    if check_layer0:
+        first = cache[0].prefix_k is not None
+        k0 = (cache[0].prefix_k if first else cache[0].main_k)[0].clone()
+        v0 = (cache[0].prefix_v if first else cache[0].main_v)[0].clone()
+        cache.clear()
+        parts.clear()
+        del J
+        free_card()
+        ks = [torch.empty_like(k0) for _ in range(group.world)] \
+            if group.rank == 0 else None
+        dist.gather(k0, ks, dst=0)
+        del k0
+        vs = [torch.empty_like(v0) for _ in range(group.world)] \
+            if group.rank == 0 else None
+        dist.gather(v0, vs, dst=0)
+        del v0
+        if group.rank == 0:
+            K, V = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+            seg = ks[0].shape[2]
+            del ks, vs
+            q = q0[0]
+            n = torch.full((q.shape[0],), n0, dtype=torch.int32, device=DEV)
+            want = L.decode_attention(q, K, V, n).float()
+            vmax = float(V[:, :, :n0].float().abs().max())
+            # a planted fault: the merge without the last segment that
+            # holds valid slots
+            planted = L.decode_attention(q, K, V, torch.full_like(
+                n, (n0 - 1) // seg * seg)).float()
+            del K, V
+            have = merged[0].reshape(want.shape).to(q.dtype).float()
+            share = float(((have - want).abs() / ds_decode_tol(
+                want, vmax)).max())
+            rel = float((have - want).norm() / want.norm())
+            rel_planted = float((planted - want).norm() / want.norm())
+            line.update(layer0_decode_max_abs_err=float(
+                (have - want).abs().max()), layer0_live_slots=n0,
+                layer0_share_of_worst_case=share,
+                layer0_worst_case="2^-8 max|v| + 2^-7 |want|",
+                layer0_rel_err=rel, layer0_rel_tolerance=DS_DECODE_REL,
+                layer0_rel_err_without_last_segment=rel_planted,
+                layer0_max_abs_want=float(want.abs().max()))
+            if (share > 1 or rel > DS_DECODE_REL
+                    or not torch.isfinite(have).all()):
+                raise AssertionError(f"dist_serve {arch}: layer 0's merged "
+                                     f"attention is {rel} of one card's "
+                                     f"decode_attention ({share} of the "
+                                     f"worst case)")
+            if rel_planted <= DS_DECODE_REL:
+                raise AssertionError(f"dist_serve {arch}: a merge without "
+                                     f"the last segment reads {rel_planted},"
+                                     f" within the tolerance")
+        group.barrier()
+    return line
+
+
+def dist_serve_rank(out):
+    """One rank of the serving mesh (``chip_smoke.py --dist-serve-rank
+    OUT``, started by ``phase_dist_serve``): every case of
+    ``ds_cases(W)`` on its own card over NCCL. Its lines to
+    ``out/serve_rank<rank>.json``, each also printed to its log as its
+    case ends."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_crawl_group
+    group = init_crawl_group(None if DEV == "cuda" else DEV,
+                             timeout_s=DIST_GROUP_TIMEOUT_S)
+    lines = []
+
+    def done(line):
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        free_card()
+    try:
+        cases = ds_cases(group.world)
+        for shape in cases.get("s1", []):
+            for arch in (LM_ARCH, MOE_ARCH):
+                done(ds_small(arch, shape, group))
+        for shape in cases.get("s2", []):
+            done(ds_prefill(shape, group))
+        for shape in cases.get("s3", []):
+            done(ds_decode(LM_ARCH, "decode_32k", shape, DS_DECODE_B, group))
+        for shape in cases.get("s4", []):
+            for arch in DS_LONG:
+                done(ds_decode(arch, "long_500k", shape, 1, group,
+                               check_layer0=True))
+        group.barrier()
+    finally:
+        dist.destroy_process_group()
+    (out / f"serve_rank{group.rank}.json").write_text(json.dumps(
+        {"rank": group.rank, "world": group.world, "cases": lines}))
+
+
+def phase_dist_serve(world=None):
+    """LM serving on ``world`` cards (default: every card), one fresh
+    process a card (``dist_serve_rank``): S1 the reduced f32 Qwen2 and
+    DeepSeekMoE against the one-card port, S2 Qwen2-1.5B prefill_32k at
+    batch 32, S3 its decode_32k at 128, S4 the three long_500k cells that
+    no single card holds (S2-S4 on four cards). Prints a ``dist_serve``
+    line a rank and case. Returns {rank: its lines}."""
+    import os
+    import shutil
+    import torch
+    world = world or torch.cuda.device_count()
+    out = ROOT / "build" / f"dist_serve_{os.getpid()}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.time()
+    run_ranks("--dist-serve-rank", out, world, DS_TIMEOUT_S)
+    ranks = {r: json.loads((out / f"serve_rank{r}.json").read_text())
+             for r in range(world)}
+    card = nvidia_smi()
+    for r, rk in ranks.items():
+        for line in rk["cases"]:
+            emit({"phase": "dist_serve_rank", "world": world, "rank": r,
+                  "card": card, **line})
+    shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "dist_serve", "world": world, "card": card,
+          "cases": {k: [list(m) for m in v]
+                    for k, v in ds_cases(world).items()},
+          "seconds": time.time() - t0})
+    return ranks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6525,12 +7180,18 @@ def main() -> int:
     if sys.argv[1:2] == ["--dist-train-rank"]:
         dist_train_rank(Path(sys.argv[2]))
         return 0
+    if sys.argv[1:2] == ["--dist-serve-rank"]:
+        dist_serve_rank(Path(sys.argv[2]))
+        return 0
     if sys.argv[1:2] == ["--dist"]:
-        # the crawl group and the train mesh alone, on every card
+        # the crawl group, the train mesh and the serving mesh alone, on
+        # every card
         phase_build()
         phase_dist()
         free_card()
         phase_dist_train()
+        free_card()
+        phase_dist_serve()
         print(nvidia_smi(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -6538,7 +7199,9 @@ def main() -> int:
         return 0
     phase_build()
     recs, dryrun_s = dryrun_all()
+    mesh_dryrun = dryrun_mesh_start()
     zoo = phase_lm_zoo(recs)
+    mesh_dryrun = dryrun_mesh_finish(mesh_dryrun)
     errs = phase_parity()
     rows_, sharded, checked, profs = {}, {}, {}, {}
     sess, counts, main1 = phase_main("opic_url")
@@ -6577,6 +7240,8 @@ def main() -> int:
     free_card()
     train_ranks = phase_dist_train()
     free_card()
+    serve_ranks = phase_dist_serve()
+    free_card()
     flash = phase_flash_parity()
     model, captured, counts_lm = phase_lm_serve()
     phase_lm_long(model)
@@ -6611,7 +7276,7 @@ def main() -> int:
     free_card()
     phase_gnn_recsys_cpu()
     free_card()
-    phase_dryrun(recs, dryrun_s)
+    phase_dryrun(recs, dryrun_s, mesh_dryrun)
     tc_row["max_abs_err"] = max(tc_row["max_abs_err"], err_moe, err_arctic,
                                 *(c["flash_max_abs_err"] for c in zoo.values()
                                   if "flash_max_abs_err" in c))
@@ -6648,6 +7313,12 @@ def main() -> int:
                                  c["case"])["launches"][r["name"]]
                             for rk in dist_ranks.values()]
                 for c in dist_ranks[0]["cases"]}
+        if r["name"] in ("flash_attention", "flash_attention_tc"):
+            r[f"launches_per_mesh_prefill_{len(serve_ranks)}_cards"] = {
+                f"rank {rk} {c['case']} {c['arch']} {c['mesh']}":
+                    c["launches_per_prefill"][r["name"]]
+                for rk, lines in serve_ranks.items()
+                for c in lines["cases"] if "launches_per_prefill" in c}
         if r["name"] == "flash_attention":
             r[f"launches_per_mesh_train_step_{len(train_ranks)}_cards"] = {
                 f"rank {rk} {c['case']} {c['mesh']}":

@@ -93,6 +93,8 @@ def exchange(buckets: torch.Tensor, group=None) -> torch.Tensor:
     send = buckets.reshape((L, W, N // W) + rest).transpose(0, 1)
     send = send.contiguous()
     recv = torch.empty_like(send)              # (W_src, L_src, L_dst, ...)
+    from repro_torch.sharding import spmd
+    spmd.count_collective("all-to-all", send.numel() * send.element_size())
     dist.all_to_all_single(recv, send)
     # -> (L_dst, W_src, L_src, ...) = (L_dst, N_src, ...)
     return recv.permute((2, 0, 1) + tuple(range(3, recv.dim()))

@@ -57,6 +57,14 @@ class RowMove(NamedTuple):
         wire.index_copy_(0, self.recv_rows, recv)
 
 
+def _count(kind: str, t: Optional[torch.Tensor]) -> None:
+    """The collective counted with ``sharding.spmd``'s (its operand's
+    bytes; a broadcast object's are not known)."""
+    from repro_torch.sharding import spmd
+    spmd.count_collective(kind, 0 if t is None else
+                          t.numel() * t.element_size())
+
+
 class CrawlGroup:
     """``world`` processes, this one of rank ``rank``. Built from the
     default process group by :meth:`current`."""
@@ -105,6 +113,7 @@ class CrawlGroup:
         wire = t.to(torch.uint8) if t.dtype == torch.bool else t
         wire = wire.contiguous()
         parts = [torch.empty_like(wire) for _ in range(self.world)]
+        _count("all-gather", wire)
         dist.all_gather(parts, wire)
         out = torch.cat(parts, dim=dim)
         return out.to(torch.bool) if t.dtype == torch.bool else out
@@ -118,6 +127,7 @@ class CrawlGroup:
             return t
         import torch.distributed as dist
         out = t.clone()
+        _count("all-reduce", out)
         dist.all_reduce(out)
         return out
 
@@ -127,6 +137,7 @@ class CrawlGroup:
             return obj
         import torch.distributed as dist
         box = [obj]
+        _count("broadcast", None)
         dist.broadcast_object_list(box, src=src)
         return box[0]
 
@@ -207,6 +218,7 @@ class CrawlGroup:
                 import torch.distributed as dist
                 recv = send.new_empty((sum(plan.recv_splits),)
                                       + tuple(send.shape[1:]))
+                _count("all-to-all", send)
                 dist.all_to_all_single(recv, send, plan.recv_splits,
                                        plan.send_splits)
             plan.unpack(leaf, recv)

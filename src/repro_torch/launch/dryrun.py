@@ -41,13 +41,35 @@ shards) reckons its state on meta exactly; its step reads the host
 cannot answer, so its temporaries are reckoned from ``CrawlConfig``'s
 buffer sizes (``crawl_temporaries``); the record says so.
 
+Under a mesh (``--mesh single|multi|both|<dp>x<tp>``: the reference's
+(16, 16) and (2, 16, 16) on ("pod", "data", "model"), or a (data, model)
+shape) each cell is reckoned per card: as the program of process 0 of
+the mesh (``mesh_record(rank=)`` reckons another), with the same code
+the cards run, on meta under a ``sharding.spmd.MetaMesh`` (the mesh's
+shape and that process's coordinate, no process group): its arguments are that
+process's blocks (``specs.build_cell(..., mesh=)``: parameters and
+optimizer state by ``sharding/rules.py``, its rows of the batch, its
+segment of a KV cache by ``rules.cache_specs``; the crawl cell at one
+shard a data process, its rows by ``state_specs`` and its temporaries by
+``crawl_temporaries`` at its one shard), and every collective it makes
+takes its meta route, counted by kind and operand bytes: the record's
+``collectives`` and ``collective_bytes`` (the crawl's exchange reckoned
+from its buffers). ``memory``, ``fits`` and ``largest_batch_that_fits``
+are that card's; ``cost.flops`` and ``bound_ms`` that card's work
+against that card's rates (no link rate is assumed). A mesh of one card
+is the one-card program. Cells whose mesh program the port does not run
+(``specs.mesh_program``: the RecSys serving and retrieval cells and the
+GAT's full graphs) get a record that says ``"mesh_program": "not
+ported"`` and why. Without ``--mesh`` the records are the one-card ones.
+
 Usage (no card needed):
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
   python -m repro_torch.launch.dryrun --all         # 40 cells + the crawl
+  python -m repro_torch.launch.dryrun --all --mesh 1x4 --jobs 6
   python -m repro_torch.launch.dryrun --list
-Records go to ``--out`` (``build/dryrun_torch/``), one JSON a cell. The
-reference's ``--mesh`` (pod layouts) and ``--subprocess`` (isolation from
-XLA's compile cache) have no meaning here: one card, and nothing is
+Records go to ``--out`` (``build/dryrun_torch/``, a mesh's under
+``<mesh>/``), one JSON a cell. The reference's ``--subprocess``
+(isolation from XLA's compile cache) has no meaning here: nothing is
 compiled.
 
 Beside the dry run, the reckoners of a run's bound that ``chip_smoke.py``
@@ -76,6 +98,7 @@ from repro_torch.kernels import registry
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16,
                                      PEAK_FLOPS_F32)
+from repro_torch.sharding import spmd
 
 ROUND = 512             # the caching allocator's rounding of a block
 OUT = Path(__file__).resolve().parents[3] / "build" / "dryrun_torch"
@@ -246,21 +269,39 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
-def crawl_temporaries(cfg, n_shards: int) -> Dict[str, int]:
-    """The crawl step's transient bytes, from ``CrawlConfig``'s buffer
-    sizes: an insert's new frontier cells (url, priority, valid and their
-    f32 scores), the pops' outputs, the fetched pages' outlinks (url,
-    score, source, mask; copied once by extract), and the exchange's
-    staging and its transposed buckets."""
-    R, C = cfg.n_slots, cfg.frontier_capacity
-    k_row = max(1, cfg.fetch_batch // (R // n_shards))
+def crawl_temporaries(cfg, n_shards: int,
+                      n_local: Optional[int] = None) -> Dict[str, int]:
+    """The crawl step's transient bytes on a process holding ``n_local``
+    of the ``n_shards`` shards (all of them by default), from
+    ``CrawlConfig``'s buffer sizes: an insert's new frontier cells (url,
+    priority, valid and their f32 scores), the pops' outputs, the fetched
+    pages' outlinks (url, score, source, mask; copied once by extract),
+    and the exchange's staging and its transposed buckets."""
+    n_local = n_shards if n_local is None else n_local
+    R, C = cfg.n_slots * n_local // n_shards, cfg.frontier_capacity
+    k_row = max(1, cfg.fetch_batch // (cfg.n_slots // n_shards))
     pages = R * k_row
     links = pages * cfg.outlinks_per_page
     S = cfg.dispatch_capacity
     return {"frontier_insert": R * C * (8 + 4 + 1 + 4),
             "pops": pages * (8 + 4 + 1 + 8 + 4),
             "outlinks": 2 * links * (8 + 4 + 4 + 1),
-            "exchange": 2 * n_shards * S * (8 + 4 + 4)}
+            "exchange": 2 * n_local * S * (8 + 4 + 4)}
+
+
+def crawl_collectives(cfg, n_shards: int, n_local: int) -> dict:
+    """The collectives of a dispatch step of a crawl group, from its
+    buffers: the exchange's one all-to-all of the int64 lanes (url,
+    predicted domain, shipped flag, and a stateful ordering's value bits)
+    of this process's buckets, (n_local, n_shards, capacity, lanes);
+    none on one process."""
+    if n_shards == n_local:
+        return {}
+    from repro_torch.ordering import get_ordering
+    cap = max(8, -(-cfg.dispatch_capacity // n_shards) * 2)
+    lanes = 4 if get_ordering(cfg.ordering).stateful else 3
+    return {"all-to-all": {"count": 1,
+                           "bytes": n_local * n_shards * cap * lanes * 8}}
 
 
 def _peak_flops(meta: dict) -> float:
@@ -286,6 +327,7 @@ def trace(cell: specs.Cell) -> dict:
     raw = {"args": sum(arg.values()), "out": 0, "peak_new": 0,
            "traffic": 0, "ops": 0, "torch_flops": 0, "pool": pool,
            "devices": {t.device.type for t in tensors(cell.args)}}
+    spmd.reset_collectives()
     with registry.meta_costs() as kern:
         if cell.fn is not None:
             fc, lb = FlopCounterMode(display=False), LiveBytes(pool)
@@ -298,6 +340,7 @@ def trace(cell: specs.Cell) -> dict:
                        devices=raw["devices"] | lb.devices)
             del res
     raw["kernels"] = {k: dict(v) for k, v in kern.items()}
+    raw["collectives"] = spmd.collectives()
     return raw
 
 
@@ -313,7 +356,13 @@ def _extrapolate(r2: dict, r3: dict, mb: int) -> dict:
         a = r2["kernels"].get(name, {"calls": 0, "flops": 0, "bytes": 0})
         b = r3["kernels"].get(name, {"calls": 0, "flops": 0, "bytes": 0})
         kern[name] = {k: ext(a[k], b[k]) for k in a}
-    return {**r3, "kernels": kern, "devices": r2["devices"] | r3["devices"],
+    coll = {}
+    for kind in set(r2["collectives"]) | set(r3["collectives"]):
+        a = r2["collectives"].get(kind, {"count": 0, "bytes": 0})
+        b = r3["collectives"].get(kind, {"count": 0, "bytes": 0})
+        coll[kind] = {k: ext(a[k], b[k]) for k in a}
+    return {**r3, "kernels": kern, "collectives": coll,
+            "devices": r2["devices"] | r3["devices"],
             **{k: ext(r2[k], r3[k]) for k in ("traffic", "ops",
                                               "torch_flops")}}
 
@@ -339,13 +388,25 @@ def reckon(cell: specs.Cell, **rebuild) -> dict:
         raw = trace(cell)
     if cell.fn is None:
         temps = crawl_temporaries(specs.CrawlConfig(**cell.meta["config"]),
-                                  cell.meta["n_shards"])
+                                  cell.meta["n_shards"],
+                                  cell.meta.get("n_local"))
         raw["peak_new"] = sum(temps.values())
         for i, nb in enumerate(temps.values()):
             raw["pool"].alloc(-1 - i, nb)
         extra.update(crawl_temporaries=temps, reckoning=(
             "state on meta exactly; the step reads the host, so its "
             "temporaries are reckoned from CrawlConfig's buffer sizes"))
+    if "mesh" in cell.meta:
+        coll = dict(sorted(raw["collectives"].items()))
+        if cell.fn is None:
+            m = cell.meta
+            coll = crawl_collectives(specs.CrawlConfig(**m["config"]),
+                                     m["n_shards"], m["n_local"])
+            extra["collectives_reckoning"] = (
+                "a dispatch step's exchange, from its buffers (the step "
+                "is not traced)")
+        extra.update(collectives=coll, collective_bytes=sum(
+            c["bytes"] for c in coll.values()))
     kflops = sum(e["flops"] for e in raw["kernels"].values())
     kbytes = sum(e["bytes"] for e in raw["kernels"].values())
     flops = raw["torch_flops"] + kflops
@@ -396,21 +457,83 @@ def cut_batch(arch: str, shape: str, B: int, budget: int = HBM_BYTES,
     return 0, steps
 
 
+MESHES = {"single": {"data": 16, "model": 16},
+          "multi": (("pod", 2), ("data", 16), ("model", 16))}
+
+
+def mesh_shape(name: str):
+    """A ``--mesh`` value as a mesh shape: ``single``, ``multi`` or
+    ``<dp>x<tp>``."""
+    if name in MESHES:
+        return MESHES[name]
+    dp, tp = (int(v) for v in name.split("x"))
+    return {"data": dp, "model": tp}
+
+
+def mesh_record(arch: str, shape: str, mesh: str, variant: str = "baseline",
+                *, rank: int = 0, search: bool = True, **kw) -> dict:
+    """The per-card record of a cell under the mesh named ``mesh``
+    (``mesh_shape``): rank ``rank``'s program on meta under a
+    ``spmd.MetaMesh`` (``build_cell(..., mesh=)``), its collectives
+    counted; the one-card record at one device; a ``not ported`` record
+    for a cell whose mesh program the port does not run."""
+    from repro_torch.sharding import rules
+    sizes = rules.mesh_sizes(mesh_shape(mesh))
+    n = int(np.prod(list(sizes.values())))
+    head = {"arch": arch, "shape": shape, "variant": variant, "mesh": mesh,
+            "mesh_shape": sizes, "n_devices": n, "rank": rank}
+    why = specs.mesh_program(arch, shape)
+    if why:
+        return {**head, "mesh_program": "not ported", "why": why,
+                "roadmap": "item 19d"}
+    if n == 1:
+        return {**run_cell(arch, shape, variant=variant, search=search,
+                           **kw), **head, "collectives": {},
+                "collective_bytes": 0}
+    meta_mesh = spmd.MetaMesh(mesh_shape(mesh), rank)
+    rec = run_cell(arch, shape, variant=variant, search=False,
+                   mesh=meta_mesh, **kw)
+    rec.update(head, mesh_program="ported")
+    if search and not rec["fits"]:
+        B = rec["meta"].get("batch", rec["meta"].get("batch_nodes"))
+        largest = None
+        if B:
+            largest = cut_batch(arch, shape, 1, variant=variant,
+                                mesh=meta_mesh, **kw)[0]
+        if largest:
+            largest = cut_batch(arch, shape, B // 2, variant=variant,
+                                mesh=meta_mesh, **kw)[0]
+        rec["largest_batch_that_fits"] = largest
+    return rec
+
+
 def run_cell(arch: str, shape: str, out_dir: Optional[str] = None,
              variant: str = "baseline", *, search: bool = True,
-             **kw) -> dict:
+             mesh=None, **kw) -> dict:
     """Reckon one cell on meta (``specs.build_cell(arch, shape, **kw)``)
     and return its record, written to ``out_dir`` when given. A cell that
     does not fit also gets ``largest_batch_that_fits`` unless ``search``
     is off: 0 when batch 1 does not fit (tried first: a train step that
     does not fit at 1 would otherwise be walked at every halving), else
-    ``cut_batch`` from half its batch."""
+    ``cut_batch`` from half its batch. ``mesh`` a ``--mesh`` name: the
+    per-card record of process 0 (``mesh_record``), under
+    ``<out_dir>/<mesh>/``; a ``spmd.MetaMesh``: that process's cell, as
+    ``mesh_record`` reckons it."""
+    if isinstance(mesh, str):
+        rec = mesh_record(arch, shape, mesh, variant, search=search,
+                          **kw)
+        _write(rec, out_dir and Path(out_dir) / mesh, arch, shape, variant)
+        return rec
+    if mesh is not None:
+        kw["mesh"] = mesh
     cell = specs.build_cell(arch, shape, variant=variant, **kw)
     rebuild = dict(arch=arch, shape_name=shape, variant=variant, **kw)
     rec = {"arch": arch, "shape": shape, "variant": variant,
            "n_devices": 1, "device": "meta", "meta": cell.meta,
            **reckon(cell, **rebuild)}
     del cell
+    if mesh is not None:
+        return rec
     if arch == "webparf":
         four = specs.build_cell(arch, shape, variant=variant,
                                 **{**kw, "n_shards": 4})
@@ -424,18 +547,32 @@ def run_cell(arch: str, shape: str, out_dir: Optional[str] = None,
             largest = cut_batch(arch, shape, B // 2, variant=variant,
                                 **kw)[0]
         rec["largest_batch_that_fits"] = largest
+    _write(rec, out_dir, arch, shape, variant)
+    return rec
+
+
+def _write(rec: dict, out_dir, arch: str, shape: str, variant: str):
     if out_dir:
         p = Path(out_dir)
         p.mkdir(parents=True, exist_ok=True)
         suffix = "" if variant == "baseline" else f"@{variant}"
         (p / f"{arch}__{shape}{suffix}.json").write_text(
             json.dumps(rec, indent=1, default=str))
-    return rec
 
 
 def summary(rec: dict) -> str:
     """One line: fits, peak and reserved GiB, FLOP, bound ms on this
-    card."""
+    card (under a mesh: one card's, and its collective bytes)."""
+    if rec.get("mesh_program") == "not ported":
+        return (f"[{rec['mesh']}] {rec['arch']:20s} {rec['shape']:15s} "
+                f"mesh program not ported: {rec['why']}")
+    if "mesh" in rec:
+        return (f"[{rec['mesh']}] " + _summary(rec)
+                + f"  collectives {rec['collective_bytes']:.3e} B")
+    return _summary(rec)
+
+
+def _summary(rec: dict) -> str:
     mem = rec["memory"]["total_per_device"] / 2 ** 30
     res = rec["memory"]["reserved_needed"] / 2 ** 30
     line = (f"{rec['arch']:20s} {rec['shape']:15s} "
@@ -467,6 +604,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(OUT))
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells reckoned at once, a process each")
+    ap.add_argument("--mesh", default=None,
+                    help="single | multi | both | <dp>x<tp>, or several "
+                         "joined by commas: each cell reckoned per card")
     args = ap.parse_args(argv)
 
     cells = all_cells()
@@ -477,6 +617,11 @@ def main(argv=None) -> int:
     todo = cells if args.all else [(args.arch, args.shape)]
     if args.crawler or args.all:
         todo = list(todo) + [("webparf", "crawl_step")]
+    meshes = [None]
+    if args.mesh:
+        meshes = [m for name in args.mesh.split(",") for m in
+                  (("single", "multi") if name == "both" else (name,))]
+    jobs = [(arch, shape, m) for m in meshes for arch, shape in todo]
     if args.jobs > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -484,13 +629,13 @@ def main(argv=None) -> int:
                 args.jobs, mp_context=multiprocessing.get_context("spawn")
                 ) as pool:
             futs = [pool.submit(run_cell, arch, shape, args.out,
-                                args.variant)
-                    for arch, shape in todo]
+                                args.variant, mesh=m)
+                    for arch, shape, m in jobs]
             for f in futs:
                 print(summary(f.result()), flush=True)
         return 0
-    for arch, shape in todo:
-        rec = run_cell(arch, shape, args.out, args.variant)
+    for arch, shape, m in jobs:
+        rec = run_cell(arch, shape, args.out, args.variant, mesh=m)
         print(summary(rec), flush=True)
     return 0
 

@@ -22,12 +22,18 @@ card. The reference's choices are kept:
 ``batch`` overrides the shape's batch, ``seq_len`` an LM's length and
 ``cache_len`` an LM prefill's cache slots (the prompt's by default), so a
 cell can be sized as ``chip_smoke.py`` runs it. Given a ``mesh`` (a
-``DeviceMesh`` or a mesh shape), a train cell also names the reference's
-``in_shardings`` and ``out_shardings`` from the ported rules: the state's
-``trainer.state_shardings`` (the reference's ``_lm_state_shardings`` and
-its GNN and RecSys counterparts), the batch split over the data axes, the
-metrics replicated; an LM's microbatches count per data process. The
-per-card reckoning of a mesh cell is not made here.
+``DeviceMesh``, a mesh shape or a ``sharding.spmd.MetaMesh``), a train
+cell also names the reference's ``in_shardings`` and ``out_shardings``
+from the ported rules: the state's ``trainer.state_shardings`` (the
+reference's ``_lm_state_shardings`` and its GNN and RecSys
+counterparts), the batch split over the data axes, the metrics
+replicated; an LM's microbatches count per data process. A prefill or
+decode cell names ``_lm_cell``'s in-shardings (the parameters by
+``lm_specs``, the tokens' rows and the KV cache by ``rules.cache_specs``)
+and, on a ``DeviceMesh``, is placed. Under a ``MetaMesh`` a cell is one
+process's program on its blocks on meta, which ``launch/dryrun.py``
+reckons per card; ``mesh_program`` names the cells whose mesh program
+the port does not run yet.
 """
 from __future__ import annotations
 
@@ -51,16 +57,77 @@ class Cell(NamedTuple):
     fn: Callable
     args: tuple
     meta: dict
-    in_shardings: Any = None       # a train cell's, given a mesh
+    in_shardings: Any = None       # given a mesh
     out_shardings: Any = None
+    step_parts: Any = None         # a train cell's (loss_fn, optimizer)
 
 
-def _train_shardings(cell: Cell, mesh, family: str) -> Cell:
+def _mesh_kind(mesh) -> str:
+    """"meta" (a ``spmd.MetaMesh``: one process's blocks on meta),
+    "device" (a ``DeviceMesh``) or "shape"."""
+    from repro_torch.sharding import rules, spmd
+    if isinstance(mesh, spmd.MetaMesh):
+        return "meta"
+    return "device" if rules._is_device_mesh(mesh) else "shape"
+
+
+def _block_shape(shape, sharding) -> tuple:
+    from repro_torch.sharding import rules
+    return tuple(s.stop - s.start for s in
+                 rules.local_slices(tuple(shape), sharding))
+
+
+def _blocks(tree, shardings, device):
+    """This process's blocks of a tree of tensors placed by a tree of
+    ``NamedSharding``s of the same structure, newly allocated on
+    ``device`` (``_alloc``)."""
+    from repro_torch.sharding import rules
+    if isinstance(shardings, rules.NamedSharding):
+        sh = rules.NamedSharding(shardings.mesh, rules._guard(
+            shardings.spec, tree.shape, shardings.mesh))
+        return _alloc(_block_shape(tree.shape, sh), tree.dtype, device)
+    if shardings is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _blocks(v, shardings[k], device) for k, v in tree.items()}
+    return _rebuild(tree, [_blocks(v, sh, device)
+                           for v, sh in zip(tree, shardings)])
+
+
+def _rebuild(tree, parts):
+    """A tuple or NamedTuple like ``tree`` of ``parts``."""
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+def _block_cell(cell: Cell, mesh, family: str, kind: str) -> Cell:
+    """A train cell as one process of ``mesh`` (a ``spmd.MetaMesh``) runs
+    it: the state's blocks by the family's rules, its rows of the batch
+    (a single graph whole on every process, as the port's trainer takes
+    it), and ``trainer.make_train_step(..., shardings=)``."""
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer as TR
+    cell = _train_shardings(cell, mesh, family, whole_graph=(
+        kind in ("full_graph", "minibatch")))
+    state, batch = cell.args
+    state_sh, batch_sh = cell.in_shardings
+    dev = torch.device("meta")
+    loss_fn, opt = cell.step_parts
+    step = TR.make_train_step(loss_fn, opt, shardings=state_sh.params,
+                              microbatches=cell.meta.get("microbatches", 1))
+    return cell._replace(fn=step, args=(_blocks(state, state_sh, dev),
+                                        _blocks(batch, batch_sh, dev)),
+                         meta={**cell.meta,
+                               "mesh": dict(rules.mesh_sizes(mesh))})
+
+
+def _train_shardings(cell: Cell, mesh, family: str, *,
+                     whole_graph: bool = False) -> Cell:
     """``cell`` with the reference's in/out shardings on ``mesh``: the
     state by the family's rules, every batch leaf of the batch's rows
     split over the data axes (a leaf of other rows, BERT4Rec's shared
-    negatives, replicated; a graph's nodes and edges both split), the
-    metrics replicated."""
+    negatives, replicated; a graph's nodes and edges both split, or with
+    ``whole_graph`` a single graph whole, as the port's trainer takes
+    it), the metrics replicated."""
     from repro_torch.sharding import rules
     from repro_torch.train import trainer as TR
     state, batch = cell.args
@@ -70,7 +137,7 @@ def _train_shardings(cell: Cell, mesh, family: str) -> Cell:
     TR._map(n.append, batch)
     rep = rules.NamedSharding(mesh, ())
     batch_sh = TR._map(lambda x: rules.NamedSharding(
-        mesh, rows.spec[:x.dim()] if x.dim() and (
+        mesh, rows.spec[:x.dim()] if x.dim() and not whole_graph and (
             family == "gnn" or x.shape[0] == n[0].shape[0]) else ()), batch)
     metrics = {"loss": rep, "grad_norm": rep, "step": rep}
     return cell._replace(in_shardings=(state_sh, batch_sh),
@@ -132,7 +199,7 @@ def _lm_params(cfg: LMConfig, device) -> Dict[str, torch.Tensor]:
 def _lm_cell(arch: str, cfg: LMConfig, shape: ShapeSpec, variant: str,
              batch: Optional[int], seq_len: Optional[int],
              cache_len: Optional[int], microbatches: Optional[int],
-             device, dp: int = 1) -> Cell:
+             device, dp: int = 1, mesh=None) -> Cell:
     from repro_torch.models import transformer as T
     if variant == "opt" and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -148,14 +215,17 @@ def _lm_cell(arch: str, cfg: LMConfig, shape: ShapeSpec, variant: str,
         mb = microbatches or _lm_microbatches(cfg, B, S, dp)
         meta.update(microbatches=mb, gather_once=False)
         state = init_train_state(_lm_params(cfg, device), opt)
-        step = make_train_step(
-            lambda p, b: T.lm_loss(p, cfg, b[0], b[1]), opt,
-            microbatches=mb)
+        loss_fn = partial(_lm_loss, cfg)
+        step = make_train_step(loss_fn, opt, microbatches=mb)
         toks = (_alloc((B, S), i32, device), _alloc((B, S), i32, device))
-        return Cell(arch, shape.name, step, (state, toks), meta)
+        return Cell(arch, shape.name, step, (state, toks), meta,
+                    step_parts=(loss_fn, opt))
+    max_len = (cache_len or S) if shape.kind == "prefill" else S
+    if mesh is not None:
+        return _lm_serve_mesh(arch, cfg, shape, B, S, max_len, meta, device,
+                              mesh)
     model = _lm_model(cfg, device)
     if shape.kind == "prefill":
-        max_len = cache_len or S
         meta["cache_len"] = max_len
         fn = partial(_prefill, max_len=max_len)
         return Cell(arch, shape.name, fn,
@@ -166,9 +236,92 @@ def _lm_cell(arch: str, cfg: LMConfig, shape: ShapeSpec, variant: str,
                 (model, _alloc((B, 1), i32, device), cache), meta)
 
 
+def _lm_loss(cfg, params, batch):
+    from repro_torch.models import transformer as T
+    return T.lm_loss(params, cfg, batch[0], batch[1])
+
+
 def _prefill(model, tokens, *, max_len):
     from repro_torch.models import transformer as T
     return T.prefill_step(model, tokens, max_len=max_len)
+
+
+def _lm_serve_mesh(arch, cfg, shape, B, S, max_len, meta, device,
+                   mesh) -> Cell:
+    """A prefill or decode cell on ``mesh`` with the reference's
+    in-shardings (``_lm_cell``): the parameters by ``rules.lm_specs``, the
+    tokens' rows and the KV cache by ``rules.cache_specs`` for B rows (a
+    prefill's cache comes out in its decode cell's layout). On a mesh
+    shape the arguments are whole and ``fn`` is one card's; on a
+    ``spmd.MetaMesh`` they are one process's blocks on meta, and on a
+    ``DeviceMesh`` DTensors of this process's blocks (zeros), and ``fn``
+    is that process's program (``serve_on_mesh``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    meta.update(cache_len=max_len, mesh=dict(rules.mesh_sizes(mesh)))
+    kind = shape.kind
+    shapes = T.stack_params(T.LM(cfg, "meta"))
+    psh = rules.lm_specs(shapes, mesh)
+    layout = T.serve_layout(mesh, cfg, B, max_len)
+    rows = (layout.rows[0] if len(layout.rows) == 1 else
+            (layout.rows or None))
+    n_tok = S if kind == "prefill" else 1
+    tok_sh = rules.NamedSharding(mesh, rules._guard((rows, None), (B, n_tok),
+                                                    mesh))
+    cache = T.init_cache(cfg, B, max_len, device="meta")
+    cache_sh = rules.cache_specs(cache, mesh, B)
+    meta["layout"] = layout._asdict()
+    in_sh = (psh, tok_sh) + ((cache_sh,) if kind == "decode" else ())
+    mk = _mesh_kind(mesh)
+    if mk == "shape":
+        whole = _lm_cell(arch, cfg, shape, "baseline", B, S, max_len, None,
+                         device)
+        return whole._replace(meta={**whole.meta, **meta},
+                              in_shardings=in_sh)
+    dev = torch.device("meta") if mk == "meta" else device
+    tok = _alloc((B, n_tok), torch.int32, torch.device("meta"))
+    args = [_blocks(shapes, psh, dev), _blocks(tok, tok_sh, dev)]
+    if kind == "decode":
+        args.append(_blocks(cache, cache_sh, dev))
+    if mk == "device":
+        args = [_placed_tree(a, sh) for a, sh in zip(args, in_sh)]
+    fn = partial(serve_on_mesh, kind, cfg, psh, layout, max_len)
+    return Cell(arch, shape.name, fn, tuple(args), meta, in_shardings=in_sh)
+
+
+def _placed_tree(tree, shardings):
+    from repro_torch.sharding import rules
+    from repro_torch.train.trainer import _placed
+    if isinstance(shardings, rules.NamedSharding):
+        return _placed(tree, shardings)
+    if shardings is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _placed_tree(v, shardings[k]) for k, v in tree.items()}
+    return _rebuild(tree, [_placed_tree(v, sh)
+                           for v, sh in zip(tree, shardings)])
+
+
+def serve_on_mesh(kind, cfg, shardings, layout, max_len, params, tokens,
+                  cache=None):
+    """One process's prefill or decode on the mesh of ``shardings``: its
+    parameter blocks (plain, or DTensors whose blocks are taken) as a
+    ``spmd.Joined``, its token rows and cache block, under
+    ``rules.activation_mesh`` of the mesh (``transformer.prefill_step`` /
+    ``decode_step``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.common import local
+    from repro_torch.sharding import rules, spmd
+    mesh = next(iter(shardings.values())).mesh
+    J = spmd.Joined({k: local(v) for k, v in params.items()}, shardings)
+    with rules.activation_mesh(mesh):
+        if kind == "prefill":
+            return T.prefill_step(J, local(tokens), max_len=max_len,
+                                  cfg=cfg, layout=layout)
+        cache = type(cache)(*(None if x is None else local(x)
+                              for x in cache))
+        return T.decode_step(J, local(tokens), cache, cfg=cfg,
+                             layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -211,9 +364,15 @@ def _gnn_cell(arch: str, cfg: GNNConfig, shape: ShapeSpec,
         meta["batch"] = Bt
     params = {k: _alloc(s, torch.float32, device)
               for k, (s, _) in G.param_shapes(cfg, F, C).items()}
-    step = make_train_step(lambda p, b: loss(p, cfg, b), opt)
+    loss_fn = partial(_cfg_loss, loss, cfg)
+    step = make_train_step(loss_fn, opt)
     return Cell(arch, shape.name, step,
-                (init_train_state(params, opt), graph), meta)
+                (init_train_state(params, opt), graph), meta,
+                step_parts=(loss_fn, opt))
+
+
+def _cfg_loss(loss, cfg, params, batch):
+    return loss(params, cfg, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +447,11 @@ def _recsys_cell(arch: str, cfg: RecSysConfig, shape: ShapeSpec,
     b = _recsys_batch_shapes(cfg, shape, B, device)
     if shape.kind == "train":
         opt = adamw(lr=1e-3)
-        step = make_train_step(
-            lambda p, x: R.TRAIN_LOSS[cfg.kind](p, cfg, x), opt)
+        loss_fn = partial(_cfg_loss, R.TRAIN_LOSS[cfg.kind], cfg)
+        step = make_train_step(loss_fn, opt)
         return Cell(arch, shape.name, step,
-                    (init_train_state(params, opt), b), meta)
+                    (init_train_state(params, opt), b), meta,
+                    step_parts=(loss_fn, opt))
     fn_map = R.SERVE if shape.kind == "serve" else R.RETRIEVAL
     return Cell(arch, shape.name, partial(_call, fn_map[cfg.kind], cfg),
                 (params, b), meta)
@@ -323,9 +483,57 @@ def _crawl_cell(arch: str, cfg: CrawlConfig, shape: ShapeSpec,
                 meta)
 
 
+def _crawl_block_cell(arch: str, cfg: CrawlConfig, shape: ShapeSpec,
+                      mesh, n_shards: int) -> Cell:
+    """The crawl cell as one data process of ``mesh`` holds it: the state
+    of ``n_shards`` shards (one a data process) on meta, the leaves that
+    ``state_specs`` splits cut to this process's rows."""
+    from repro_torch.core import crawler as CR
+    from repro_torch.core.stages import state_specs
+    from repro_torch.sharding import rules, spmd
+    whole = CR.init_state(cfg, n_shards, "meta")
+    specs = state_specs()
+    g = 0
+    for a in rules.dp_axes(mesh):
+        ax = spmd.Axis(mesh, a)
+        g = g * ax.size + ax.index
+    fields = {}
+    for name in type(whole)._fields:
+        t = getattr(whole, name)
+        if getattr(specs, name) is not None:
+            t = torch.empty((t.shape[0] // n_shards,) + tuple(t.shape[1:]),
+                            dtype=t.dtype, device="meta")
+        fields[name] = t
+    meta = dict(family="crawl", kernel_impl=cfg.kernel_impl,
+                ordering=cfg.ordering, n_shards=n_shards, n_local=1,
+                shard=g, config=dataclasses.asdict(cfg),
+                mesh=dict(rules.mesh_sizes(mesh)))
+    return Cell(arch, shape.name, None, (type(whole)(**fields),), meta)
+
+
 # ---------------------------------------------------------------------------
 # Entry
 # ---------------------------------------------------------------------------
+
+# the cells whose mesh program the port does not run yet (ROADMAP item
+# 19d): the reference splits their batch, candidates, or nodes and edges
+# over the data axes
+NOT_PORTED_ON_MESH = {
+    ("recsys", "serve"): "the reference splits the serving batch over the "
+                         "data axes; the port serves RecSys on one card",
+    ("recsys", "retrieval"): "the reference splits the candidates over the "
+                             "data axes; the port retrieves on one card",
+    ("gnn", "full_graph"): "the reference splits the graph's nodes and "
+                           "edges over the data axes; the port's trainer "
+                           "computes the whole graph on every process"}
+
+
+def mesh_program(arch: str, shape_name: str) -> Optional[str]:
+    """None when the port runs the cell's mesh program, else why not."""
+    cfg, _ = get_arch(arch)
+    kind = get_shape(arch, shape_name).kind
+    return NOT_PORTED_ON_MESH.get((getattr(cfg, "family", None), kind))
+
 
 def build_cell(arch: str, shape_name: str, *, variant: str = "baseline",
                batch: Optional[int] = None, seq_len: Optional[int] = None,
@@ -334,27 +542,43 @@ def build_cell(arch: str, shape_name: str, *, variant: str = "baseline",
                cfg=None, mesh=None) -> Cell:
     """The cell's step and its arguments on ``device`` (meta: no storage).
     ``cfg`` replaces the arch's config (a cut depth, a crawl ordering);
-    ``microbatches`` an LM train step's (``_lm_microbatches`` by default);
-    ``mesh`` gives a train cell its shardings."""
+    ``microbatches`` an LM train step's (``_lm_microbatches`` by default).
+    ``mesh`` gives a train, prefill or decode cell the reference's
+    shardings; under a ``spmd.MetaMesh`` (device meta) the cell is that
+    process's program on its blocks (a train cell's step
+    ``trainer.make_train_step(..., shardings=)``; the crawl cell's state
+    at one shard a data process, its rows by
+    ``core.stages.state_specs``), and on a
+    ``DeviceMesh`` a serving cell is placed. A cell whose mesh program
+    the port does not run (``mesh_program``) raises under a
+    ``MetaMesh``."""
     dev = resolve_device(device)
     if cfg is None:
         cfg, _ = get_arch(arch)
     shape = get_shape(arch, shape_name)
     family = getattr(cfg, "family", None)
     dp = 1
+    mk = None if mesh is None else _mesh_kind(mesh)
     if mesh is not None:
         from repro_torch.sharding import rules
         sizes = rules.mesh_sizes(mesh)
         for a in rules.dp_axes(mesh):
             dp *= sizes[a]
+        why = NOT_PORTED_ON_MESH.get((family, shape.kind))
+        if mk == "meta" and why:
+            raise ValueError(f"{arch} {shape_name}: no mesh program: {why}")
+        if mk == "meta" and dev.type != "meta":
+            raise ValueError("a MetaMesh cell is built on meta")
     if family == "lm":
         cell = _lm_cell(arch, cfg, shape, variant, batch, seq_len,
-                        cache_len, microbatches, dev, dp)
+                        cache_len, microbatches, dev, dp, mesh)
     elif family == "gnn":
         cell = _gnn_cell(arch, cfg, shape, batch, dev)
     elif family == "recsys":
         cell = _recsys_cell(arch, cfg, shape, variant, batch, dev)
     elif family == "crawl":
+        if mk == "meta":
+            return _crawl_block_cell(arch, cfg, shape, mesh, dp)
         return _crawl_cell(arch, cfg, shape, n_shards, dev)
     else:
         raise ValueError(f"unknown family for {arch}")
@@ -362,4 +586,6 @@ def build_cell(arch: str, shape_name: str, *, variant: str = "baseline",
                            "batched_graphs")
     if mesh is None or not train:
         return cell
+    if mk == "meta":
+        return _block_cell(cell, mesh, family, shape.kind)
     return _train_shardings(cell, mesh, family)

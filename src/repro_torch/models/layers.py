@@ -131,10 +131,43 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Hq, 1, hd).to(v_cache.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, valid: torch.Tensor):
+    """``decode_attention`` over one process's segment of a cache whose
+    sequence a mesh splits, unnormalised, for ``spmd.merge_softmax``:
+    valid (B, S_l) marks the segment's slots below the cache's length.
+    Returns f32 (m, l, acc): (B, Hkv, g, 1) the scores' max (-inf where
+    the segment holds no valid slot), (B, Hkv, g, 1) the sum of
+    exp(s - m) (0 there) and (B, Hkv, g, hd) the p-weighted sum of v. p
+    stays f32 (the one-card form rounds p / l to the cache's dtype
+    before its product with v, which a merge can do only after the
+    normalisation: a bf16 cache's results differ from one card's by that
+    rounding)."""
+    B, Hq, _, hd = q.shape
+    Hkv = k_cache.shape[1]
+    qg = (q / math.sqrt(hd)).reshape(B, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float())
+    s = torch.where(valid[:, None, None, :], s, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return m, l, acc
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor          # (B, Hkv, S, hd)
     v: torch.Tensor          # (B, Hkv, S, hd)
     length: torch.Tensor     # (B,) int32 — valid prefix length
+
+
+class SeqSplit(NamedTuple):
+    """How a mesh splits a KV cache's sequence: the ``spmd.Axis``es that
+    split it (major first; none: every process holds every slot) and this
+    process's segment among their product, slots ``index * S_l`` to
+    ``(index + 1) * S_l - 1`` of its block of S_l."""
+    axes: tuple
+    index: int
 
 
 class Attention(nn.Module):
@@ -199,7 +232,9 @@ def _project_qkv_tp(p, cfg: LMConfig, x: torch.Tensor, tp):
         if b is not None:
             t = t + b
         if split and heads % tp.size:
-            t, split = spmd.tp_gather(t, -1, tp), False
+            # joined along the last axis: copied so the head dim stays
+            # contiguous, as the card's attention kernels take it
+            t, split = spmd.tp_gather(t, -1, tp).contiguous(), False
         t = t.view(B, S, -1, hd).transpose(1, 2)
         return constrain(t, "dp", "tp", None, None), split
 
@@ -232,33 +267,41 @@ def _heads_tp(q, k, v, cfg: LMConfig, q_loc: bool, kv_loc: bool, tp):
 
 def _attn_tp(p, cfg: LMConfig, x: torch.Tensor, positions, tp):
     """Full-sequence attention on this process's heads; the row-parallel
-    output projection's partial sums added over the model axis."""
+    output projection's partial sums added over the model axis. Returns
+    (out, k, v): k and v as projected, this process's heads when the axis
+    splits them, else every head."""
     B, S, _ = x.shape
     q, k, v, q_loc, kv_loc = _project_qkv_tp(p, cfg, x, tp)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    k_out, v_out = k, v
     q, k, v, local = _heads_tp(q, k, v, cfg, q_loc, kv_loc, tp)
     out = chunked_attention(q, k, v, causal=True)
     out = out.transpose(1, 2).reshape(B, S, -1)
     if _split(cfg.n_heads * cfg.head_dim, tp):       # wo: this process's rows
         if not local:
             out = spmd.tp_split(out, -1, tp)
-        return spmd.tp_reduce(out @ p.wo, tp)
+        return spmd.tp_reduce(out @ p.wo, tp), k_out, v_out
     out = constrain(out, "dp", None, "tp")   # every head: wo is whole
-    return out @ p.wo
+    return out @ p.wo, k_out, v_out
 
 
 def attn_block(p: Attention, cfg: LMConfig, x: torch.Tensor, *,
                positions: torch.Tensor, cache: Optional[KVCache] = None):
     """Full-sequence attention (prefill). Returns (out, new_cache); the
     cache, when given, receives this sequence's k and v. Under a real
-    mesh (training) each process attends with its own heads and no cache
-    is taken."""
+    mesh each process attends with its own heads, and the new cache's k
+    and v are this process's heads when the model axis splits them (every
+    head otherwise), for ``transformer.prefill_step`` to lay out."""
     tp = spmd.tp_axis()
     if tp is not None:
-        if cache is not None:
-            raise ValueError("attn_block: no KV cache under a train mesh")
-        return _attn_tp(p, cfg, x, positions, tp), None
+        out, k, v = _attn_tp(p, cfg, x, positions, tp)
+        if cache is None:
+            return out, None
+        B, S, _ = x.shape
+        return out, KVCache(k.to(cache.k.dtype), v.to(cache.v.dtype),
+                            torch.full((B,), S, dtype=torch.int32,
+                                       device=x.device))
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
@@ -274,11 +317,59 @@ def attn_block(p: Attention, cfg: LMConfig, x: torch.Tensor, *,
     return out @ p.wo, new_cache
 
 
+def _attn_decode_mesh(p, cfg: LMConfig, x: torch.Tensor, cache: KVCache,
+                      seq: SeqSplit, tp):
+    """``attn_decode_block`` on a real mesh whose axes ``seq`` split the
+    cache's sequence: q, k and v column-parallel, joined to every head
+    (each process holds every head of its own slots); the one process
+    whose segment holds slot ``length`` (row 0's) writes the new k and v
+    there, every other one writes its own slot back; each process attends
+    over its segment and the parts are merged over ``seq.axes``; then
+    ``wo`` row-parallel."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q, k, v, q_loc, kv_loc = _project_qkv_tp(p, cfg, x, tp)
+    pos = cache.length.float()
+    q = apply_rope(q, pos[:, None, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None, None], cfg.rope_theta)
+    if q_loc:
+        q = spmd.tp_gather(q, 1, tp)
+    if kv_loc:
+        k, v = spmd.tp_gather(k, 1, tp), spmd.tp_gather(v, 1, tp)
+    S_l = cache.k.shape[2]
+    first = seq.index * S_l
+    rel = cache.length[:1].long() - first
+    mine = ((rel >= 0) & (rel < S_l)).reshape(1, 1, 1, 1)
+    idx = rel.clamp(0, S_l - 1)
+    for c, new in ((cache.k, k), (cache.v, v)):
+        c.index_copy_(2, idx, torch.where(mine, new.to(c.dtype),
+                                          c.index_select(2, idx)))
+    new_len = cache.length + 1
+    slots = first + torch.arange(S_l, device=x.device)
+    valid = slots[None, :] < new_len.reshape(-1, 1)
+    m, l, acc = decode_attention_partial(q, cache.k, cache.v, valid)
+    out = spmd.merge_softmax(m, l, acc, seq.axes)
+    out = out.reshape(B, cfg.n_heads, 1, hd).to(cache.v.dtype)
+    out = out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd)
+    if _split(cfg.n_heads * hd, tp):                 # wo: this process's rows
+        out = spmd.tp_reduce(spmd.local_part(out, -1, tp) @ p.wo, tp)
+    else:
+        out = out @ p.wo
+    return out, KVCache(cache.k, cache.v, new_len)
+
+
 def attn_decode_block(p: Attention, cfg: LMConfig, x: torch.Tensor,
-                      cache: KVCache):
+                      cache: KVCache, seq: Optional[SeqSplit] = None):
     """One-token decode step, x (B, 1, d). The new k and v are written IN
     PLACE into the cache at slot ``length``, which every row shares (the
-    reference takes row 0's, too); the cache must have a free slot there."""
+    reference takes row 0's, too); the cache must have a free slot there.
+    Under a real mesh ``cache`` is this process's block and ``seq`` says
+    how the mesh splits its sequence (``_attn_decode_mesh``; none when
+    omitted)."""
+    tp = spmd.tp_axis()
+    if tp is not None:
+        return _attn_decode_mesh(p, cfg, x, cache, seq or SeqSplit((), 0),
+                                 tp)
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     pos = cache.length.float()
@@ -545,26 +636,74 @@ def _moe_spmd(p, m: MoEConfig, x: torch.Tensor, tp):
     return spmd.tp_gather(out, 1, tp), spmd.mesh_mean(aux, tp)
 
 
-def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int = 1):
+def _moe_one_group(p, m: MoEConfig, x: torch.Tensor, rows, tp):
+    """The reference's ``_moe_local`` on a real mesh: every token of the
+    step routed as one group. x (B_l, S, d) is this data process's rows
+    (``rows`` the data axes that split them, major first; none when every
+    process holds every row); the tokens are joined over ``rows``, routed
+    once (every process alike, as one card routes them: ``_moe_grouped``
+    at (1, 1)), each model process runs its own experts (all of them when
+    the axis does not divide E), the experts' outputs are joined over the
+    model axis and combined in the one-card order, and this process keeps
+    its rows. For a decode step, whose tokens are few. Inference only: a
+    gradient would not pass the joins."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("moe_block: the one-group route on a mesh serves "
+                         "only; a train step's model axis must divide S "
+                         "and the experts")
+    B, S, d = x.shape
+    E = m.n_experts
+    xt = spmd.gather_axes(x.reshape(B * S, d), 0, rows)
+    T = xt.shape[0]
+    logits = (xt.float() @ p.router)[None]
+    capacity = moe_capacity(m, T)
+    w, e_idx, slot, keep, aux = moe_dispatch(logits, m, capacity)
+    w, e_idx, slot, keep = w[0], e_idx[0], slot[0], keep[0]
+    offset = torch.zeros((T, 1), dtype=torch.long, device=x.device)
+    buckets = _moe_scatter(xt, e_idx, slot, keep, offset, E, capacity)
+    split = _split(E, tp)
+    y = _experts(p, spmd.local_part(buckets, 0, tp) if split else buckets)
+    if split:
+        y = spmd.tp_gather(y, 0, tp)
+    out = _moe_combine(y, w, e_idx, slot, keep, offset, capacity)
+    mine = 0
+    for a in rows:
+        mine = mine * a.size + a.index
+    out = out.view(-1, B * S, d)[mine]
+    return out.to(x.dtype).view(B, S, d), aux
+
+
+def moe_block(p, cfg: LMConfig, x: torch.Tensor, *, n_groups: int = 1,
+              rows=None):
     """x (B, S, d) -> (out, aux_loss): the routed experts, then the shared
     experts and the dense residual added in the reference's order. The
     reference's choice between its paths: under an active mesh shape
     whose data axes divide B and whose model axis divides S and E, its
     groups (``_moe_grouped`` at (dp, tp)); otherwise all B * S tokens as
     one group (at (1, 1); decode's S = 1 under a model axis > 1 among
-    them). Under a real mesh x is this data process's batch and the
-    groups are the processes' (``_moe_spmd``); a model axis that does not
-    divide S and E raises there. ``n_groups`` is unused, as in the
-    reference. No host sync: every size is known from the shapes."""
+    them). Under a real mesh x is this process's rows, split over the
+    data axes ``rows`` (all of them by default; none when every process
+    holds every row, as a serving mesh holds fewer rows than data
+    processes): the groups are the processes' (``_moe_spmd``) under the
+    same condition on the whole batch, and otherwise one group
+    (``_moe_one_group``). ``n_groups`` is unused, as in the reference. No
+    host sync: every size is known from the shapes."""
     m = cfg.moe
     B, S, _ = x.shape
     tp = spmd.tp_axis()
     if tp is not None:
-        if S % tp.size or m.n_experts % tp.size:
-            raise ValueError(f"moe_block: a model axis of {tp.size} must "
-                             f"divide S={S} and the {m.n_experts} "
-                             f"experts")
-        out, aux = _moe_spmd(p, m, x, tp)
+        dps = spmd.dp_axes()
+        rows = dps if rows is None else tuple(rows)
+        n_dp = n_rows = 1
+        for a in dps:
+            n_dp *= a.size
+        for a in rows:
+            n_rows *= a.size
+        if (B * n_rows) % n_dp or len(rows) != len(dps) or S % tp.size \
+                or m.n_experts % tp.size:
+            out, aux = _moe_one_group(p, m, x, rows, tp)
+        else:
+            out, aux = _moe_spmd(p, m, x, tp)
     else:
         groups = rules.active_groups()
         if groups is None or B % groups[0] or S % groups[1] \

@@ -43,12 +43,12 @@ Params = Dict[str, torch.Tensor]
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Clipped row gather: (...) int -> (..., d). A table placed on a train
-    mesh with its rows split over the model axis (a DTensor, as
+    mesh with its rows split over the model axis (a ``spmd.RowBlock``, as
     ``mesh_params`` hands it on) is looked up row-parallel
     (``spmd.row_parallel_lookup``): the same bits."""
     idx = ids.long().clamp(0, table.shape[0] - 1)
-    from repro_torch.sharding import rules, spmd
-    if rules._is_dtensor(table):
+    from repro_torch.sharding import spmd
+    if isinstance(table, spmd.RowBlock):
         return spmd.row_parallel_lookup(
             table.to_local(), idx, spmd.Axis(table.device_mesh, "model"),
             _fetch)
@@ -450,11 +450,10 @@ def wide_deep_logit(params: Params, cfg: RecSysConfig, batch
 
 def _column(w: torch.Tensor) -> torch.Tensor:
     """A (rows,) weight as a (rows, 1) table, placed as it is."""
-    if not hasattr(w, "device_mesh"):
-        return w[:, None]
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(w.to_local()[:, None], w.device_mesh,
-                              w.placements, run_check=False)
+    from repro_torch.sharding import spmd
+    if isinstance(w, spmd.RowBlock):
+        return spmd.RowBlock(w.block[:, None], w.device_mesh, w.rows)
+    return w[:, None]
 
 
 def wide_deep_train_loss(params, cfg, batch):
@@ -593,12 +592,13 @@ def mesh_params(params: Params) -> Params:
     """The parameters a RecSys loss reads under a real train mesh, where
     the trainer hands them on as a ``spmd.Joined`` (this process's blocks
     and the shardings they were placed by, ``rules.recsys_specs``): a
-    table whose rows the model axis splits stays split (a DTensor, which
-    ``embedding_lookup`` looks up row-parallel); a dense weight it
-    splits, and BERT4Rec's position table (read by a slice, not a
-    lookup), is joined whole over the axis (they are small; the gradient
-    goes back to this process's part). Otherwise the parameters as they
-    are."""
+    table whose rows the model axis splits stays split (a
+    ``spmd.RowBlock``: its block and the whole table's rows, which
+    ``embedding_lookup`` looks up row-parallel on any mesh, a
+    ``spmd.MetaMesh`` too); a dense weight it splits, and BERT4Rec's
+    position table (read by a slice, not a lookup), is joined whole over
+    the axis (they are small; the gradient goes back to this process's
+    part). Otherwise the parameters as they are."""
     from repro_torch.sharding import rules, spmd
     if not isinstance(params, spmd.Joined):
         return params
@@ -610,10 +610,9 @@ def mesh_params(params: Params) -> Params:
         if not split:
             out[k] = params[k]
         elif rules.TABLE_PATHS.search(k) and k != "pos":   # looked up
-            from torch.distributed.tensor import DTensor
-            out[k] = DTensor.from_local(params[k], sh.mesh,
-                                        rules.placements(sh),
-                                        run_check=False)
+            block = params[k]
+            out[k] = spmd.RowBlock(block, sh.mesh, block.shape[0]
+                                   * spmd.Axis(sh.mesh, "model").size)
         else:
             out[k] = spmd.tp_gather(params[k], split[0],
                                     spmd.Axis(sh.mesh, "model"))

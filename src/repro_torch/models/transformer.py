@@ -218,16 +218,17 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
         B, S)
 
 
-def _ffn(layer, cfg: LMConfig, z: torch.Tensor):
+def _ffn(layer, cfg: LMConfig, z: torch.Tensor, rows=None):
     """The layer's MLP or MoE on the normed ``z``: (out, aux), aux None
-    for a dense layer (the reference adds a zero, which changes no sum)."""
+    for a dense layer (the reference adds a zero, which changes no sum).
+    ``rows``: on a serving mesh, the data axes that split z's rows."""
     if hasattr(layer, "moe"):
-        return L.moe_block(layer.moe, cfg, z)
+        return L.moe_block(layer.moe, cfg, z, rows=rows)
     return L.mlp_block(layer.mlp, z, width=cfg.d_ff), None
 
 
 def _layer(layer: DecoderLayer, cfg: LMConfig, x, positions,
-           cache: Optional[L.KVCache] = None):
+           cache: Optional[L.KVCache] = None, rows=None):
     """One decoder layer over the whole sequence: (x', the sequence's k and
     v in ``cache``'s dtype, or None without a cache, the MoE aux loss or
     None)."""
@@ -235,7 +236,7 @@ def _layer(layer: DecoderLayer, cfg: LMConfig, x, positions,
                                                      cfg.norm_eps),
                          positions=positions, cache=cache)
     x = x + h
-    mo, aux = _ffn(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps))
+    mo, aux = _ffn(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps), rows)
     return x + mo, kv, aux
 
 
@@ -385,12 +386,187 @@ def _with_caches(model: LM, cache: LMCache):
     return out + list(zip(model.layers, cache.main_k, cache.main_v))
 
 
+# ---------------------------------------------------------------------------
+# Serving on a (data, model) mesh, one process a card
+# ---------------------------------------------------------------------------
+
+class ServeLayout(NamedTuple):
+    """Where a serving cell's rows and cache live on its mesh: the data
+    axes that split the batch's rows (and the tokens' and the cache's),
+    and the axes that split the cache's sequence, each major first
+    (``rules.cache_specs``' choice for the batch)."""
+    rows: Tuple[str, ...]
+    seq: Tuple[str, ...]
+
+
+def serve_layout(mesh, cfg: LMConfig, batch: int,
+                 max_len: int) -> ServeLayout:
+    """The layout of a decode cell's cache of ``batch`` rows and
+    ``max_len`` slots on ``mesh`` (a ``DeviceMesh``, a ``MetaMesh`` or a
+    shape), which a prefill's cache takes so that decode carries on from
+    it: the reference's ``_lm_cell`` specs, guarded."""
+    from repro_torch.sharding import rules
+    shp = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    spec = rules.cache_specs(LMCache(None, None, shp, shp, (batch,)), mesh,
+                             batch).main_k.spec
+    return ServeLayout(rules._axes(spec[1]), rules._axes(spec[3]))
+
+
+def _serve_mesh():
+    from repro_torch.sharding import rules
+    mesh = rules.active_device_mesh()
+    if mesh is None:
+        raise ValueError("serving placed parameters needs an active mesh "
+                         "(rules.activation_mesh of a DeviceMesh or a "
+                         "MetaMesh)")
+    return mesh
+
+
+def _segment(mesh, names) -> Tuple[tuple, int]:
+    """The ``spmd.Axis``es of ``names`` and this process's index in their
+    product (major first)."""
+    axes = tuple(spmd.Axis(mesh, a) for a in names)
+    g = 0
+    for a in axes:
+        g = g * a.size + a.index
+    return axes, g
+
+
+def _logits(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """The head's f32 logits of ``x``: on a mesh whose model axis splits
+    the vocabulary, this process's columns, joined over the axis."""
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    logits = (x @ head).float()
+    tp = spmd.tp_axis()
+    if L._split(cfg.vocab_size, tp):
+        logits = spmd.tp_gather(logits, -1, tp)
+    return logits
+
+
+def _cache_block(t: torch.Tensor, cfg: LMConfig, max_len: int,
+                 layout: ServeLayout, mesh) -> torch.Tensor:
+    """A prefill layer's k or v, t (B_l, H, S, hd) of this process's rows
+    (its heads when the model axis splits them), as this process's block
+    of the decode cell's cache: (B_l, Hkv, S_l, hd), slots past S zero.
+    Heads split over the model axis become a sequence split by one
+    all-to-all over it (``spmd.heads_to_sequence``) when "model" is the
+    last axis that splits the sequence, the data axes' part of the
+    sequence taken first; otherwise the heads are joined and each process
+    slices its segment."""
+    B, H, S, hd = t.shape
+    if S < max_len:
+        t = torch.nn.functional.pad(t, (0, 0, 0, max_len - S))
+    axes, g = _segment(mesh, layout.seq)
+    tp = spmd.tp_axis()
+    if H < cfg.n_kv_heads:
+        if axes and axes[-1].name == tp.name:
+            outer, g_out = _segment(mesh, layout.seq[:-1])
+            n = 1
+            for a in outer:
+                n *= a.size
+            part = max_len // n
+            t = t[:, :, g_out * part:(g_out + 1) * part]
+            return spmd.heads_to_sequence(t, tp).contiguous()
+        t = spmd.tp_gather(t, 1, tp)
+    n = 1
+    for a in axes:
+        n *= a.size
+    part = max_len // n
+    return t[:, :, g * part:(g + 1) * part].contiguous()
+
+
+def _serve_layer(leaves, cfg: LMConfig, x, positions, kv, rows):
+    """One prefill layer on the mesh, its parameters joined over the data
+    axes inside it: (x', k, v)."""
+    layer = _view({name: spmd.joined(t) for name, t in leaves.items()})
+    x, kv, _ = _layer(layer, cfg, x, positions, kv, rows)
+    return x, kv.k, kv.v
+
+
+def _decode_layer(leaves, cfg: LMConfig, x, kv: L.KVCache, seq, rows):
+    layer = _view({name: spmd.joined(t) for name, t in leaves.items()})
+    h, _ = L.attn_decode_block(layer.attn, cfg,
+                               L.rms_norm(x, layer.ln1, cfg.norm_eps), kv,
+                               seq)
+    x = x + h
+    return x + _ffn(layer, cfg, L.rms_norm(x, layer.ln2, cfg.norm_eps),
+                    rows)[0]
+
+
+def _prefill_mesh(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int,
+                  layout: ServeLayout) -> Tuple[torch.Tensor, LMCache]:
+    mesh = _serve_mesh()
+    rows, _ = _segment(mesh, layout.rows)
+    B, S = tokens.shape
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
+    positions = _positions(B, S, x.device)
+    prefix, main = _layer_views(params, cfg)
+    seq, _ = _segment(mesh, layout.seq)
+    n = 1
+    for a in seq:
+        n *= a.size
+    dt = _dtype(cfg)
+    shp = (B, cfg.n_kv_heads, max_len // n, cfg.head_dim)
+
+    def zeros(k):
+        return torch.zeros((k,) + shp, dtype=dt, device=x.device)
+    P = len(prefix)
+    pk, pv = (zeros(P), zeros(P)) if P else (None, None)
+    mk, mv = zeros(len(main)), zeros(len(main))
+    slots = ([(pk[i], pv[i]) for i in range(P)]
+             + [(mk[i], mv[i]) for i in range(len(main))])
+    for leaves, (k, v) in zip(prefix + main, slots):
+        x, lk, lv = _serve_layer(leaves, cfg, x, positions,
+                                 L.KVCache(k, v, None), rows)
+        k.copy_(_cache_block(lk, cfg, max_len, layout, mesh))
+        v.copy_(_cache_block(lv, cfg, max_len, layout, mesh))
+        del lk, lv
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, x[:, -1:])
+    length = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, LMCache(pk, pv, mk, mv, length)
+
+
+def _decode_mesh(params, cfg: LMConfig, tokens: torch.Tensor,
+                 cache: LMCache, layout: ServeLayout
+                 ) -> Tuple[torch.Tensor, LMCache]:
+    mesh = _serve_mesh()
+    rows, _ = _segment(mesh, layout.rows)
+    seq = L.SeqSplit(*_segment(mesh, layout.seq))
+    x = L.embed_tokens(params["embed"], tokens, cfg.vocab_size)
+    prefix, main = _layer_views(params, cfg)
+    ks = list(cache.main_k) if cache.prefix_k is None else \
+        list(cache.prefix_k) + list(cache.main_k)
+    vs = list(cache.main_v) if cache.prefix_v is None else \
+        list(cache.prefix_v) + list(cache.main_v)
+    for leaves, k, v in zip(prefix + main, ks, vs):
+        x = _decode_layer(leaves, cfg, x, L.KVCache(k, v, cache.length),
+                          seq, rows)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x), cache._replace(length=cache.length + 1)
+
+
 @torch.inference_mode()
-def decode_step(model: LM, tokens: torch.Tensor,
-                cache: LMCache) -> Tuple[torch.Tensor, LMCache]:
+def decode_step(model: LM, tokens: torch.Tensor, cache: LMCache, *,
+                cfg: Optional[LMConfig] = None,
+                layout: Optional[ServeLayout] = None
+                ) -> Tuple[torch.Tensor, LMCache]:
     """tokens (B, 1) -> (logits (B, 1, V) f32, cache). One new token against
     a KV cache of ``max_len`` slots (``cache.length`` valid); its k and v
-    are written IN PLACE into the cache's tensors."""
+    are written IN PLACE into the cache's tensors.
+
+    On a serving mesh (``model`` a ``spmd.Joined`` of this process's
+    parameter blocks placed by ``rules.lm_specs``, under
+    ``rules.activation_mesh`` of the mesh; ``cfg`` and ``layout``, the
+    cache's ``serve_layout``, given) ``tokens`` and ``cache`` are this
+    process's blocks: each layer's blocks are joined over the data axes
+    inside it, the projections and the MLP are tensor-parallel, each
+    process attends over its segment of the cache and the segments are
+    merged (``layers.attn_decode_block``), an MoE routes the step's
+    tokens as the reference does, and the logits are this process's rows
+    over the whole vocabulary."""
+    if isinstance(model, spmd.Joined):
+        return _decode_mesh(model, cfg, tokens, cache, layout)
     cfg = model.cfg
     x = model.embed[tokens]
     for layer, k, v in _with_caches(model, cache):
@@ -406,16 +582,27 @@ def decode_step(model: LM, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def prefill_step(model: LM, tokens: torch.Tensor, *,
-                 max_len: Optional[int] = None
+                 max_len: Optional[int] = None,
+                 cfg: Optional[LMConfig] = None,
+                 layout: Optional[ServeLayout] = None
                  ) -> Tuple[torch.Tensor, LMCache]:
     """Full-sequence prefill: (last-position logits (B, 1, V) f32, cache).
     The cache has ``max_len`` slots (S by default) and holds the prompt's k
-    and v in its first S, as the reference's cache padded to ``max_len``."""
-    cfg = model.cfg
-    B, S = tokens.shape
+    and v in its first S, as the reference's cache padded to ``max_len``.
+
+    On a serving mesh (``model`` a ``spmd.Joined``, ``cfg`` and ``layout``
+    given, as ``decode_step`` takes them) ``tokens`` are this process's
+    rows, each process attends with its own heads (``flash_attention``),
+    and the cache comes out as this process's block in ``layout``, the
+    decode cell's."""
+    S = tokens.shape[1]
     max_len = S if max_len is None else max_len
     if max_len < S:
         raise ValueError(f"prefill_step: max_len {max_len} < prompt {S}")
+    if isinstance(model, spmd.Joined):
+        return _prefill_mesh(model, cfg, tokens, max_len, layout)
+    cfg = model.cfg
+    B = tokens.shape[0]
     cache = init_cache(cfg, B, max_len, device=model.device)
     x = model.embed[tokens]
     positions = _positions(B, S, x.device)

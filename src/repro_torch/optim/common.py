@@ -114,23 +114,26 @@ def apply_updates(params: Params, updates: Params) -> Params:
             for k, p in params.items()}
 
 
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Params, shardings=None) -> torch.Tensor:
     """sqrt of the per-leaf f32 sums of squares, added in leaf order. Of
-    placed leaves each process sums its block, the blocks' sums are added
-    over the mesh in one collective (each block counted once), and the
-    result is the same on every process."""
+    a mesh's leaves each process sums its block, the blocks' sums are
+    added over the mesh in one collective (each block counted once), and
+    the result is the same on every process. The leaves are placed, or
+    plain blocks that ``shardings`` ({key: NamedSharding}) places."""
     keys = leaf_order(tree)
     sums = [local(tree[k]).float().square().sum() for k in keys]
-    placed = [_is_placed(tree[k]) for k in keys]
-    if any(placed):
-        from repro_torch.sharding import rules, spmd
-        ref = tree[keys[placed.index(True)]]
+    if shardings is None and any(_is_placed(tree[k]) for k in keys):
+        from repro_torch.sharding import rules
+        shardings = {k: rules.sharding_of(tree[k]) for k in keys
+                     if _is_placed(tree[k])}
+    if shardings and keys:
+        from repro_torch.sharding import spmd
+        mesh = next(iter(shardings.values())).mesh
         reps = torch.tensor(
-            [spmd.replicas(rules.sharding_of(tree[k])) if p else
-             ref.device_mesh.size() for k, p in zip(keys, placed)],
-            dtype=torch.float32, device=sums[0].device)
+            [spmd.replicas(shardings[k]) if k in shardings else mesh.size()
+             for k in keys], dtype=torch.float32, device=sums[0].device)
         sums = list(spmd.mesh_sum(torch.stack(sums) / reps,
-                                  ref.device_mesh).unbind(0))
+                                  mesh).unbind(0))
     tot = torch.zeros((), dtype=torch.float32,
                       device=sums[0].device if keys else None)
     for s in sums:
@@ -138,9 +141,9 @@ def global_norm(tree: Params) -> torch.Tensor:
     return torch.sqrt(tot)
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float, shardings=None
                         ) -> Tuple[Params, torch.Tensor]:
-    n = global_norm(grads)
+    n = global_norm(grads, shardings)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     return {k: like(local(g) * scale.to(g.dtype), g)
             for k, g in grads.items()}, n

@@ -309,6 +309,33 @@ def opt_state_specs(opt_state_shape, param_shardings, mesh):
     return _map_leaves(lambda _: rep, opt_state_shape)
 
 
+def cache_specs(cache, mesh, batch: int):
+    """The shardings of a decode cell's KV cache (an ``LMCache`` of tensors
+    or shapes; None leaves stay None), the reference's choice for its
+    ``batch`` rows: with at least one row a data process, the rows over
+    the data axes and the sequence over "model" (batch-DP plus sequence
+    parallelism); with fewer, the sequence over every axis, data major
+    (pure sequence parallelism), the rows and ``length`` replicated. Every
+    spec passes ``_guard``."""
+    dp = dp_axes(mesh)
+    n = 1
+    for a in dp:
+        n *= mesh_sizes(mesh)[a]
+    rows = dp if len(dp) > 1 else (dp[0] if dp else None)
+    if batch >= n:
+        kv, ln = (None, rows, None, "model", None), (rows,)
+    else:
+        kv, ln = (None, None, None, dp + ("model",), None), (None,)
+
+    def one(leaf):
+        if leaf is None:
+            return None
+        shape = _shape(leaf)
+        return NamedSharding(mesh, _guard(kv if len(shape) == 5 else ln,
+                                          shape, mesh))
+    return type(cache)(*(one(x) for x in cache))
+
+
 def drop_fsdp(shardings, mesh=None):
     """The FSDP ("data") axis replaced by replication in a tree of
     shardings: the gather-once layout, each process holding its model

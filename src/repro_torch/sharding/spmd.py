@@ -18,6 +18,15 @@ an FSDP-sharded leaf, an all-reduce onto a data-replicated one).
 Every function here is the identity, and launches nothing, over an axis
 of size 1. An f32 sum across processes is the collective's sum, in its own
 order: results match one card within a tolerance, not bit for bit.
+
+Every collective made here (and by ``repro_torch.dist``'s crawl group) is
+counted by kind (all-gather, reduce-scatter, all-reduce, all-to-all,
+broadcast) with its operand's bytes, the reference's ``collectives`` and
+``collective_bytes`` (``collectives``, ``reset_collectives``). A tensor on
+``meta`` takes the collective's meta route, as the kernel wrappers do: the
+result's shape, the count and the bytes, and no process group. The dry
+run reckons one process's program of a mesh that way, under a
+``MetaMesh`` (the mesh's shape and that process's coordinate).
 """
 from __future__ import annotations
 
@@ -30,6 +39,75 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding import rules
+
+
+# -- the count of collectives ----------------------------------------------
+
+_COUNTS: Dict[str, list] = {}
+
+
+def count_collective(kind: str, nbytes: int) -> None:
+    """One collective of ``kind`` whose operand holds ``nbytes`` bytes."""
+    c = _COUNTS.setdefault(kind, [0, 0])
+    c[0] += 1
+    c[1] += int(nbytes)
+
+
+def reset_collectives() -> None:
+    _COUNTS.clear()
+
+
+def collectives() -> Dict[str, Dict[str, int]]:
+    """{kind: {"count", "bytes"}} since the last ``reset_collectives``."""
+    return {k: {"count": c[0], "bytes": c[1]} for k, c in
+            sorted(_COUNTS.items())}
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class MetaMesh:
+    """A mesh as one of its processes sees it, with no devices and no
+    process group: the axis names and sizes of a mesh shape
+    (``rules.mesh_sizes``) and the coordinate of process ``rank`` (the
+    last axis minor). It stands in for a ``DeviceMesh`` wherever the
+    models and the specs read one (``activation_mesh``, ``Axis``,
+    ``rules.local_slices``); its collectives take the meta route, so it
+    carries meta tensors only. The dry run reckons a mesh cell as one
+    process's program under it."""
+
+    def __init__(self, shape, rank: int = 0):
+        sizes = rules.mesh_sizes(shape)
+        self.mesh_dim_names = tuple(sizes)
+        self.shape = tuple(sizes.values())
+        n = 1
+        for s in self.shape:
+            n *= s
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n}")
+        self.rank, self._size = rank, n
+        coord, r = [], rank
+        for s in reversed(self.shape):
+            coord.append(r % s)
+            r //= s
+        self._coord = coord[::-1]
+
+    def size(self) -> int:
+        return self._size
+
+    def get_coordinate(self):
+        return list(self._coord)
+
+    def get_local_rank(self, name: str) -> int:
+        return self._coord[self.mesh_dim_names.index(name)]
+
+    def get_group(self, name: str):
+        return None
+
+    def __repr__(self) -> str:
+        return (f"MetaMesh({dict(zip(self.mesh_dim_names, self.shape))}, "
+                f"rank={self.rank})")
 
 
 class Axis:
@@ -58,7 +136,9 @@ def dp_axes() -> Tuple[Axis, ...]:
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
     x = x.contiguous().clone()
-    dist.all_reduce(x, op=op, group=group)
+    count_collective("all-reduce", _nbytes(x))
+    if not x.is_meta:
+        dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -68,7 +148,9 @@ def all_gather(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
         return x
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((axis.size * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=axis.group)
+    count_collective("all-gather", _nbytes(src))
+    if not src.is_meta:
+        dist.all_gather_into_tensor(out, src, group=axis.group)
     return out.movedim(0, dim)
 
 
@@ -78,9 +160,11 @@ def reduce_scatter(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
         return x
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // axis.size,) + tuple(src.shape[1:]))
-    fn = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
-    fn(out, src, group=axis.group)
+    count_collective("reduce-scatter", _nbytes(src))
+    if not src.is_meta:
+        fn = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        fn(out, src, group=axis.group)
     return out.movedim(0, dim)
 
 
@@ -152,7 +236,9 @@ def _a2a(x: torch.Tensor, axis: Axis) -> torch.Tensor:
         return x
     src = x.contiguous()
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=axis.group)
+    count_collective("all-to-all", _nbytes(src))
+    if not src.is_meta:
+        dist.all_to_all_single(out, src, group=axis.group)
     return out
 
 
@@ -210,6 +296,46 @@ def mesh_mean(x: torch.Tensor, tp: Axis) -> torch.Tensor:
 def tp_max(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The model processes' elementwise max, without gradient."""
     return all_reduce(x.detach(), axis, dist.ReduceOp.MAX)
+
+
+def gather_axes(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """The parts of ``x`` held along ``axes`` (major first) joined along
+    ``dim``, in the mesh's order."""
+    for axis in reversed(tuple(axes)):
+        x = all_gather(x, dim, axis)
+    return x
+
+
+def heads_to_sequence(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """x (B, H / n, S, hd), this process's heads over the whole sequence
+    (n the axis's size), -> (B, H, S / n, hd), every head over this
+    process's part of the sequence, in axis order: one all-to-all."""
+    if axis.size == 1:
+        return x
+    B, hl, S, hd = x.shape
+    n = axis.size
+    parts = x.reshape(B, hl, n, S // n, hd).permute(2, 0, 1, 3, 4)
+    got = _a2a(parts, axis)          # part k: process k's heads
+    return got.permute(1, 0, 2, 3, 4).reshape(B, n * hl, S // n, hd)
+
+
+def merge_softmax(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                  axes) -> torch.Tensor:
+    """The attention output of keys split over ``axes``, from each
+    process's partial result over its own keys (f32): ``m`` its scores'
+    max (-inf where it holds no valid key), ``l`` the sum of exp(s - m)
+    and ``acc`` the unnormalised output (last dim hd). The max is taken
+    over the axes, each part is rescaled to it (exp(-inf) = 0: a process
+    without a valid key adds nothing), l and acc are added over the axes
+    (one all-reduce an axis), and the output is acc / l."""
+    mg = m
+    for axis in axes:
+        mg = all_reduce(mg, axis, dist.ReduceOp.MAX)
+    scale = torch.exp(m - mg)
+    both = torch.cat([l * scale, acc * scale], dim=-1)
+    for axis in axes:
+        both = all_reduce(both, axis)
+    return both[..., 1:] / both[..., :1]
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +412,9 @@ def joined(x):
     if not isinstance(x, Block):
         return x
     full = _Join.apply(x.block, x.sharding)
-    if _RELEASE and full.untyped_storage().data_ptr() != \
-            x.block.untyped_storage().data_ptr():
-        _RELEASE[-1][full.untyped_storage().data_ptr()] = (
-            weakref.ref(full), x)
+    if _RELEASE and full.untyped_storage()._cdata != \
+            x.block.untyped_storage()._cdata:
+        _RELEASE[-1][full.untyped_storage()._cdata] = (weakref.ref(full), x)
     return full
 
 
@@ -314,8 +439,8 @@ def released():
     live: Dict[int, tuple] = {}
 
     def pack(t):
-        try:
-            ent = live.get(t.untyped_storage().data_ptr())
+        try:           # by storage (a meta storage has no address)
+            ent = live.get(t.untyped_storage()._cdata)
         except RuntimeError:         # a tensor without storage
             return t
         if ent is None or ent[0]() is None:
@@ -384,6 +509,24 @@ def lazy_layers(params, k) -> list:
             else list(params[k].unbind(0)))
 
 
+class RowBlock(NamedTuple):
+    """A table whose rows the model axis of ``mesh`` splits, as a loss
+    reads it: this process's ``block`` of rows and the whole table's
+    ``rows``. ``shape`` is the whole table's, as a DTensor's is, and
+    ``recsys.embedding_lookup`` looks it up row-parallel
+    (``row_parallel_lookup``) on any mesh, a ``MetaMesh`` included."""
+    block: torch.Tensor
+    device_mesh: object
+    rows: int
+
+    @property
+    def shape(self):
+        return torch.Size((self.rows,) + tuple(self.block.shape[1:]))
+
+    def to_local(self) -> torch.Tensor:
+        return self.block
+
+
 def row_parallel_lookup(block: torch.Tensor, ids: torch.Tensor, axis: Axis,
                         fetch) -> torch.Tensor:
     """The rows ``ids`` (within the table) of a table whose rows ``axis``
@@ -413,7 +556,7 @@ def replicas(sharding) -> int:
 def mesh_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``x`` over every process of ``mesh`` (the whole
     world: a train mesh holds every process of the group)."""
-    if mesh.size() != dist.get_world_size():
+    if not x.is_meta and mesh.size() != dist.get_world_size():
         raise ValueError(f"mesh of {mesh.size()} processes in a world of "
                          f"{dist.get_world_size()}")
     return _all_reduce(x, None) if mesh.size() > 1 else x

@@ -172,7 +172,8 @@ def _accumulate(loss_fn: Callable, params: Params, batch, microbatches: int
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
                     grad_clip: float = 1.0, microbatches: int = 1,
-                    param_resharding: Optional[Callable] = None):
+                    param_resharding: Optional[Callable] = None,
+                    shardings=None):
     """loss_fn(params, batch) -> scalar. Returns step(state, batch) ->
     (state, metrics). With microbatches > 1 the batch's leading axis is
     split, and the losses and gradients are added in f32 in order, then
@@ -180,12 +181,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
     applied to the parameters ONCE a step, before the microbatch loop,
     and only with microbatches > 1, where the reference applies it (its
     gather-once layout); the gradients are taken at what it returns and
-    the update applies to the state's parameters."""
+    the update applies to the state's parameters. ``shardings`` ({key:
+    NamedSharding} on one mesh) makes it the step of ONE process of that
+    mesh on its blocks as plain tensors (the state's parameters and
+    optimizer state, ``batch`` its rows): the placed step's work
+    (``_block_grads``, the global norm over the mesh's blocks). The dry
+    run reckons a mesh cell's process so under a ``spmd.MetaMesh``, where
+    every collective takes its meta route."""
+    if shardings is not None and param_resharding is not None:
+        raise ValueError("make_train_step: shardings= takes no "
+                         "param_resharding")
 
     def step(state: TrainState, batch) -> Tuple[TrainState,
                                                 Dict[str, torch.Tensor]]:
         once = param_resharding is not None and microbatches > 1
-        if _is_placed(next(iter(state.params.values()))):
+        if shardings is not None:
+            loss, grads = _block_grads(loss_fn, state.params, shardings,
+                                       batch, microbatches)
+        elif _is_placed(next(iter(state.params.values()))):
             loss, grads = _mesh_grads(loss_fn, state.params, batch,
                                       microbatches,
                                       param_resharding if once else None)
@@ -194,7 +207,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
                 loss_fn, param_resharding(state.params) if once
                 else state.params, batch, microbatches)
         with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            grads, gnorm = clip_by_global_norm(grads, grad_clip, shardings)
             updates, opt_state = optimizer.update(grads, state.opt_state,
                                                   state.params)
             params = apply_updates(state.params, updates)
@@ -203,6 +216,27 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
                 {"loss": loss, "grad_norm": gnorm, "step": local(nxt)})
 
     return step
+
+
+def _block_grads(loss_fn: Callable, blocks: Params, shard, batch,
+                 microbatches: int) -> Tuple[torch.Tensor, Params]:
+    """(loss, gradients) of this process's ``blocks`` (placed as ``shard``
+    says on its mesh) and batch rows: each microbatch's loss under the
+    mesh on a ``spmd.Joined`` view of the blocks, the gradients summed
+    over the data axes onto the blocks as the backward makes them; loss
+    and gradients scaled to the mean over the data processes."""
+    mesh = next(iter(shard.values())).mesh
+    dps = [spmd.Axis(mesh, a) for a in rules.dp_axes(mesh)]
+    with rules.activation_mesh(mesh):
+        loss, grads = _accumulate(
+            lambda p, b: loss_fn(spmd.Joined(p, shard), b), blocks, batch,
+            microbatches)
+    n_dp = 1
+    for a in dps:
+        loss = spmd.all_reduce(loss.float(), a)
+        n_dp *= a.size
+    scale = 1.0 / n_dp
+    return loss * scale, {k: g * scale for k, g in grads.items()}
 
 
 def _mesh_grads(loss_fn: Callable, params: Params, batch, microbatches: int,
@@ -221,22 +255,20 @@ def _mesh_grads(loss_fn: Callable, params: Params, batch, microbatches: int,
     over the data processes."""
     shard = {k: rules.sharding_of(p) for k, p in params.items()}
     mesh = next(iter(shard.values())).mesh
+    batch = _map(local, batch)
+    if resharding is None:
+        loss, grads = _block_grads(loss_fn, {k: local(p) for k, p in
+                                             params.items()}, shard, batch,
+                                   microbatches)
+        return loss, {k: like(g, params[k]) for k, g in grads.items()}
     dps = [spmd.Axis(mesh, a) for a in rules.dp_axes(mesh)]
     n_dp = 1
     for a in dps:
         n_dp *= a.size
-    batch = _map(local, batch)
     with rules.activation_mesh(mesh):
-        if resharding is not None:
-            held = {k: local(p) for k, p in resharding(params).items()}
-            loss, grads = _accumulate(loss_fn, held, batch, microbatches)
-            grads = {k: spmd.reduce_grad(g, shard[k])
-                     for k, g in grads.items()}
-        else:
-            loss, grads = _accumulate(
-                lambda p, b: loss_fn(spmd.Joined(p, shard), b),
-                {k: local(p) for k, p in params.items()}, batch,
-                microbatches)
+        held = {k: local(p) for k, p in resharding(params).items()}
+        loss, grads = _accumulate(loss_fn, held, batch, microbatches)
+        grads = {k: spmd.reduce_grad(g, shard[k]) for k, g in grads.items()}
     for a in dps:
         loss = spmd.all_reduce(loss.float(), a)
     scale = 1.0 / n_dp
